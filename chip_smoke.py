@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Chip smoke of the PyTorch port (``t2omca_tpu_torch``) on one NVIDIA GPU.
 
-Drives the port's main path — greedy serving at the north-star model
-widths with the hand-written flash-attention kernel — and holds every
-kernel of that path against its plain PyTorch version. Phases, one line
-each (any failed check ends the script with a non-zero exit):
+Drives the port's two main paths — greedy serving, and the QMIX
+learner's trainer step — at the north-star model widths through the
+hand-written flash-attention kernels, and holds every kernel of those
+paths against its plain PyTorch version. Phases, one line each (any
+failed check ends the script with a non-zero exit):
 
 1. device    require CUDA; the card's name and power limit (nvidia-smi)
 2. build     compile the kernels from the checkout's sources (nvcc)
@@ -22,7 +23,21 @@ each (any failed check ends the script with a non-zero exit):
              query-slice path
 5. profile   device time of one max-bucket f32 dispatch by kernel
              (torch.profiler), after the launch counts are read
-6. summary   the kernels JSON line, the card line, the result line
+6. kernels-bwd  K1 + residuals, K2 and K3 against their plain versions
+             at the learner agent (2048, 1, 4, 65, 256) and mixer
+             (32, 1, 268, 131, 256) shapes in f32 and bf16, the dense
+             learner's heads, odd shapes, masks, causal and the
+             all-masked row; times of each kernel (and of K1) at the two
+             learner shapes beside its bound, its plain version and the
+             SDPA forward+backward yardstick (never on the path)
+7. train     the trainer step (sample -> train -> priority feedback,
+             train/program.py) at the north-star widths, bf16,
+             kernels.attention=pallas, dense replay; 5 steps with exact
+             launch counts of all four kernels, the p50 step time (bf16,
+             and f32), the f32 pallas-vs-xla cross-check at batch 2
+             (query slice and dense; loss, grad_norm, gradients and the
+             params after one step), and a profile of one bf16 step
+8. summary   the kernels JSON line, the card line, the result line
 
 Run from the repository root: ``python3 chip_smoke.py``. The last line
 is ``{"ok": true, "device": {...}}``; it is printed only when every
@@ -31,6 +46,7 @@ phase passed.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import statistics
@@ -54,6 +70,21 @@ SEED = 0
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+#: backward kernels (and K1 + residuals' output) against their plain
+#: versions: f32 reassociation of D- and T-long sums; bf16 one rounding
+#: of each gradient, at the gradient's scale
+GRAD_TOL = {"float32": (1e-4, 1e-5), "bfloat16": (0.05, 0.02)}
+#: the learner's attention shapes at the north-star widths (B, H, Tq,
+#: Tk, D): the agent query slice (batch 32 x 64 agents, 1 row x 4
+#: heads, 65 tokens, emb 256) and the mixer query slice (67 rows x 4
+#: heads against 64 entities + 64 agents + 3 hyper tokens)
+AGENT_SHAPE = (2048, 1, 4, 65, 256)
+MIXER_SHAPE = (32, 1, 268, 131, 256)
+#: replay ring of the trainer step, cut from config 3's 2048 episodes:
+#: 64 episodes of 151 steps (bf16 storage, ~0.75 GB) are enough to
+#: sample batches of 32
+RING = 64
+TRAIN_STEPS = 5
 
 
 def check(cond: bool, what: str) -> None:
@@ -94,6 +125,34 @@ def attention_bound_ms(b, h, tq, tk, d, dtype_name: str) -> tuple:
     t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
             "operations")
+
+
+def bound_ms(nbytes: float, flops: float, dtype_name: str) -> tuple:
+    """→ (least ms, "bytes"|"operations"): the larger of the bytes over
+    the HBM rate and the FLOPs over the operand type's peak."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
+            "operations")
+
+
+def kernel_bounds(shape, dtype_name: str) -> dict:
+    """Bounds of K1, K1 + residuals, K2 and K3 on these inputs: each
+    input read once, each output written once (m, l, Δ are f32 rows),
+    against 4, 4, 6 and 8 x B·H·Tq·Tk·D FLOPs."""
+    b, h, tq, tk, d = shape
+    it = 4 if dtype_name == "float32" else 2
+    bh, mn = b * h, b * h * tq * tk * d
+    qd, kd, row = bh * tq * d * it, bh * tk * d * it, bh * tq * 4
+    return {
+        "flash_fwd": bound_ms(2 * qd + 2 * kd, 4 * mn, dtype_name),
+        "flash_fwd_res": bound_ms(2 * qd + 2 * kd + 2 * row, 4 * mn,
+                                  dtype_name),
+        "flash_bwd_dq": bound_ms(3 * qd + 2 * kd + 3 * row, 6 * mn,
+                                 dtype_name),
+        "flash_bwd_dkv": bound_ms(2 * qd + 4 * kd + 3 * row, 8 * mn,
+                                  dtype_name),
+    }
 
 
 def phase_kernels(torch, att):
@@ -331,6 +390,425 @@ def phase_profile(torch, fe, requests, n_iter: int = 3):
               f"{name[:90]}", flush=True)
 
 
+def phase_kernels_bwd(torch, att):
+    """K1 + residuals, K2 and K3 against their plain versions; times at
+    the learner shapes."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 7)
+    cases = [
+        # (name, (B, H, Tq, Tk, D), dtype, mask, causal)
+        ("agent", AGENT_SHAPE, "float32", None, False),
+        ("agent", AGENT_SHAPE, "bfloat16", None, False),
+        ("mixer", MIXER_SHAPE, "float32", None, False),
+        ("mixer", MIXER_SHAPE, "bfloat16", None, False),
+        ("dense_heads", (64, 4, 65, 65, 64), "float32", None, False),
+        ("odd", (8, 2, 5, 7, 12), "float32", "broadcast", False),
+        ("masked_per_head_causal", (64, 4, 65, 65, 64), "float32",
+         "per_head", True),
+        ("masked_broadcast_bf16", (64, 4, 65, 65, 64), "bfloat16",
+         "broadcast", False),
+        ("all_masked_row", (16, 2, 40, 40, 8), "float32",
+         "all_masked_row", True),
+    ]
+    errs, inputs = {}, {}
+    for name, (b, h, tq, tk, d), dt, mask, causal in cases:
+        dtype = getattr(torch, dt)
+        q, k = (torch.randn(b, h, t, d, device=dev, generator=g)
+                * d ** -0.25 for t in (tq, tk))       # Q1 scaling
+        v = torch.randn(b, h, tk, d, device=dev, generator=g)
+        do = torch.randn(b, h, tq, d, device=dev, generator=g)
+        q, k, v, do = (x.to(dtype) for x in (q, k, v, do))
+        bias = None
+        if mask is not None:
+            hm = h if mask == "per_head" else 1
+            m = torch.rand(b, hm, tq, tk, device=dev, generator=g) > 0.3
+            if mask == "all_masked_row":
+                m[:, :, 3] = False
+            bias = torch.where(m, 0.0, att.NEG_MASK_VALUE)
+        o, mm, ll = att._launch_res(q, k, v, bias, causal)
+        dq, dk, dv = att._launch_bwd(q, k, v, bias, causal, o, mm, ll, do)
+        torch.cuda.synchronize()
+        o_r, m_r, l_r = att.flash_attention_fwd_reference(q, k, v, bias,
+                                                          causal)
+        ref = att.flash_attention_bwd_reference(q, k, v, bias, causal, o_r,
+                                                m_r, l_r, do)
+        rel = lambda a, b_: ((a - b_).abs() / b_.abs().clamp(min=1e-30)
+                             ).max().item()
+        m_err, l_err = rel(mm, m_r), rel(ll, l_r)
+        check(m_err <= 1e-5 and l_err <= 1e-5,
+              f"{name} {dt} residuals: rel err m {m_err:.2e} l {l_err:.2e}")
+        o_err = (o.float() - o_r.float()).abs().max().item()
+        check(o_err <= TOL[dt], f"{name} {dt} K1+res output err {o_err:.3e}")
+        rtol, atol = GRAD_TOL[dt]
+        gerr = {}
+        for gname, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
+            check(got.dtype == dtype and got.shape == want.shape,
+                  f"{name} {gname} {got.dtype} {tuple(got.shape)}")
+            w32, g32 = want.float(), got.float()
+            scale = max(w32.abs().max().item(), 1.0)
+            lim = atol * (scale if dt == "bfloat16" else 1.0) \
+                + rtol * w32.abs()
+            bad = ((g32 - w32).abs() > lim).sum().item()
+            gerr[gname] = (g32 - w32).abs().max().item()
+            check(bad == 0, f"{name} {dt} {gname}: {bad} elements outside "
+                            f"rtol {rtol} atol {atol} (max err "
+                            f"{gerr[gname]:.3e})")
+        if mask == "all_masked_row":
+            check(dq[:, :, 3].abs().max().item() == 0.0,
+                  "all-masked row: dq not exactly 0")
+            check(dv.abs().max().item() > 0.0, "all-masked row: dv is 0")
+        errs[(name, dt)] = {"flash_fwd_res": o_err,
+                            "flash_bwd_dq": gerr["dq"],
+                            "flash_bwd_dkv": max(gerr["dk"], gerr["dv"])}
+        print(f"[kernels-bwd] {name} B,H,Tq,Tk,D={b},{h},{tq},{tk},{d} {dt}"
+              f" mask={mask} causal={causal}: m/l rel err {m_err:.1e}/"
+              f"{l_err:.1e}, o {o_err:.2e}, dq {gerr['dq']:.2e}, dk "
+              f"{gerr['dk']:.2e}, dv {gerr['dv']:.2e} ok", flush=True)
+        if name in ("agent", "mixer"):
+            inputs[(name, dt)] = (q, k, v, do)
+        del q, k, v, do, o, dq, dk, dv, ref, o_r
+    torch.cuda.empty_cache()
+
+    import torch.nn.functional as F
+    times = {}
+    for (name, dt), (q, k, v, do) in inputs.items():
+        shape = tuple(q.shape) + (k.shape[2],)
+        shape = (shape[0], shape[1], shape[2], shape[4], shape[3])
+        o, mm, ll = att._launch_res(q, k, v, None, False)
+        delta = (do.float() * o.float()).sum(dim=-1)
+        bounds = kernel_bounds(shape, dt)
+        qr, kr, vr = (x.detach().clone().requires_grad_() for x in (q, k, v))
+
+        def sdpa_fwd_bwd():
+            out = F.scaled_dot_product_attention(qr, kr, vr, scale=1.0)
+            out.backward(do)
+
+        def flash_fwd_bwd():
+            out = att.flash_attention(qr, kr, vr)
+            out.backward(do)
+
+        row = {
+            "flash_fwd": (
+                cuda_ms(lambda: att._launch(q, k, v, None, False)),
+                cuda_ms(lambda: att.flash_attention_reference(q, k, v))),
+            "flash_fwd_res": (
+                cuda_ms(lambda: att._launch_res(q, k, v, None, False)),
+                cuda_ms(lambda: att.flash_attention_fwd_reference(q, k,
+                                                                  v))),
+            "flash_bwd_dq": (
+                cuda_ms(lambda: att._launch_bwd_dq(q, k, v, None, False, do,
+                                                   mm, ll, delta)), None),
+            "flash_bwd_dkv": (
+                cuda_ms(lambda: att._launch_bwd_dkv(q, k, v, None, False,
+                                                    do, mm, ll, delta)),
+                None),
+        }
+        plain_bwd = cuda_ms(lambda: att.flash_attention_bwd_reference(
+            q, k, v, None, False, o, mm, ll, do))
+        sdpa_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, scale=1.0))
+        sdpa = cuda_ms(sdpa_fwd_bwd)
+        flash_total = cuda_ms(flash_fwd_bwd)
+        for kname, (ms, plain) in row.items():
+            bnd, by = bounds[kname]
+            lib = sdpa_fwd if kname == "flash_fwd" else sdpa
+            times[(kname, name, dt)] = dict(
+                ms=ms, plain_ms=plain if plain is not None else plain_bwd,
+                bound_ms=bnd, bound_by=by, library_ms=lib,
+                shape=list(shape), dtype=dt)
+            print(f"[kernels-bwd] time {kname} {name} {dt}: kernel "
+                  f"{ms:.4f} ms, plain {times[(kname, name, dt)]['plain_ms']:.4f}"
+                  f" ms, bound {bnd:.4f} ms ({by}), sdpa "
+                  f"{'fwd' if kname == 'flash_fwd' else 'fwd+bwd'} "
+                  f"{lib:.4f} ms, kernel/bound {ms / bnd:.1f}x", flush=True)
+        print(f"[kernels-bwd] time {name} {dt}: flash fwd+bwd through the "
+              f"autograd Function {flash_total:.4f} ms vs sdpa fwd+bwd "
+              f"{sdpa:.4f} ms (plain bwd covers dq, dk, dv together: "
+              f"{plain_bwd:.4f} ms)", flush=True)
+        del qr, kr, vr, o, mm, ll, delta
+    del inputs
+    torch.cuda.empty_cache()
+    return errs, times
+
+
+def train_cfg(dtype: str, attention: str = "pallas", use_qslice=True,
+              batch_size: int = 32, episode_limit: int = 150):
+    from t2omca_tpu_torch.config import from_dict
+    d = json.loads(json.dumps(NORTH_STAR))
+    d["batch_size"] = batch_size
+    d["env_args"]["episode_limit"] = episode_limit
+    d["model"].update(dtype=dtype, use_qslice=use_qslice)
+    d["kernels"] = {"attention": attention}
+    d["replay"] = {"buffer_size": RING, "store_dtype": "bfloat16",
+                   "compact_entity_store": False}
+    return from_dict(d)
+
+
+def make_episodes(torch, info, b: int, t: int, g, store_dtype):
+    """Seeded episodes on the card: obs/state ~N(0, 1), action 0 always
+    available and every action legal, rewards ~N(0, 1); every 4th
+    episode terminates mid-way (filled stops after it), every 4th + 1 is
+    cut short."""
+    from t2omca_tpu_torch.components.episode_buffer import EpisodeBatch
+    dev = torch.device("cuda")
+    a, n = info["n_agents"], info["n_actions"]
+    r = lambda *s: torch.rand(*s, device=dev, generator=g)
+    avail = r(b, t + 1, a, n) < 0.6
+    avail[..., 0] = True
+    actions = torch.where(avail[:, :-1], r(b, t, a, n), -1.0).argmax(-1)
+    stop = torch.randint(t // 2, t, (b,), device=dev, generator=g)
+    steps = torch.arange(t, device=dev)
+    kind = torch.arange(b, device=dev) % 4
+    term = (kind == 0)[:, None] & (steps[None] == stop[:, None])
+    cut = (kind <= 1)[:, None] & (steps[None] > stop[:, None])
+    return EpisodeBatch(
+        obs=torch.randn(b, t + 1, a, info["obs_shape"], device=dev,
+                        generator=g).to(store_dtype),
+        state=torch.randn(b, t + 1, info["state_shape"], device=dev,
+                          generator=g).to(store_dtype),
+        avail_actions=avail, actions=actions.to(torch.int32),
+        reward=torch.randn(b, t, device=dev, generator=g),
+        terminated=term, filled=~cut)
+
+
+def build_learner(cfg, info):
+    from t2omca_tpu_torch.controllers.basic_mac import BasicMAC
+    from t2omca_tpu_torch.learners import QMixLearner
+    return QMixLearner.build(cfg, BasicMAC.build(cfg, info), info)
+
+
+def phase_train(torch, att):
+    """The trainer step at the north-star widths through the kernels."""
+    import numpy as np
+    from t2omca_tpu_torch.components.episode_buffer import \
+        PrioritizedReplayBuffer
+    from t2omca_tpu_torch.envs.registry import make_env
+    from t2omca_tpu_torch.train.program import TrainState, build_train_iter
+
+    cfg = train_cfg("bfloat16")
+    info = make_env(cfg.env_args).get_env_info()
+    t, depth = cfg.env_args.episode_limit, cfg.model.depth
+    check(cfg.model.mixer_depth == depth, "agent and mixer depth differ")
+    buffer = PrioritizedReplayBuffer(
+        capacity=RING, episode_limit=t, n_agents=info["n_agents"],
+        n_actions=info["n_actions"], obs_dim=info["obs_shape"],
+        state_dim=info["state_shape"], store_dtype="bfloat16",
+        alpha=cfg.replay.per_alpha, beta0=cfg.replay.per_beta,
+        t_max=cfg.t_max)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    ring = buffer.insert_episode_batch(
+        buffer.init(), make_episodes(torch, info, RING, t, g, torch.bfloat16))
+    print(f"[train] north-star widths: {info['n_agents']} agents, obs "
+          f"{info['obs_shape']}, state {info['state_shape']}, "
+          f"{info['n_actions']} actions, T={t}, batch {cfg.batch_size}, "
+          f"bf16, kernels.attention=pallas, dense replay; ring cut from "
+          f"2048 to {RING} episodes", flush=True)
+
+    def run(cfg, steps, g_sample, buffer, ring):
+        learner = build_learner(cfg, info)
+        ls = learner.init_state(torch.Generator().manual_seed(SEED))
+        ts = TrainState(learner=ls, buffer=ring, episode=RING)
+        train_iter = build_train_iter(buffer, learner, cfg)
+        p0 = {m: {k: v.clone() for k, v in sub.items()}
+              for m, sub in ls.params.items()}
+        times, infos = [], []
+        for i in range(steps):
+            before = ts.buffer.priorities.clone()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ts, info_i = train_iter(ts, 1000 * (i + 1), generator=g_sample)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            loss, gn = float(info_i["loss"]), float(info_i["grad_norm"])
+            check(np.isfinite(loss) and np.isfinite(gn),
+                  f"step {i}: loss {loss} grad_norm {gn}")
+            check(bool(info_i["all_finite"]), f"step {i}: all_finite False")
+            check(bool((ts.buffer.priorities != before).any()),
+                  f"step {i}: no sampled priority changed")
+            infos.append((loss, gn))
+        moved = max((ts.learner.params[m][k] - p0[m][k]).abs().max().item()
+                    for m in p0 for k in p0[m])
+        check(moved > 0.0, "params did not move")
+        return ts, learner, times, infos, moved
+
+    g_sample = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    torch.cuda.reset_peak_memory_stats()
+    att.reset_launches()                 # ---- the train path starts here
+    ts, learner, times, infos, moved = run(cfg, TRAIN_STEPS, g_sample,
+                                           buffer, ring)
+    launches = dict(att.LAUNCHES)        # ---- the train path ends here
+    peak_bf16 = torch.cuda.max_memory_allocated() / 2 ** 30
+    # per step: the target agent and mixer unrolls (T+1 steps each) and
+    # the online agent's bootstrap step T run K1; the online agent and
+    # mixer unrolls (T steps each) run K1 + residuals, then K2 and K3
+    want = {"flash_fwd": TRAIN_STEPS * (2 * (t + 1) + 1) * depth,
+            "flash_fwd_res": TRAIN_STEPS * 2 * t * depth,
+            "flash_bwd_dq": TRAIN_STEPS * 2 * t * depth,
+            "flash_bwd_dkv": TRAIN_STEPS * 2 * t * depth}
+    check(launches == want, f"train launches {launches} != {want}")
+    p50 = statistics.median(times)
+    print(f"[train] bf16 {TRAIN_STEPS} trainer steps: p50 {p50:.1f} ms "
+          f"(each: {', '.join(f'{x:.1f}' for x in times)}), loss/grad_norm "
+          f"{', '.join(f'{a:.4g}/{b:.4g}' for a, b in infos)}, max param "
+          f"move {moved:.3e}, peak memory {peak_bf16:.2f} GiB", flush=True)
+    print(f"[train] launches over {TRAIN_STEPS} steps: {launches} (= per "
+          f"step: K1 (2(T+1)+1)·depth for the target unrolls and the "
+          f"online agent's bootstrap step, which feeds only the detached "
+          f"double-Q argmax; K1+res, K2, K3 2T·depth for the online "
+          f"unrolls)", flush=True)
+    result = {"p50_bf16_ms": p50, "launches": launches,
+              "peak_bf16_gib": peak_bf16}
+    del ts, learner
+    torch.cuda.empty_cache()
+
+    # f32 at full length when twice the bf16 peak fits with room to spare
+    total = torch.cuda.get_device_properties(0).total_memory / 2 ** 30
+    t32 = t if 2.2 * peak_bf16 < 0.85 * total else t // 3
+    cfg32 = train_cfg("float32", episode_limit=t32)
+    buf32, ring32 = buffer, ring
+    if t32 != t:
+        buf32 = dataclasses.replace(buffer, episode_limit=t32)
+        ring32 = buf32.insert_episode_batch(
+            buf32.init(), make_episodes(torch, info, RING, t32, g,
+                                        torch.bfloat16))
+    torch.cuda.reset_peak_memory_stats()
+    times32 = run(cfg32, 3, g_sample, buf32, ring32)[2]
+    peak32 = torch.cuda.max_memory_allocated() / 2 ** 30
+    p50_32 = statistics.median(times32)
+    print(f"[train] f32 3 trainer steps at T={t32}"
+          f"{'' if t32 == t else ' (episode_limit cut: f32 would not fit)'}"
+          f": p50 {p50_32:.1f} ms, peak memory {peak32:.2f} GiB", flush=True)
+    result.update(p50_f32_ms=p50_32, f32_episode_limit=t32)
+    torch.cuda.empty_cache()
+
+    # f32 cross-check, full width, batch 2: pallas against xla
+    batch, _, w = buffer.sample(
+        ring, 2, 1000, u=torch.tensor([0.25, 0.75], device="cuda"))
+    for use_qslice in (True, False):
+        outs = {attention: cross_check_step(torch, info, attention,
+                                            use_qslice, batch, w)
+                for attention in ("pallas", "xla")}
+        report = compare_steps(torch, outs["pallas"], outs["xla"],
+                               cfg.lr, cfg.optim_eps)
+        what = "query slice" if use_qslice else "dense"
+        print(f"[train] f32 cross-check ({what}, batch 2, T={t}, gate "
+              f"{CROSS_GATE}): pallas vs xla {report}", flush=True)
+        del outs
+        torch.cuda.empty_cache()
+    return result, buffer, ring, cfg, info
+
+
+#: the f32 cross-check's operating point: the zero-init mixer gate
+#: (model.mixer_zero_init) opened to this value. At the reference init
+#: the mixer's q_tot at emb 256 is O(1e3), the loss O(1e7) and the
+#: pre-clip gradient norm O(1e7), where two f32 lowerings of the same
+#: function differ by ~1e-4 in grad_norm from rounding alone (PERF.md).
+CROSS_GATE = 1e-3
+
+
+def cross_check_step(torch, info, attention, use_qslice, batch, w):
+    """One f32 train step at batch 2 → (loss, grad_norm, clipped
+    gradients, params after the step)."""
+    from t2omca_tpu_torch.learners.qmix_learner import (
+        clip_by_global_norm, global_norm)
+    cfg = train_cfg("float32", attention, use_qslice, batch_size=2)
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, mixer_zero_init=True))
+    lrn = build_learner(cfg, info)
+    ls = lrn.init_state(torch.Generator().manual_seed(SEED))
+    for tree in (ls.params, ls.target_params):
+        tree["mixer"]["out_gate"].fill_(CROSS_GATE)
+    params = {m: {k: v.detach().requires_grad_() for k, v in sub.items()}
+              for m, sub in ls.params.items()}
+    loss, _ = lrn._loss(params, ls.target_params, batch, w)
+    leaves = [(m, k) for m in params for k in params[m]]
+    grads = torch.autograd.grad(loss, [params[m][k] for m, k in leaves],
+                                allow_unused=True)
+    tree = {m: {} for m in params}
+    for (m, k), g in zip(leaves, grads):
+        tree[m][k] = torch.zeros_like(params[m][k]) if g is None else g
+    clipped = clip_by_global_norm(tree, global_norm(tree),
+                                  cfg.grad_norm_clip)
+    ls2, inf = lrn.train(ls, batch, w, 1000, RING)
+    return (float(inf["loss"]), float(inf["grad_norm"]), clipped,
+            ls2.params)
+
+
+def compare_steps(torch, pallas, xla, lr: float, eps: float) -> str:
+    """Hold one pallas step against one xla step: loss rtol 1e-5,
+    grad_norm rtol 1e-4, every clipped gradient tensor within 1e-3 of
+    its own max, params within atol 1e-5 wherever Adam's first step is
+    well-conditioned (clipped |g| >= 10·eps) and, elsewhere, within the
+    step's own sensitivity lr·|Δg|/eps (+1e-6): Adam's first update
+    -lr·g/(|g| + eps) has slope lr/eps there."""
+    (lp, gp, cp, pp), (lx, gx, cx, px) = pallas, xla
+    dl = abs(lp - lx) / max(abs(lx), 1e-30)
+    dg = abs(gp - gx) / max(abs(gx), 1e-30)
+    check(dl <= 1e-5, f"loss rel {dl:.2e} > 1e-5")
+    check(dg <= 1e-4, f"grad_norm rel {dg:.2e} > 1e-4")
+    worst_g = worst_well = worst_all = 0.0
+    for m in px:
+        for k in px[m]:
+            gdiff = (cp[m][k] - cx[m][k]).abs()
+            scale = cx[m][k].abs().max().item()
+            rel = gdiff.max().item() / max(scale, 1e-30)
+            check(rel <= 1e-3, f"{m}.{k}: clipped gradient off by {rel:.2e}"
+                               f" of its max")
+            worst_g = max(worst_g, rel)
+            pdiff = (pp[m][k] - px[m][k]).abs()
+            well = cx[m][k].abs() >= 10 * eps
+            if bool(well.any()):
+                worst_well = max(worst_well, pdiff[well].max().item())
+            bad = pdiff > lr * gdiff / eps + 1e-6
+            check(not bool((bad & ~well).any()),
+                  f"{m}.{k}: params off by more than lr·|Δg|/eps")
+            worst_all = max(worst_all, pdiff.max().item())
+    check(worst_well <= 1e-5, f"params (well-conditioned) off by "
+                              f"{worst_well:.2e} > 1e-5")
+    return (f"loss {lp:.6g}/{lx:.6g} rel {dl:.2e} (1e-5), grad_norm rel "
+            f"{dg:.2e} (1e-4), clipped grads {worst_g:.2e} of each "
+            f"tensor's max (1e-3), params {worst_well:.2e} where |g| >= "
+            f"10·eps (1e-5), {worst_all:.2e} over all elements "
+            f"(<= lr·|Δg|/eps) ok")
+
+
+def phase_profile_train(torch, buffer, ring, cfg, info):
+    """Where one bf16 trainer step spends device time (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+    from t2omca_tpu_torch.train.program import TrainState, build_train_iter
+    learner = build_learner(cfg, info)
+    ts = TrainState(learner=learner.init_state(
+        torch.Generator().manual_seed(SEED)), buffer=ring, episode=RING)
+    train_iter = build_train_iter(buffer, learner, cfg)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    ts, _ = train_iter(ts, 1000, generator=g)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        train_iter(ts, 2000, generator=g)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    rows = []
+    for e in prof.key_averages():
+        if not str(e.device_type).endswith("CUDA"):
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        if us > 0:
+            rows.append((us / 1e3, e.count, e.key))
+    busy = sum(r[0] for r in rows)
+    check(busy > 0, "profiler saw no device time in the trainer step")
+    rows.sort(reverse=True)
+    print(f"[profile] bf16 trainer step: host {wall:.1f} ms (profiled), "
+          f"device busy {busy:.1f} ms ({100 * busy / wall:.1f}%), idle "
+          f"{100 * (1 - busy / wall):.1f}%", flush=True)
+    for ms, n, name in rows[:12]:
+        print(f"[profile]   {ms:9.2f} ms {100 * ms / busy:5.1f}% x{n} "
+              f"{name[:90]}", flush=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -364,19 +842,53 @@ def main() -> int:
     errs, times = phase_kernels(torch, att)
     launches, fe32, requests = phase_serve(torch, att)
     phase_profile(torch, fe32, requests)
+    del fe32
+    torch.cuda.empty_cache()
+    errs_bwd, times_bwd = phase_kernels_bwd(torch, att)
+    train, buffer, ring, cfg, info = phase_train(torch, att)
+    phase_profile_train(torch, buffer, ring, cfg, info)
 
     ms, plain, lib_ms, bound, by = times["float32"]
+    learner_times = lambda name: [times_bwd[(name, s, dt)]
+                                  for s in ("agent", "mixer")
+                                  for dt in ("bfloat16", "float32")]
     kernels = [{
         "name": "flash_fwd",
         "route": "cuda",
         "source": "t2omca_tpu_torch/kernels/csrc/flash_fwd.cu",
         "replaces": "t2omca_tpu/kernels/attention.py:115",
-        "launches": launches["flash_fwd"],
+        "launches": launches["flash_fwd"] + train["launches"]["flash_fwd"],
+        "launches_by_path": {"serve": launches["flash_fwd"],
+                             "train": train["launches"]["flash_fwd"]},
         "max_abs_err": errs[("serve", "float32")],
         "ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
         "library_ms": lib_ms,
         "shape": [4096, 4, 65, 65, 64], "dtype": "float32",
+        "learner_shapes": learner_times("flash_fwd"),
     }]
+    sources = {"flash_fwd_res": ("flash_fwd.cu", ":115 (pallas_call :383)"),
+               "flash_bwd_dq": ("flash_bwd.cu", ":210 (pallas_call :437)"),
+               "flash_bwd_dkv": ("flash_bwd.cu", ":253 (pallas_call :464)")}
+    for name, (src, line) in sources.items():
+        head = times_bwd[(name, "agent", "bfloat16")]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"t2omca_tpu_torch/kernels/csrc/{src}",
+            "replaces": f"t2omca_tpu/kernels/attention.py{line}",
+            "launches": train["launches"][name],
+            "launches_by_path": {"serve": 0,
+                                 "train": train["launches"][name]},
+            "max_abs_err": errs_bwd[("agent", "bfloat16")][name],
+            "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": head["library_ms"],
+            "shape": head["shape"], "dtype": "bfloat16",
+            "max_abs_err_f32": errs_bwd[("agent", "float32")][name],
+            "learner_shapes": learner_times(name),
+        })
+    print(f"[summary] trainer step p50: bf16 {train['p50_bf16_ms']:.1f} ms, "
+          f"f32 {train['p50_f32_ms']:.1f} ms (T="
+          f"{train['f32_episode_limit']})", flush=True)
     print(f"[summary] total {time.perf_counter() - t_start:.1f} s",
           flush=True)
     print(smi_line(), flush=True)

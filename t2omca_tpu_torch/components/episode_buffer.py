@@ -1,0 +1,250 @@
+"""Episode batch and replay buffers on the device (port of
+``t2omca_tpu/components/episode_buffer.py``, dense storage).
+
+Scheme: ``state (T+1, S)``, per-agent ``obs (T+1, A, O)``,
+``avail_actions (T+1, A, n_actions)`` bool, ``actions (T, A)`` int32,
+``reward (T,)``, ``terminated (T,)`` bool, ``filled (T,)`` bool; step T
+of obs/state/avail is the bootstrap observation. The ring lives on the
+buffer's device, sampling and priority feedback never leave it.
+
+Differences from the JAX package, by design:
+
+* The ring's episode storage is updated IN PLACE by ``insert_episode_
+  batch`` (``index_copy_``): it is the largest tensor on the card, and
+  JAX only avoids the copy by donating it. The small priority vector is
+  replaced, not written in place. The ring cursor and fill count are
+  host integers (the host decides every insert anyway).
+* Draws come from a ``torch.Generator``, or are handed in: the PER
+  ``sample`` takes ``u`` (one uniform per stratum) and the uniform
+  ``sample`` takes ``scores`` (one per slot), so a test can give both
+  packages the same numbers. The JAX package's threefry stream is not
+  reproduced.
+* Compact entity storage and ``insert_time_major`` are later slices
+  (``ROADMAP.md`` Queue A).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import torch
+
+from ..device import DeviceLike, resolve_device
+
+_STORE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+@dataclasses.dataclass
+class EpisodeBatch:
+    """One (batch of) episode(s): tensors shaped ``(B, T(+1), ...)``."""
+
+    obs: torch.Tensor            # (B, T+1, A, obs_dim) store dtype
+    state: torch.Tensor          # (B, T+1, state_dim) store dtype
+    avail_actions: torch.Tensor  # (B, T+1, A, n_actions) bool
+    actions: torch.Tensor        # (B, T, A) int32
+    reward: torch.Tensor         # (B, T) float32
+    terminated: torch.Tensor     # (B, T) bool: env-terminal, time limit
+                                 # excluded (Q7)
+    filled: torch.Tensor         # (B, T) bool
+
+    @property
+    def batch_size(self) -> int:
+        return self.obs.shape[0]
+
+    @property
+    def max_seq_length(self) -> int:
+        return self.actions.shape[1]
+
+    def map(self, fn) -> "EpisodeBatch":
+        return EpisodeBatch(**{f.name: fn(getattr(self, f.name))
+                               for f in dataclasses.fields(self)})
+
+
+@dataclasses.dataclass
+class BufferState:
+    """The ring plus PER priorities."""
+
+    storage: EpisodeBatch        # (capacity, T(+1), ...)
+    insert_pos: int              # next ring slot
+    episodes_in_buffer: int
+    # (capacity,) f32, stored PRE-EXPONENTIATED (p^alpha) by the
+    # prioritized buffer, raw by the uniform one (which never samples by
+    # priority)
+    priorities: torch.Tensor
+    max_priority: torch.Tensor   # () f32: running max of RAW priorities
+
+
+@dataclasses.dataclass(frozen=True)
+class ReplayBuffer:
+    """Uniform episode replay. ``device``: ``cuda`` unless named."""
+
+    capacity: int
+    episode_limit: int
+    n_agents: int
+    n_actions: int
+    obs_dim: int
+    state_dim: int
+    store_dtype: str = "float32"
+    compact_obs: bool = False
+    device: DeviceLike = None
+
+    def __post_init__(self):
+        if self.capacity < 1:
+            raise ValueError(f"buffer capacity must be >= 1, got "
+                             f"{self.capacity}")
+        if self.compact_obs:
+            raise NotImplementedError(
+                "compact entity storage is not ported yet (ROADMAP.md "
+                "Queue A item 5: the entity tables); set "
+                "replay.compact_entity_store=false")
+        if self.store_dtype not in _STORE_DTYPES:
+            raise ValueError(f"store_dtype must be one of "
+                             f"{sorted(_STORE_DTYPES)}, got "
+                             f"{self.store_dtype!r}")
+        object.__setattr__(self, "device", resolve_device(self.device))
+
+    def init(self) -> BufferState:
+        c, t, a = self.capacity, self.episode_limit, self.n_agents
+        sd, dev = _STORE_DTYPES[self.store_dtype], self.device
+        storage = EpisodeBatch(
+            obs=torch.zeros(c, t + 1, a, self.obs_dim, dtype=sd, device=dev),
+            state=torch.zeros(c, t + 1, self.state_dim, dtype=sd,
+                              device=dev),
+            avail_actions=torch.zeros(c, t + 1, a, self.n_actions,
+                                      dtype=torch.bool, device=dev),
+            actions=torch.zeros(c, t, a, dtype=torch.int32, device=dev),
+            reward=torch.zeros(c, t, device=dev),
+            terminated=torch.zeros(c, t, dtype=torch.bool, device=dev),
+            filled=torch.zeros(c, t, dtype=torch.bool, device=dev),
+        )
+        return BufferState(storage=storage, insert_pos=0,
+                           episodes_in_buffer=0,
+                           priorities=torch.zeros(c, device=dev),
+                           max_priority=torch.ones((), device=dev))
+
+    def _ring_slots(self, state: BufferState, b: int) -> torch.Tensor:
+        if b > self.capacity:
+            raise ValueError(
+                f"insert batch of {b} episodes exceeds buffer capacity "
+                f"{self.capacity}; raise replay.buffer_size above "
+                f"batch_size_run")
+        return (state.insert_pos + torch.arange(b, device=self.device)
+                ) % self.capacity
+
+    def _insert_priority(self, state: BufferState) -> torch.Tensor:
+        """Stored priority of freshly inserted episodes: the raw running
+        max here, pre-exponentiated by the prioritized subclass."""
+        return state.max_priority
+
+    def insert_episode_batch(self, state: BufferState, batch: EpisodeBatch
+                             ) -> BufferState:
+        """Ring-insert ``B`` episodes, overwriting the oldest when full;
+        the storage is written in place (see the module docstring)."""
+        b = batch.batch_size
+        idx = self._ring_slots(state, b)
+        for f in dataclasses.fields(EpisodeBatch):
+            dst = getattr(state.storage, f.name)
+            dst.index_copy_(0, idx, getattr(batch, f.name).to(
+                device=dst.device, dtype=dst.dtype))
+        stamp = self._insert_priority(state).expand(b)
+        return dataclasses.replace(
+            state,
+            insert_pos=(state.insert_pos + b) % self.capacity,
+            episodes_in_buffer=min(state.episodes_in_buffer + b,
+                                   self.capacity),
+            priorities=state.priorities.index_put((idx,), stamp))
+
+    def can_sample(self, state: BufferState, batch_size: int) -> bool:
+        return state.episodes_in_buffer >= batch_size
+
+    def _gather(self, state: BufferState, idx: torch.Tensor
+                ) -> EpisodeBatch:
+        return state.storage.map(lambda s: s.index_select(0, idx))
+
+    def sample(self, state: BufferState, batch_size: int, t_env=0,
+               generator: Optional[torch.Generator] = None,
+               scores: Optional[torch.Tensor] = None
+               ) -> Tuple[EpisodeBatch, torch.Tensor, torch.Tensor]:
+        """→ (batch, idx, weights). Uniform without replacement (weights
+        1): the top ``batch_size`` of one random score per valid slot.
+        ``scores`` (``(capacity,)``) replaces the draw from
+        ``generator``."""
+        del t_env
+        if scores is None:
+            scores = torch.rand(self.capacity, generator=generator,
+                                device=self.device)
+        scores = scores.to(self.device)
+        valid = torch.arange(self.capacity, device=self.device) \
+            < state.episodes_in_buffer
+        scores = torch.where(valid, scores, float("-inf"))
+        idx = torch.topk(scores, batch_size).indices
+        return (self._gather(state, idx), idx,
+                torch.ones(batch_size, device=self.device))
+
+    def update_priorities(self, state: BufferState, idx: torch.Tensor,
+                          priorities: torch.Tensor,
+                          valid: Optional[torch.Tensor] = None
+                          ) -> BufferState:
+        del idx, priorities, valid
+        return state                      # uniform: nothing to update
+
+
+@dataclasses.dataclass(frozen=True)
+class PrioritizedReplayBuffer(ReplayBuffer):
+    """Proportional PER over episodes: ``P(i) ∝ p_i^alpha``, importance
+    weights ``(N·P(i))^-β`` normalized by their max, β annealed linearly
+    from ``beta0`` to 1 over ``t_max`` env steps."""
+
+    alpha: float = 0.6
+    beta0: float = 0.4
+    t_max: int = 1
+
+    def _insert_priority(self, state: BufferState) -> torch.Tensor:
+        return state.max_priority ** self.alpha
+
+    def _probs(self, state: BufferState) -> torch.Tensor:
+        valid = torch.arange(self.capacity, device=self.device) \
+            < state.episodes_in_buffer
+        p = torch.where(valid, state.priorities, 0.0)
+        return p / torch.clamp(p.sum(), min=1e-12)
+
+    def sample(self, state: BufferState, batch_size: int, t_env=0,
+               generator: Optional[torch.Generator] = None,
+               u: Optional[torch.Tensor] = None
+               ) -> Tuple[EpisodeBatch, torch.Tensor, torch.Tensor]:
+        """Stratified inverse-CDF: one uniform per equal-mass stratum.
+        ``u`` (``(batch_size,)`` in [0, 1)) replaces the draw from
+        ``generator``."""
+        probs = self._probs(state)
+        cdf = torch.cumsum(probs, dim=0)
+        if u is None:
+            u = torch.rand(batch_size, generator=generator,
+                           device=self.device)
+        u = (torch.arange(batch_size, device=self.device)
+             + u.to(self.device)) / batch_size
+        idx = torch.searchsorted(cdf, u * cdf[-1], side="left")
+        idx = torch.clamp(idx, 0, self.capacity - 1)
+        beta = self.beta0 + (1.0 - self.beta0) * min(
+            max(float(t_env) / self.t_max, 0.0), 1.0)
+        n = float(max(state.episodes_in_buffer, 1))
+        w = (n * torch.clamp(probs[idx], min=1e-12)) ** (-beta)
+        w = w / torch.clamp(w.max(), min=1e-12)
+        return self._gather(state, idx), idx, w
+
+    def update_priorities(self, state: BufferState, idx: torch.Tensor,
+                          priorities: torch.Tensor,
+                          valid: Optional[torch.Tensor] = None
+                          ) -> BufferState:
+        """Feed RAW ``|TD| + 1e-6`` back for the sampled episodes (Q9),
+        stored as ``p^alpha``. ``valid`` (a () bool tensor) is the
+        non-finite guard: when False the write puts back the episodes'
+        existing values and the running max stays, with no host sync."""
+        pa = priorities ** self.alpha
+        new_max = torch.maximum(state.max_priority, priorities.max())
+        if valid is not None:
+            pa = torch.where(valid, pa, state.priorities[idx])
+            new_max = torch.where(valid, new_max, state.max_priority)
+        return dataclasses.replace(
+            state, priorities=state.priorities.index_put((idx,), pa),
+            max_priority=new_max)

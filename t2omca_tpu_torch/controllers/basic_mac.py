@@ -96,42 +96,10 @@ class BasicMAC:
     # ------------------------------------------------------------------ state
 
     def init_params(self, generator: torch.Generator) -> Params:
-        """Fresh f32 params from a CPU ``torch.Generator`` (drawn on the
-        CPU, so a seed gives the same weights on every device), moved to
-        the MAC's device. flax's initializers: lecun-normal (or
-        orthogonal) kernels, zero biases, unit LayerNorm scales, the
-        NoisyNet uniform/constant pair."""
-        out: Params = {}
-        for mname, mod in self.agent.named_modules():
-            pre = mname + "." if mname else ""
-            if isinstance(mod, NoisyLinear):
-                bound = mod.in_features ** -0.5
-                shape = (mod.out_features, mod.in_features)
-                uni = lambda s: (torch.rand(s, generator=generator)
-                                 * 2 * bound - bound)
-                out[pre + "weight_mu"] = uni(shape)
-                out[pre + "weight_sigma"] = torch.full(shape,
-                                                       mod.sigma0 * bound)
-                out[pre + "bias_mu"] = uni((mod.out_features,))
-                out[pre + "bias_sigma"] = torch.full((mod.out_features,),
-                                                     mod.sigma0 * bound)
-            elif isinstance(mod, nn.LayerNorm):
-                out[pre + "weight"] = torch.ones(mod.normalized_shape)
-                out[pre + "bias"] = torch.zeros(mod.normalized_shape)
-            elif isinstance(mod, nn.Linear):
-                w = torch.empty(mod.out_features, mod.in_features)
-                if self.use_orthogonal:
-                    nn.init.orthogonal_(w, math.sqrt(2.0),
-                                        generator=generator)
-                else:
-                    # flax lecun_normal: truncated normal, variance 1/fan_in
-                    std = (1.0 / mod.in_features) ** 0.5 / .87962566103423978
-                    nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std,
-                                          generator=generator)
-                out[pre + "weight"] = w
-                if mod.bias is not None:
-                    out[pre + "bias"] = torch.zeros(mod.out_features)
-        return {k: v.to(self.device) for k, v in out.items()}
+        """Fresh f32 agent params from a CPU ``torch.Generator`` (see
+        ``init_module_params``), on the MAC's device."""
+        return init_module_params(self.agent, generator, self.device,
+                                  self.use_orthogonal)
 
     def init_hidden(self, batch_size: int) -> torch.Tensor:
         """Zeros ``(batch, n_agents, emb)`` on the MAC's device."""
@@ -212,6 +180,49 @@ class BasicMAC:
             q, hidden = self.forward(params, obs, hidden, acting=True)
         actions, eps = self.selector.select(q, avail, t_env, test_mode=True)
         return actions.to(torch.int32), hidden, eps
+
+
+def init_module_params(module: nn.Module, generator: torch.Generator,
+                       device: torch.device,
+                       use_orthogonal: bool = False) -> Params:
+    """Fresh f32 params for every parameter of ``module`` (the agent, or
+    the learner's mixer), drawn on the CPU from ``generator`` so that a
+    seed gives the same weights on every device, then moved to
+    ``device``. flax's initializers: lecun-normal (or orthogonal)
+    kernels, zero biases, unit LayerNorm scales, the NoisyNet
+    uniform/constant pair, and the mixer's zero ``out_gate``."""
+    out: Params = {}
+    for mname, mod in module.named_modules():
+        pre = mname + "." if mname else ""
+        if isinstance(mod, NoisyLinear):
+            bound = mod.in_features ** -0.5
+            shape = (mod.out_features, mod.in_features)
+            uni = lambda s: (torch.rand(s, generator=generator)
+                             * 2 * bound - bound)
+            out[pre + "weight_mu"] = uni(shape)
+            out[pre + "weight_sigma"] = torch.full(shape, mod.sigma0 * bound)
+            out[pre + "bias_mu"] = uni((mod.out_features,))
+            out[pre + "bias_sigma"] = torch.full((mod.out_features,),
+                                                 mod.sigma0 * bound)
+        elif isinstance(mod, nn.LayerNorm):
+            out[pre + "weight"] = torch.ones(mod.normalized_shape)
+            out[pre + "bias"] = torch.zeros(mod.normalized_shape)
+        elif isinstance(mod, nn.Linear):
+            w = torch.empty(mod.out_features, mod.in_features)
+            if use_orthogonal:
+                nn.init.orthogonal_(w, math.sqrt(2.0), generator=generator)
+            else:
+                # flax lecun_normal: truncated normal, variance 1/fan_in
+                std = (1.0 / mod.in_features) ** 0.5 / .87962566103423978
+                nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std,
+                                      generator=generator)
+            out[pre + "weight"] = w
+            if mod.bias is not None:
+                out[pre + "bias"] = torch.zeros(mod.out_features)
+        for pname, param in mod.named_parameters(recurse=False):
+            if pre + pname not in out:       # the mixer's zero-init gate
+                out[pre + pname] = torch.zeros(param.shape)
+    return {k: v.to(device) for k, v in out.items()}
 
 
 def map_float_leaves(tree, fn):

@@ -1,4 +1,5 @@
-"""Carry weights from a flax agent param tree to the port's state dict.
+"""Carry weights from flax param trees (agent, mixer, the learner's pair)
+to the port's state dicts.
 
 Input: the JAX package's agent variables as nested dicts of numpy arrays
 (``{"params": {"feat_embedding": {"kernel", "bias"}, "transformer":
@@ -12,7 +13,8 @@ Leaf mapping: flax ``Dense.kernel`` is ``(in, out)`` and becomes the
 ``(out, in)`` ``weight``; LayerNorm ``scale`` becomes ``weight``; the
 noisy head's ``w_mu``/``w_sigma`` (``(in, out)``) and ``b_mu``/
 ``b_sigma`` become ``weight_mu``/``weight_sigma``/``bias_mu``/
-``bias_sigma``; ``bias`` stays ``bias``.
+``bias_sigma``; ``bias`` stays ``bias``. The mixer's zero-init gate
+``out_gate`` (a top-level ``(1,)`` leaf) keeps its name.
 """
 
 from __future__ import annotations
@@ -41,7 +43,30 @@ def agent_state_from_flax(variables: Mapping, device: DeviceLike = None,
                           ) -> Dict[str, torch.Tensor]:
     """flax variables → torch state dict on ``device`` (``cuda`` unless
     named otherwise)."""
+    return _state_from_flax(variables, resolve_device(device), dtype, ())
+
+
+def mixer_state_from_flax(variables: Mapping, device: DeviceLike = None,
+                          dtype: torch.dtype = torch.float32
+                          ) -> Dict[str, torch.Tensor]:
+    """flax ``TransformerMixer`` variables → ``TransformerMixer`` state
+    dict on ``device`` (``cuda`` unless named otherwise)."""
+    return _state_from_flax(variables, resolve_device(device), dtype,
+                            ("out_gate",))
+
+
+def learner_params_from_flax(params: Mapping, device: DeviceLike = None
+                             ) -> Dict[str, Dict[str, torch.Tensor]]:
+    """The JAX learner's ``{"agent": ..., "mixer": ...}`` param pair →
+    the port learner's pair of f32 state dicts."""
     device = resolve_device(device)
+    return {"agent": agent_state_from_flax(params["agent"], device),
+            "mixer": mixer_state_from_flax(params["mixer"], device)}
+
+
+def _state_from_flax(variables: Mapping, device: torch.device,
+                     dtype: torch.dtype, named_leaves: tuple
+                     ) -> Dict[str, torch.Tensor]:
     tree = variables.get("params", variables)
     out: Dict[str, torch.Tensor] = {}
 
@@ -50,9 +75,12 @@ def agent_state_from_flax(variables: Mapping, device: DeviceLike = None,
             if isinstance(val, Mapping):
                 walk(val, f"{path}{key}.")
                 continue
-            if key not in _LEAVES:
+            if key in named_leaves and not path:
+                name, transpose = key, False
+            elif key in _LEAVES:
+                name, transpose = _LEAVES[key]
+            else:
                 raise KeyError(f"unknown flax leaf {path}{key}")
-            name, transpose = _LEAVES[key]
             arr = np.asarray(val, dtype=np.float32)
             if transpose:
                 arr = arr.T

@@ -1,8 +1,8 @@
 """Build and load the port's CUDA kernels from the repo's sources.
 
-``nvcc`` compiles ``csrc/*.cu`` (plain C interface, no PyTorch headers)
-for ``sm_90a`` while the host compiler compiles the op binding
-``csrc/*_op.cpp`` against PyTorch's headers; the two run at the same
+``nvcc`` compiles each ``csrc/*.cu`` (plain C interface, no PyTorch
+headers) for ``sm_90a`` while the host compiler compiles the op bindings
+``csrc/*_op.cpp`` against PyTorch's headers; all of them run at the same
 time, then ``nvcc`` links one shared library that
 ``torch.ops.load_library`` registers as ``torch.ops.t2omca``. Ninja and
 ``torch.utils.cpp_extension.load`` are not needed.
@@ -31,8 +31,10 @@ CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                           "_build")
 LIB_NAME = "libt2omca_kernels.so"
-CUDA_SOURCES = ("flash_fwd.cu",)
-HOST_SOURCES = ("flash_fwd_op.cpp",)
+CUDA_SOURCES = ("flash_fwd.cu", "flash_bwd.cu")
+HOST_SOURCES = ("flash_fwd_op.cpp", "flash_bwd_op.cpp")
+#: included by the CUDA sources (hashed into the build key with them)
+HEADERS = ("flash_common.cuh",)
 #: Hopper with the architecture-specific features (wgmma, setmaxnreg)
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 
@@ -75,7 +77,7 @@ def _flags():
 def _key(nvcc_flags, cxx_flags, link_flags) -> str:
     import torch
     h = hashlib.sha256()
-    for name in CUDA_SOURCES + HOST_SOURCES:
+    for name in CUDA_SOURCES + HOST_SOURCES + HEADERS:
         with open(os.path.join(CSRC, name), "rb") as f:
             h.update(name.encode() + b"\0" + f.read() + b"\0")
     for part in (nvcc_flags, cxx_flags, link_flags, [torch.__version__]):

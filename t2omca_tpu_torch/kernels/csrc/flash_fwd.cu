@@ -1,8 +1,13 @@
 // Flash-attention forward for Hopper (sm_90a), hand-written CUDA C++.
 //
 // Replaces the TPU kernel `_flash_attention_kernel`
-// (t2omca_tpu/kernels/attention.py:115, launched by `_build.forward` at
-// :392 with save_res=False). Computes, per (batch b, head h):
+// (t2omca_tpu/kernels/attention.py:115), both of its launches by
+// `_build.forward`: K1 at :392 (save_res=False, the serve path and the
+// learner's no-grad target unrolls) and K1 + residuals at :383
+// (save_res=True, the learner's online unrolls under autograd), which
+// also writes each row's final running max m and denominator l, the
+// residuals the backward kernels (flash_bwd.cu) recompute P from.
+// Computes, per (batch b, head h):
 //
 //   S = Q K^T                                     (f32 accumulation)
 //   S[i,j] = bias[i,j]        where bias[i,j] != 0  (REPLACEMENT mask)
@@ -45,17 +50,11 @@
 //
 // Tensor cores (wgmma) and TMA are later work; see PERF.md for times.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kAccTiles = 2;          // output 4x4 blocks held per thread
-constexpr float kNegMask = -1e9f;     // NEG_MASK_VALUE of the module
-constexpr float kPad = -1e30f;        // running-max start, below every mask
+using namespace t2o;
 
 struct Params {
   const void* q;
@@ -63,124 +62,24 @@ struct Params {
   const void* v;
   const float* bias;   // nullptr = no mask; else (B, H, Tq, Tk) by strides
   void* o;
+  float* m;            // nullptr = no residuals; else (B, H, Tq) contiguous
+  float* l;            // with m: the final running max and denominator
   int B, H, Tq, Tk, D;
   int64_t sq[4], sk[4], sv[4], sb[4], so[4];
   int causal;
   int bq;   // rows per q tile
   int bk;   // keys per k tile
   int nq;   // q tiles per (b, h)
-  int dp;   // D rounded up to a multiple of 4
-  int ld;   // shared row stride of the q/k/v tiles (dp + 4)
+  Slab g;   // staged slab geometry (D padded to dp, shared row stride ld)
   int vec;  // q, k, v, o rows load/store as aligned groups of 4 elements
 };
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16
-from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-__device__ __forceinline__ float dot4(const float4 a, const float4 b,
-                                      float s) {
-  s = fmaf(a.x, b.x, s);
-  s = fmaf(a.y, b.y, s);
-  s = fmaf(a.z, b.z, s);
-  return fmaf(a.w, b.w, s);
-}
-
-__device__ __forceinline__ void store4(float* dst, const float4 v) {
-  *reinterpret_cast<float4*>(dst) = v;
-}
-__device__ __forceinline__ void store4(__nv_bfloat16* dst, const float4 v) {
-  const __nv_bfloat162 a = __floats2bfloat162_rn(v.x, v.y);
-  const __nv_bfloat162 b = __floats2bfloat162_rn(v.z, v.w);
-  uint2 u;
-  u.x = *reinterpret_cast<const uint32_t*>(&a);
-  u.y = *reinterpret_cast<const uint32_t*>(&b);
-  *reinterpret_cast<uint2*>(dst) = u;
-}
-
-__device__ __forceinline__ float4 load4(const float* src) {
-  return *reinterpret_cast<const float4*>(src);
-}
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* src) {
-  const uint2 u = *reinterpret_cast<const uint2*>(src);
-  const float2 a = __bfloat1622float2(
-      *reinterpret_cast<const __nv_bfloat162*>(&u.x));
-  const float2 b = __bfloat1622float2(
-      *reinterpret_cast<const __nv_bfloat162*>(&u.y));
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-
-// Stage `n` rows of a (T, D) slab into shared memory as f32 (columns
-// D..dp-1 zero-filled). Each thread owns one column group and issues
-// kStageUnroll row loads before it stores any, so the loads' latencies
-// overlap. With `p.vec` (D % 4 == 0, unit column stride, 4-element
-// aligned rows) a column group is 4 elements loaded at once.
-constexpr int kStageUnroll = 4;
-
-template <typename T>
-__device__ __forceinline__ void stage(float* dst, const T* src, int64_t s_row,
-                                      int64_t s_col, int n, const Params& p) {
-  const int width = p.vec ? 4 : 1;            // elements per column group
-  const int groups = p.dp / width;            // column groups per row
-  const int rpp = kThreads / groups;          // rows per pass
-  const int r0 = threadIdx.x / groups;
-  const int c = (threadIdx.x - r0 * groups) * width;
-  if (r0 >= rpp) return;
-  for (int r = r0; r < n; r += rpp * kStageUnroll) {
-    float4 buf[kStageUnroll];
-#pragma unroll
-    for (int u = 0; u < kStageUnroll; ++u) {
-      const int rr = r + u * rpp;
-      const T* row = src + (int64_t)rr * s_row;
-      if (rr >= n) {
-        buf[u] = make_float4(0.f, 0.f, 0.f, 0.f);
-      } else if (p.vec) {
-        buf[u] = load4(row + c);
-      } else {
-        buf[u].x = c < p.D ? to_f32(row[(int64_t)c * s_col]) : 0.f;
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < kStageUnroll; ++u) {
-      const int rr = r + u * rpp;
-      if (rr < n) {
-        if (p.vec)
-          *reinterpret_cast<float4*>(dst + rr * p.ld + c) = buf[u];
-        else
-          dst[rr * p.ld + c] = buf[u].x;
-      }
-    }
-  }
-}
 
 // two CTAs per SM: registers capped at 128 per thread
 template <typename T>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_fwd_kernel(const Params p) {
   extern __shared__ __align__(16) float smem[];
-  const int ld = p.ld;
+  const int ld = p.g.ld;
   const int lds = p.bk + 1;            // row stride of the logits tile
   float* q_s = smem;                   // bq x ld
   float* k_s = q_s + p.bq * ld;        // bk x ld
@@ -208,7 +107,8 @@ flash_fwd_kernel(const Params p) {
   const float* bias =
       p.bias == nullptr ? nullptr : p.bias + b * p.sb[0] + h * p.sb[1];
 
-  stage(q_s, q + (int64_t)q0 * p.sq[2], p.sq[2], p.sq[3], rows, p);
+  stage(q_s, q + (int64_t)q0 * p.sq[2], p.sq[2], p.sq[3], rows, p.g,
+        p.vec);
   for (int i = tid; i < rows; i += kThreads) {
     m_s[i] = kPad;
     l_s[i] = 0.f;
@@ -217,7 +117,7 @@ flash_fwd_kernel(const Params p) {
   // output blocks owned by this thread: rows {rg + nrg*a}, columns
   // 4*ch .. 4*ch+3, for u = tid + kThreads*t, u < nrg * nch
   const int nrg = (rows + 3) / 4;
-  const int nch = p.dp / 4;
+  const int nch = p.g.dp / 4;
   const int n_out = nrg * nch;
   float4 acc[kAccTiles][4];
 #pragma unroll
@@ -230,8 +130,10 @@ flash_fwd_kernel(const Params p) {
     const int k0 = kt * p.bk;
     const int kcols = min(p.bk, p.Tk - k0);
     __syncthreads();  // the previous tile's K, V and P are consumed
-    stage(k_s, k + (int64_t)k0 * p.sk[2], p.sk[2], p.sk[3], kcols, p);
-    stage(v_s, v + (int64_t)k0 * p.sv[2], p.sv[2], p.sv[3], kcols, p);
+    stage(k_s, k + (int64_t)k0 * p.sk[2], p.sk[2], p.sk[3], kcols, p.g,
+          p.vec);
+    stage(v_s, v + (int64_t)k0 * p.sv[2], p.sv[2], p.sv[3], kcols, p.g,
+          p.vec);
     __syncthreads();
 
     // logits in 4x4 blocks with strided rows and columns. Key-tail
@@ -253,7 +155,7 @@ flash_fwd_kernel(const Params p) {
       for (int a = 0; a < 4; ++a)
 #pragma unroll
         for (int c = 0; c < 4; ++c) s[a][c] = 0.f;
-      for (int d = 0; d < p.dp; d += 4) {
+      for (int d = 0; d < p.g.dp; d += 4) {
         float4 qf[4], kf[4];
 #pragma unroll
         for (int a = 0; a < 4; ++a) {
@@ -332,13 +234,7 @@ flash_fwd_kernel(const Params p) {
         for (int j = 0; j < kcols; ++j) {
           const float4 vf = *reinterpret_cast<const float4*>(vc + j * ld);
 #pragma unroll
-          for (int a = 0; a < 4; ++a) {
-            const float pa = pr[a][j];
-            acc[t][a].x = fmaf(pa, vf.x, acc[t][a].x);
-            acc[t][a].y = fmaf(pa, vf.y, acc[t][a].y);
-            acc[t][a].z = fmaf(pa, vf.z, acc[t][a].z);
-            acc[t][a].w = fmaf(pa, vf.w, acc[t][a].w);
-          }
+          for (int a = 0; a < 4; ++a) fma4(pr[a][j], vf, acc[t][a]);
         }
       }
     }
@@ -356,19 +252,21 @@ flash_fwd_kernel(const Params p) {
           const float l = l_s[i];
           const float4 r = make_float4(acc[t][a].x / l, acc[t][a].y / l,
                                        acc[t][a].z / l, acc[t][a].w / l);
-          T* orow = o + (int64_t)(q0 + i) * p.so[2];
-          if (p.vec) {
-            store4(orow + 4 * ch, r);
-          } else {
-            const float vals[4] = {r.x, r.y, r.z, r.w};
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              const int d = 4 * ch + e;
-              if (d < p.D) orow[(int64_t)d * p.so[3]] = from_f32<T>(vals[e]);
-            }
-          }
+          write4(o + (int64_t)(q0 + i) * p.so[2], p.so[3], 4 * ch, p.D, r,
+                 p.vec);
         }
       }
+    }
+  }
+  // K1 + residuals (save_res): the final per-row running max and
+  // denominator, kept separate (never fused into a logsumexp: an
+  // all-masked row has m = -1e9, which would swallow log l in f32)
+  if (p.m != nullptr) {
+    // (b, h) recomputed here rather than kept live across the key loop
+    const int64_t base = (int64_t)(blockIdx.x / p.nq) * p.Tq + q0;
+    for (int i = tid; i < rows; i += kThreads) {
+      p.m[base + i] = m_s[i];
+      p.l[base + i] = l_s[i];
     }
   }
 }
@@ -390,14 +288,16 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. strides: 20 int64 in elements, four
 // each for q, k, v, bias, o over (B, H, T, D) resp. (B, H, Tq, Tk); the
-// bias strides are ignored when bias is null. Returns a cudaError_t code
-// (0 = launched); cudaErrorInvalidValue for shapes the kernel does not take.
+// bias strides are ignored when bias is null. m and l: null, or both
+// (B, H, Tq) contiguous f32 outputs of the residuals. Returns a cudaError_t
+// code (0 = launched); cudaErrorInvalidValue for shapes the kernel does not
+// take.
 int t2o_flash_fwd(const void* q, const void* k, const void* v,
-                  const float* bias, void* o, int dtype, int B, int H,
-                  int Tq, int Tk, int D, const int64_t* strides, int causal,
-                  void* stream) {
+                  const float* bias, void* o, float* m, float* l, int dtype,
+                  int B, int H, int Tq, int Tk, int D, const int64_t* strides,
+                  int causal, void* stream) {
   if (B < 1 || H < 1 || Tq < 1 || Tk < 1 || D < 1 || D > 256 ||
-      (dtype != 0 && dtype != 1))
+      (dtype != 0 && dtype != 1) || ((m == nullptr) != (l == nullptr)))
     return (int)cudaErrorInvalidValue;
   Params p;
   p.q = q;
@@ -405,6 +305,8 @@ int t2o_flash_fwd(const void* q, const void* k, const void* v,
   p.v = v;
   p.bias = bias;
   p.o = o;
+  p.m = m;
+  p.l = l;
   p.B = B;
   p.H = H;
   p.Tq = Tq;
@@ -418,29 +320,22 @@ int t2o_flash_fwd(const void* q, const void* k, const void* v,
     p.so[i] = strides[16 + i];
   }
   p.causal = causal;
-  // 4-element groups: 16-byte (f32) or 8-byte (bf16) aligned rows
-  const uintptr_t align = dtype == 0 ? 16 : 8;
-  auto rows_of_4 = [&](const void* ptr, const int64_t* s) {
-    return reinterpret_cast<uintptr_t>(ptr) % align == 0 && s[0] % 4 == 0 &&
-           s[1] % 4 == 0 && s[2] % 4 == 0 && s[3] == 1;
-  };
-  p.vec = D % 4 == 0 && rows_of_4(q, p.sq) && rows_of_4(k, p.sk) &&
-          rows_of_4(v, p.sv) && rows_of_4(o, p.so);
-  p.dp = (D + 3) / 4 * 4;
-  p.ld = p.dp + 4;
+  p.vec = D % 4 == 0 && rows_of_4(q, p.sq, dtype) &&
+          rows_of_4(k, p.sk, dtype) && rows_of_4(v, p.sv, dtype) &&
+          rows_of_4(o, p.so, dtype);
+  p.g.D = D;
+  p.g.dp = (D + 3) / 4 * 4;
+  p.g.ld = p.g.dp + 4;
   // q-tile rows: the owned output blocks (ceil(bq/4) * dp/4 of them) must
   // fit kAccTiles per thread
-  const int bq_max = D <= 64 ? 80 : 32;
-  p.nq = (Tq + bq_max - 1) / bq_max;
-  p.bq = (Tq + p.nq - 1) / p.nq;
-  const int bk_max = D <= 128 ? 128 : 64;
-  const int nk = (Tk + bk_max - 1) / bk_max;
-  p.bk = (Tk + nk - 1) / nk;
+  balanced_tiles(Tq, D <= 64 ? 80 : 32, &p.bq, &p.nq);
+  int nk;
+  balanced_tiles(Tk, D <= 128 ? 128 : 64, &p.bk, &nk);
   if ((int64_t)B * H * p.nq > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  if ((p.bq + 3) / 4 * (p.dp / 4) > kAccTiles * kThreads)
+  if ((p.bq + 3) / 4 * (p.g.dp / 4) > kAccTiles * kThreads)
     return (int)cudaErrorInvalidValue;
   const size_t smem =
-      sizeof(float) * ((size_t)p.bq * p.ld + 2 * (size_t)p.bk * p.ld +
+      sizeof(float) * ((size_t)p.bq * p.g.ld + 2 * (size_t)p.bk * p.g.ld +
                        (size_t)p.bq * (p.bk + 1) + 3 * (size_t)p.bq);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = dtype == 0 ? launch<float>(p, smem, s)

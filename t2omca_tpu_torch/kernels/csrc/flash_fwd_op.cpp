@@ -1,5 +1,7 @@
-// PyTorch binding of the flash forward kernel as the custom op
-// `torch.ops.t2omca.flash_fwd`, loaded with torch.ops.load_library.
+// PyTorch binding of the flash forward kernel as the custom ops
+// `torch.ops.t2omca.flash_fwd` (K1) and `torch.ops.t2omca.flash_fwd_res`
+// (K1 + residuals: also the per-row m and l), loaded with
+// torch.ops.load_library.
 //
 // Kept apart from flash_fwd.cu so that only this small host file sees
 // PyTorch's headers (the host compiler handles them in seconds; nvcc takes
@@ -16,8 +18,8 @@
 #include <optional>
 
 extern "C" int t2o_flash_fwd(const void* q, const void* k, const void* v,
-                             const float* bias, void* o, int dtype, int B,
-                             int H, int Tq, int Tk, int D,
+                             const float* bias, void* o, float* m, float* l,
+                             int dtype, int B, int H, int Tq, int Tk, int D,
                              const int64_t* strides, int causal,
                              void* stream);
 extern "C" const char* t2o_cuda_error_string(int code);
@@ -30,9 +32,9 @@ void check_4d(const at::Tensor& t, const char* name) {
               t.dim(), "-D");
 }
 
-void flash_fwd(const at::Tensor& q, const at::Tensor& k, const at::Tensor& v,
-               const std::optional<at::Tensor>& bias, bool causal,
-               int64_t stream, at::Tensor& out) {
+void launch(const at::Tensor& q, const at::Tensor& k, const at::Tensor& v,
+            const std::optional<at::Tensor>& bias, bool causal,
+            int64_t stream, at::Tensor& out, float* m, float* l) {
   check_4d(q, "q");
   check_4d(k, "k");
   check_4d(v, "v");
@@ -80,12 +82,36 @@ void flash_fwd(const at::Tensor& q, const at::Tensor& k, const at::Tensor& v,
   }
   const int code = t2o_flash_fwd(
       q.const_data_ptr(), k.const_data_ptr(), v.const_data_ptr(), bias_ptr,
-      out.mutable_data_ptr(), st == at::ScalarType::Float ? 0 : 1,
+      out.mutable_data_ptr(), m, l, st == at::ScalarType::Float ? 0 : 1,
       static_cast<int>(B), static_cast<int>(H), static_cast<int>(Tq),
       static_cast<int>(Tk), static_cast<int>(D), strides, causal ? 1 : 0,
       reinterpret_cast<void*>(stream));
   TORCH_CHECK(code == 0, "flash_fwd: kernel launch failed: ",
               t2o_cuda_error_string(code));
+}
+
+void flash_fwd(const at::Tensor& q, const at::Tensor& k, const at::Tensor& v,
+               const std::optional<at::Tensor>& bias, bool causal,
+               int64_t stream, at::Tensor& out) {
+  launch(q, k, v, bias, causal, stream, out, nullptr, nullptr);
+}
+
+void flash_fwd_res(const at::Tensor& q, const at::Tensor& k,
+                   const at::Tensor& v, const std::optional<at::Tensor>& bias,
+                   bool causal, int64_t stream, at::Tensor& out,
+                   at::Tensor& m, at::Tensor& l) {
+  for (const at::Tensor* t : {&m, &l}) {
+    TORCH_CHECK(t->is_cuda() && t->device() == q.device(),
+                "flash_fwd_res: m and l must be on q's device");
+    TORCH_CHECK(t->scalar_type() == at::ScalarType::Float,
+                "flash_fwd_res: m and l must be float32");
+    TORCH_CHECK(t->dim() == 3 && t->size(0) == q.size(0) &&
+                    t->size(1) == q.size(1) && t->size(2) == q.size(2) &&
+                    t->is_contiguous(),
+                "flash_fwd_res: m and l must be contiguous (B, H, Tq)");
+  }
+  launch(q, k, v, bias, causal, stream, out, m.mutable_data_ptr<float>(),
+         l.mutable_data_ptr<float>());
 }
 
 }  // namespace
@@ -94,6 +120,13 @@ TORCH_LIBRARY(t2omca, m) {
   m.def(
       "flash_fwd(Tensor q, Tensor k, Tensor v, Tensor? bias, bool causal, "
       "int stream, Tensor(a!) out) -> ()");
+  m.def(
+      "flash_fwd_res(Tensor q, Tensor k, Tensor v, Tensor? bias, "
+      "bool causal, int stream, Tensor(a!) out, Tensor(b!) m, "
+      "Tensor(c!) l) -> ()");
 }
 
-TORCH_LIBRARY_IMPL(t2omca, CUDA, m) { m.impl("flash_fwd", &flash_fwd); }
+TORCH_LIBRARY_IMPL(t2omca, CUDA, m) {
+  m.impl("flash_fwd", &flash_fwd);
+  m.impl("flash_fwd_res", &flash_fwd_res);
+}

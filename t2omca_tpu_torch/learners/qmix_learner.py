@@ -1,0 +1,433 @@
+"""QMIX TD learner (port of ``t2omca_tpu/learners/qmix_learner.py``).
+
+Per-agent Qs from the transformer agent, chosen-action Qs mixed by the
+transformer mixer into ``q_tot``, target networks with double-Q targets,
+an importance-weighted MSE (or 2×-scaled Huber) on the TD error, and
+``info["td_errors_abs"]`` fed back as PER priorities (Q9).
+
+The JAX ``lax.scan`` over episode time becomes a Python loop carrying
+the agent hidden token and the mixer's 3 hyper tokens. The online
+unrolls run under autograd; with ``kernels.attention: pallas`` every
+attention call in them goes through the flash kernels' autograd
+Function (K1 + residuals forward, K2 and K3 backward on the card). The
+target unrolls run under ``torch.no_grad()``, as JAX prunes their
+backward, so they launch K1 alone.
+
+Parameters are plain dicts of f32 tensors (``{"agent": ..., "mixer":
+...}``, the flax names); the modules are built on the ``meta`` device
+and run through ``functional_call``. The optimizer is functional too
+(``clip_by_global_norm`` then ``adam`` or ``rmsprop`` with optax's
+formulas), so the non-finite guard selects old or new params AND
+optimizer state elementwise on the device, with no host sync.
+
+Not ported (each raises ``NotImplementedError`` naming the ROADMAP
+item): noisy or dropout training keys, compact entity storage, the
+padding mask of scenario distributions that can pad, ``obs.sight``, the
+population ``spec``, ``model.remat`` and the ``qmix_ff``/``vdn`` mixers.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional, Tuple
+
+import torch
+from torch.func import functional_call
+
+from ..components.episode_buffer import EpisodeBatch
+from ..config import TrainConfig
+from ..controllers.basic_mac import (BasicMAC, Params, init_module_params,
+                                     torch_dtype)
+from ..device import DeviceLike, resolve_device
+from ..models.mixer import TransformerMixer
+
+Tree = Dict[str, Params]
+
+
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to t2omca_tpu_torch yet (ROADMAP.md Queue "
+        f"A {item})")
+
+
+def scenario_can_pad(env_cfg, n_agents: int) -> bool:
+    """Can the config's scenario distribution draw ``n_active <
+    n_agents`` (padded agents)? The registry default scenarios never pad;
+    an explicit ``env_args.scenario`` pads through ``min_agents``, an
+    ``n_active`` override or an ``n_active`` range (the JAX package's
+    ``graftworld.distribution_can_pad``)."""
+    sc = env_cfg.scenario
+    if sc.min_agents and sc.min_agents < n_agents:
+        return True
+    if any(name == "n_active" and float(value) < n_agents
+           for name, value in sc.overrides):
+        return True
+    return any(name == "n_active" and float(lo) < n_agents
+               for name, lo, _hi in sc.ranges)
+
+
+# --------------------------------------------------------------- optimizer
+
+def global_norm(tree: Tree) -> torch.Tensor:
+    """``optax.global_norm``: the 2-norm over every leaf."""
+    return torch.sqrt(sum((g.float() ** 2).sum() for sub in tree.values()
+                          for g in sub.values()))
+
+
+def _tree_map(fn, *trees: Tree) -> Tree:
+    return {m: {k: fn(*(t[m][k] for t in trees)) for k in trees[0][m]}
+            for m in trees[0]}
+
+
+def clip_by_global_norm(grads: Tree, norm: torch.Tensor,
+                        max_norm: float) -> Tree:
+    """``optax.clip_by_global_norm``: ``g`` when ``norm < max_norm``,
+    else ``g / norm · max_norm`` (no epsilon, unlike
+    ``torch.nn.utils.clip_grad_norm_``)."""
+    trigger = norm < max_norm
+    return _tree_map(lambda g: torch.where(trigger, g, g / norm * max_norm),
+                     grads)
+
+
+def optimizer_init(cfg: TrainConfig, params: Tree) -> dict:
+    zeros = lambda: _tree_map(torch.zeros_like, params)
+    if cfg.optimizer == "rmsprop":
+        return {"nu": zeros()}
+    device = next(iter(next(iter(params.values())).values())).device
+    return {"count": torch.zeros((), dtype=torch.int32, device=device),
+            "mu": zeros(), "nu": zeros()}
+
+
+def optimizer_update(cfg: TrainConfig, grads: Tree, state: dict
+                     ) -> Tuple[Tree, dict]:
+    """The update after clipping → (updates, state'). ``adam`` is
+    ``optax.adam(lr, eps=optim_eps)`` (b1 0.9, b2 0.999, bias-corrected,
+    eps outside the sqrt); ``rmsprop`` is ``optax.rmsprop(lr,
+    decay=optim_alpha, eps=optim_eps)`` (eps INSIDE the rsqrt, no bias
+    correction)."""
+    lr = cfg.lr
+    if cfg.optimizer == "rmsprop":
+        d = cfg.optim_alpha
+        nu = _tree_map(lambda g, n: (1 - d) * g ** 2 + d * n, grads,
+                       state["nu"])
+        upd = _tree_map(lambda g, n: -lr * (torch.rsqrt(n + cfg.optim_eps)
+                                            * g), grads, nu)
+        return upd, {"nu": nu}
+    b1, b2 = 0.9, 0.999
+    mu = _tree_map(lambda g, m: (1 - b1) * g + b1 * m, grads, state["mu"])
+    nu = _tree_map(lambda g, n: (1 - b2) * g ** 2 + b2 * n, grads,
+                   state["nu"])
+    count = state["count"] + 1
+    c1 = 1 - b1 ** count.float()
+    c2 = 1 - b2 ** count.float()
+    upd = _tree_map(lambda m, n: -lr * ((m / c1)
+                                        / (torch.sqrt(n / c2)
+                                           + cfg.optim_eps)), mu, nu)
+    return upd, {"count": count, "mu": mu, "nu": nu}
+
+
+def _select(cond: torch.Tensor, new, old):
+    """Elementwise ``where(cond, new, old)`` over matching trees."""
+    if isinstance(new, dict):
+        return {k: _select(cond, new[k], old[k]) for k in new}
+    return torch.where(cond, new, old)
+
+
+# ------------------------------------------------------------------ learner
+
+@dataclasses.dataclass
+class LearnerState:
+    params: Tree                    # {"agent": ..., "mixer": ...}
+    target_params: Tree
+    opt_state: dict
+    train_steps: torch.Tensor       # () int32
+    last_target_update: torch.Tensor  # () int32: episode of the last sync
+
+
+@dataclasses.dataclass(frozen=True)
+class QMixLearner:
+    mac: BasicMAC
+    mixer: TransformerMixer
+    cfg: TrainConfig
+    obs_dim: int
+    state_dim: int
+    device: torch.device
+
+    @classmethod
+    def build(cls, cfg: TrainConfig, mac: BasicMAC, env_info: dict,
+              device: DeviceLike = None) -> "QMixLearner":
+        """Runs on ``cuda`` unless ``device`` says otherwise (raises when
+        no card is present and none was named). Raises
+        ``NotImplementedError`` for what the port does not have yet."""
+        device = resolve_device(device)
+        if cfg.mixer != "transformer":
+            raise _not_ported(f"mixer '{cfg.mixer}'", "item 10")
+        if cfg.action_selector == "noisy-new" or cfg.model.dropout > 0.0:
+            raise _not_ported("training with noise or dropout keys "
+                              "(action_selector noisy-new, model.dropout)",
+                              "item 2 (the PRNG)")
+        if _compact_store(cfg):
+            raise _not_ported("compact entity storage "
+                              "(replay.compact_entity_store)",
+                              "item 5 (the entity tables); set "
+                              "replay.compact_entity_store=false")
+        if scenario_can_pad(cfg.env_args, env_info["n_agents"]):
+            raise _not_ported("the mixer padding mask of a scenario that "
+                              "can pad", "item 11")
+        if cfg.obs.sight.enabled:
+            raise _not_ported("obs.sight", "item 13")
+        if cfg.model.remat:
+            raise _not_ported("model.remat", "item 5")
+        n_entities = cfg.model.n_entities_state or env_info["n_entities"]
+        state_entity_mode = "state_entity_feats" in env_info
+        if state_entity_mode:
+            feat = env_info["state_entity_feats"]
+        else:
+            # Q12 fallback: the mixer tokenizes all agents' obs entities
+            feat = env_info["obs_entity_feats"]
+            n_entities = env_info["n_entities"]
+        mixer = TransformerMixer(
+            n_agents=env_info["n_agents"], n_entities=n_entities,
+            feat_dim=feat, emb=cfg.model.mixer_emb,
+            heads=cfg.model.mixer_heads, depth=cfg.model.mixer_depth,
+            ff_hidden_mult=cfg.model.ff_hidden_mult,
+            qmix_pos_func=cfg.model.qmix_pos_func,
+            qmix_pos_func_beta=cfg.model.qmix_pos_func_beta,
+            state_entity_mode=state_entity_mode,
+            standard_heads=cfg.model.standard_heads,
+            dtype=torch_dtype(cfg.model.dtype),
+            attn_impl=cfg.kernels.attention,
+            zero_init_gate=cfg.model.mixer_zero_init, device="meta")
+        return cls(mac=mac, mixer=mixer, cfg=cfg,
+                   obs_dim=env_info["obs_shape"],
+                   state_dim=env_info["state_shape"], device=device)
+
+    # ------------------------------------------------------------ state
+
+    def init_state(self, generator: Optional[torch.Generator] = None,
+                   params: Optional[Tree] = None) -> LearnerState:
+        """Fresh state: ``params`` as given (copied to the learner's
+        device), else drawn from ``generator`` (agent, then mixer)."""
+        if params is None:
+            params = {
+                "agent": init_module_params(self.mac.agent, generator,
+                                            self.device,
+                                            self.mac.use_orthogonal),
+                "mixer": init_module_params(self.mixer, generator,
+                                            self.device,
+                                            self.cfg.model.use_orthogonal)}
+        params = _tree_map(lambda p: p.detach().to(self.device,
+                                                   torch.float32).clone(),
+                           params)
+        zero = torch.zeros((), dtype=torch.int32, device=self.device)
+        return LearnerState(
+            params=params,
+            target_params=_tree_map(torch.clone, params),
+            opt_state=optimizer_init(self.cfg, params),
+            train_steps=zero.clone(), last_target_update=zero.clone())
+
+    def train_info_zeros(self, batch_size: int) -> Dict[str, torch.Tensor]:
+        """The info dict of a skipped train step: ``train``'s keys,
+        shapes and dtypes, ``all_finite`` True."""
+        z = torch.zeros((), device=self.device)
+        return {"loss": z, "td_error_abs": z.clone(),
+                "q_taken_mean": z.clone(), "target_mean": z.clone(),
+                "grad_norm": z.clone(),
+                "td_errors_abs": torch.zeros(batch_size, device=self.device),
+                "all_finite": torch.ones((), dtype=torch.bool,
+                                         device=self.device)}
+
+    # ---------------------------------------------------------- unrolls
+
+    @property
+    def _agent_qslice(self) -> bool:
+        from ..ops.query_slice import agent_qslice_eligible
+        return agent_qslice_eligible(self.cfg)
+
+    @property
+    def _mixer_qslice(self) -> bool:
+        from ..ops.query_slice import mixer_qslice_eligible
+        return mixer_qslice_eligible(self.cfg)
+
+    def _unroll_agent(self, agent_params: Params, obs_tm: torch.Tensor,
+                      n_grad: Optional[int] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """obs_tm ``(T1, B, A, O)`` → (q ``(T1, B, A, n_actions)``,
+        hiddens ``(T1, B, A, emb)``), carrying the hidden token. Steps
+        from ``n_grad`` on run without autograd: the online unroll's
+        bootstrap step feeds only the detached double-Q argmax, and JAX
+        prunes its backward the same way (torch would otherwise run it
+        with zero cotangents)."""
+        if self._agent_qslice:
+            from ..ops.query_slice import fold_agent_params
+            a = self.mac.agent
+            # fold once, outside the loop (differentiable)
+            agent_params = fold_agent_params(
+                agent_params, emb=a.emb, heads=a.heads, depth=a.depth,
+                standard_heads=a.standard_heads, dtype=a.dtype)
+            fwd = lambda p, o, h: self.mac.forward_qslice(
+                p, o, h, attn_impl=self.cfg.kernels.attention)
+        else:
+            fwd = self.mac.forward
+        h = self.mac.init_hidden(obs_tm.shape[1])
+        grad = torch.is_grad_enabled()
+        qs, hs = [], []
+        for t, obs_t in enumerate(obs_tm):
+            with torch.set_grad_enabled(grad and (n_grad is None
+                                                  or t < n_grad)):
+                q, h = fwd(agent_params, obs_t, h)
+            qs.append(q)
+            hs.append(h)
+        return torch.stack(qs), torch.stack(hs)
+
+    def _unroll_mixer(self, mixer_params: Params, q_tm: torch.Tensor,
+                      hid_tm: torch.Tensor, state_tm: torch.Tensor,
+                      obs_tm: torch.Tensor) -> torch.Tensor:
+        """q_tm ``(T, B, A)`` → ``q_tot (T, B)``, carrying the 3 hyper
+        tokens across time."""
+        if self._mixer_qslice:
+            from ..ops.query_slice import make_mixer_qslice
+            fold, mix = make_mixer_qslice(self.mixer)
+            mixer_params = fold(mixer_params)
+        else:
+            mix = lambda p, *xs: functional_call(self.mixer, p, xs,
+                                                 strict=True)
+        hyper = self.mixer.initial_hyper(q_tm.shape[1], device=self.device)
+        q_tots = []
+        for qv, h, s, o in zip(q_tm, hid_tm, state_tm, obs_tm):
+            q_tot, hyper = mix(mixer_params, qv[:, None, :], h, hyper, s, o)
+            q_tots.append(q_tot[:, 0, 0])
+        return torch.stack(q_tots)
+
+    # ------------------------------------------------------------- loss
+
+    def _loss(self, params: Tree, target_params: Tree, batch: EpisodeBatch,
+              weights: torch.Tensor
+              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        cfg = self.cfg
+        tm = lambda x: x.transpose(0, 1)
+        # obs/state may be stored bf16: the loss math lifts them to f32
+        obs = tm(batch.obs).float()
+        state = tm(batch.state).float()
+        avail = tm(batch.avail_actions)                    # (T+1, B, A, n)
+        actions = tm(batch.actions).long()                 # (T, B, A)
+        reward = tm(batch.reward).float()                  # (T, B)
+        term = tm(batch.terminated).float()
+        mask = tm(batch.filled).float()
+
+        qs, hs = self._unroll_agent(params["agent"], obs,
+                                    n_grad=obs.shape[0] - 1)
+        with torch.no_grad():
+            target_qs, target_hs = self._unroll_agent(
+                target_params["agent"], obs)
+
+        chosen = qs[:-1].gather(-1, actions[..., None])[..., 0]  # (T, B, A)
+        # illegal actions are suppressed in the targets; over all T+1
+        # steps so the target mixer unrolls from t=0 like the online one
+        with torch.no_grad():
+            if cfg.double_q:
+                best = torch.where(avail, qs, float("-inf")).argmax(-1)
+                target_max = target_qs.gather(-1, best[..., None])[..., 0]
+            else:
+                target_max = torch.where(avail, target_qs,
+                                         float("-inf")).amax(-1)
+            target_q_tot = self._unroll_mixer(
+                target_params["mixer"], target_max, target_hs, state,
+                obs)[1:]
+        q_tot = self._unroll_mixer(params["mixer"], chosen, hs[:-1],
+                                   state[:-1], obs[:-1])
+
+        if cfg.reward_unit != 1.0:
+            reward = reward / cfg.reward_unit
+        targets = reward + cfg.gamma * (1.0 - term) * target_q_tot
+        td = (q_tot - targets.detach()) * mask
+        denom = torch.clamp(mask.sum(), min=1.0)
+        if cfg.td_loss == "huber":
+            # 2x-scaled Huber, branch selection by where (exact at any
+            # delta; see the JAX learner)
+            d = cfg.huber_delta
+            abs_td = td.abs()
+            elem = torch.where(abs_td <= d, td ** 2, 2.0 * d * abs_td - d * d)
+        else:
+            elem = td ** 2
+        loss = (weights[None, :] * elem).sum() / denom
+        ep_mask = torch.clamp(mask.sum(dim=0), min=1.0)
+        with torch.no_grad():
+            info = {
+                "loss": loss.detach(),
+                "td_error_abs": td.abs().sum() / denom,
+                "q_taken_mean": (chosen.mean(dim=-1) * mask).sum() / denom,
+                "target_mean": (targets * mask).sum() / denom,
+                "td_errors_abs": td.abs().sum(dim=0) / ep_mask,    # (B,)
+            }
+        return loss, info
+
+    # ------------------------------------------------------------ train
+
+    def train(self, ls: LearnerState, batch: EpisodeBatch,
+              weights: torch.Tensor, t_env, episode, spec=None
+              ) -> Tuple[LearnerState, Dict[str, torch.Tensor]]:
+        """One importance-weighted QMIX update; hard target sync every
+        ``target_update_interval`` episodes. ``info["grad_norm"]`` is the
+        pre-clip norm; when the loss or the gradients are not finite
+        (``info["all_finite"]`` False) params and optimizer state pass
+        through unchanged, and ``train_steps`` still counts the call."""
+        del t_env
+        if spec is not None:
+            raise _not_ported("the population spec", "item 11")
+        cfg = self.cfg
+        params = _tree_map(lambda p: p.detach().requires_grad_(), ls.params)
+        loss, info = self._loss(params, ls.target_params, batch,
+                                weights.to(self.device).float())
+        inject_at = cfg.resilience.inject_nan_at_step
+        if inject_at >= 0:            # fault injection (off: not traced)
+            trip = ls.train_steps == inject_at
+            loss = loss * torch.where(trip, float("nan"), 1.0)
+            info["loss"] = loss.detach()
+        leaves = [p for sub in params.values() for p in sub.values()]
+        grads_flat = torch.autograd.grad(loss, leaves, allow_unused=True)
+        it = iter(grads_flat)
+        grads = _tree_map(lambda p: _or_zeros(next(it), p), params)
+        norm = global_norm(grads)
+        info["grad_norm"] = norm
+        all_finite = torch.isfinite(info["loss"]) & torch.isfinite(norm)
+        info["all_finite"] = all_finite
+
+        clipped = clip_by_global_norm(grads, norm, cfg.grad_norm_clip)
+        updates, opt_state = optimizer_update(cfg, clipped, ls.opt_state)
+        new_params = _tree_map(lambda p, u: p.detach() + u, params, updates)
+        # the guard: a tripped step is a no-op on params AND optimizer
+        # state (a NaN gradient would poison Adam's moments for good)
+        new_params = _select(all_finite, new_params, ls.params)
+        opt_state = _select(all_finite, opt_state, ls.opt_state)
+
+        episode = torch.as_tensor(episode, dtype=torch.int32,
+                                  device=self.device)
+        sync = (episode - ls.last_target_update) \
+            >= cfg.target_update_interval
+        target_params = _select(sync, new_params, ls.target_params)
+        return LearnerState(
+            params=new_params, target_params=target_params,
+            opt_state=opt_state, train_steps=ls.train_steps + 1,
+            last_target_update=torch.where(sync, episode,
+                                           ls.last_target_update),
+        ), info
+
+
+def _or_zeros(g: Optional[torch.Tensor], p: torch.Tensor) -> torch.Tensor:
+    return torch.zeros_like(p) if g is None else g
+
+
+def _compact_store(cfg: TrainConfig) -> bool:
+    """The JAX package's ``entity_store_eligible``: whether the config
+    stores compact entity observations."""
+    m, e = cfg.model, cfg.env_args
+    return (cfg.replay.compact_entity_store
+            and m.use_entity_tables and m.use_qslice
+            and cfg.agent == "transformer" and m.dropout == 0.0
+            and e.obs_entity_mode and e.fast_norm and m.n_entities_obs == 0
+            and e.state_entity_mode and not cfg.replay.buffer_cpu_only
+            and e.mec_num <= 128)
+
+
+LEARNER_REGISTRY = {"qmix_learner": QMixLearner}

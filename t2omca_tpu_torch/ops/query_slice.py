@@ -1,5 +1,5 @@
-"""Query-slice agent forward: compute only the hidden token's row (port of
-the agent side of ``t2omca_tpu/ops/query_slice.py``).
+"""Query-slice forwards: compute only the rows that are read (port of the
+agent and mixer sides of ``t2omca_tpu/ops/query_slice.py``).
 
 An exact algebraic reduction of ``TransformerAgent.forward``. Keys are
 pinned to layer 0 and only token 0 is read, so one query row is carried
@@ -13,8 +13,11 @@ Numerics mirror the JAX module: products take ``dtype`` inputs with f32
 accumulation, LayerNorm statistics are f32 (fast variance, eps 1e-6),
 softmax is f32 in the f32 mode and ``dtype`` otherwise. ``params`` are
 the agent's state dict (``TransformerAgent`` names) or a
-``fold_agent_params`` result. The entity tables and the mixer side are
-later slices.
+``fold_agent_params`` result. The mixer side carries the last
+``n_agents + 3`` rows (w1 per agent, b1, w2, the b2 source and the 3
+recurrent hyper tokens), with ``k0`` as both keys and values; under
+autograd the flash kernel's Function returns ``dk`` and ``dv`` for that
+one tensor and autograd sums them. The entity tables are a later slice.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from typing import Dict, Tuple
 import torch
 
 from ..kernels.attention import flash_attention
+from ..models.mixer import qmix_pos_func
 from ..models.transformer import LN_EPS
 
 #: marker key of a pre-folded parameter tree
@@ -35,6 +39,14 @@ def agent_qslice_eligible(cfg) -> bool:
     inside the blocks)."""
     return (cfg.model.use_qslice
             and cfg.agent == "transformer"
+            and cfg.model.dropout == 0.0)
+
+
+def mixer_qslice_eligible(cfg) -> bool:
+    """The mixer reduction needs the deterministic transformer mixer
+    (only the last ``n_agents + 3`` output rows are read)."""
+    return (cfg.model.use_qslice
+            and cfg.mixer == "transformer"
             and cfg.model.dropout == 0.0)
 
 
@@ -190,3 +202,90 @@ def agent_forward_qslice(params: dict, inputs: torch.Tensor,
     h_new = out[:, 0, :]
     q = _q_head(f["qb"], h_new)
     return q.reshape(b, a, n_actions), h_new.reshape(b, a, emb)
+
+
+def fold_mixer_params(params: dict, *, emb: int, heads: int, depth: int,
+                      standard_heads: bool = False, dtype=torch.float32
+                      ) -> dict:
+    """Pre-fold a mixer state dict for ``mixer_forward_qslice`` (a folded
+    tree passes through). The fold is differentiable, so gradients reach
+    the raw weights."""
+    if FOLDED in params:
+        return params
+    head_dim = emb // heads if standard_heads else emb
+    tree = {FOLDED: True,
+            "fe": {"weight": params["feat_embedding.weight"],
+                   "bias": params["feat_embedding.bias"]},
+            "tf": fold_transformer(params, emb=emb, heads=heads,
+                                   head_dim=head_dim, depth=depth,
+                                   dtype=dtype),
+            "hb": {"weight": params["hyper_b2.weight"],
+                   "bias": params["hyper_b2.bias"]}}
+    if "out_gate" in params:          # zero_init_gate configs
+        tree["og"] = params["out_gate"]
+    return tree
+
+
+def mixer_forward_qslice(params: dict, qvals: torch.Tensor,
+                         hidden_states: torch.Tensor,
+                         hyper_weights: torch.Tensor, states: torch.Tensor,
+                         obs: torch.Tensor, *, n_agents: int,
+                         n_entities: int, feat_dim: int, emb: int,
+                         heads: int, depth: int, pos_func: str,
+                         pos_func_beta: float,
+                         state_entity_mode: bool = True,
+                         standard_heads: bool = False, dtype=torch.float32,
+                         attn_impl: str = "xla"
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Drop-in for ``TransformerMixer.forward``: only the last
+    ``n_agents + 3`` output rows are computed → ``(q_tot (b, 1, 1), hyper
+    (b, 3, emb))``, both f32."""
+    f = fold_mixer_params(params, emb=emb, heads=heads, depth=depth,
+                          standard_heads=standard_heads, dtype=dtype)
+    b = qvals.shape[0]
+    if state_entity_mode:
+        inputs = states.reshape(b, n_entities, feat_dim).to(dtype)
+    else:                                   # Q12: all agents' obs entities
+        inputs = obs.reshape(b, n_agents * n_entities, feat_dim).to(dtype)
+    fe = f["fe"]
+    embs = (_mm32(inputs, fe["weight"].t(), dtype)
+            + fe["bias"].float()).to(dtype)
+    k0 = torch.cat([embs, hidden_states.to(dtype), hyper_weights.to(dtype)],
+                   dim=1)                                      # (b, T, E)
+    r = n_agents + 3
+    out = transformer_rows(f["tf"], k0, k0[:, -r:, :], emb=emb, heads=heads,
+                           depth=depth, dtype=dtype,
+                           attn_impl=attn_impl)                # (b, A+3, E)
+    w1 = out[:, :n_agents, :]
+    b1 = out[:, -3, :].reshape(b, 1, emb)
+    w2 = out[:, -2, :].reshape(b, emb, 1)
+    hb = f["hb"]
+    b2 = torch.relu(out[:, -1, :] @ hb["weight"].float().t()
+                    + hb["bias"].float()).reshape(b, 1, 1)
+    w1 = qmix_pos_func(w1, pos_func, pos_func_beta)
+    w2 = qmix_pos_func(w2, pos_func, pos_func_beta)
+    hidden = torch.nn.functional.elu(torch.matmul(qvals.float(), w1) + b1)
+    y = torch.matmul(hidden, w2) + b2
+    if "og" in f:
+        y = y * f["og"].float()
+    return y, out[:, -3:, :]
+
+
+def make_mixer_qslice(mixer):
+    """(fold, apply) pair closing over a ``TransformerMixer``'s
+    attributes; ``apply`` takes ``TransformerMixer.forward``'s positional
+    arguments after the params. The mixer's ``attn_impl`` (the config's
+    ``kernels.attention``) threads through: only the learner unroll uses
+    this pair."""
+    fold = lambda params: fold_mixer_params(
+        params, emb=mixer.emb, heads=mixer.heads, depth=mixer.depth,
+        standard_heads=mixer.standard_heads, dtype=mixer.dtype)
+    apply = lambda mp, qvals, h, hyper, s, o: mixer_forward_qslice(
+        mp, qvals, h, hyper, s, o, n_agents=mixer.n_agents,
+        n_entities=mixer.n_entities, feat_dim=mixer.feat_dim, emb=mixer.emb,
+        heads=mixer.heads, depth=mixer.depth, pos_func=mixer.qmix_pos_func,
+        pos_func_beta=mixer.qmix_pos_func_beta,
+        state_entity_mode=mixer.state_entity_mode,
+        standard_heads=mixer.standard_heads, dtype=mixer.dtype,
+        attn_impl=mixer.attn_impl)
+    return fold, apply

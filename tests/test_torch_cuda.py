@@ -88,3 +88,104 @@ def test_flash_kernel_rejects_what_it_does_not_take(cuda_device):
     y = torch.zeros(1, 1, 4, 8, device=cuda_device, dtype=torch.float16)
     with pytest.raises(RuntimeError, match="float32 or bfloat16"):
         port.flash_attention(y, y, y)
+
+
+def _qkv(device, shape, dtype, seed, mask=None):
+    b, h, tq, tk, d = shape
+    g = torch.Generator(device=device).manual_seed(seed)
+    q, k = (torch.randn(b, h, t, d, device=device, generator=g)
+            * d ** -0.25 for t in (tq, tk))
+    v = torch.randn(b, h, tk, d, device=device, generator=g)
+    do = torch.randn(b, h, tq, d, device=device, generator=g)
+    m = None
+    if mask is not None:
+        hm = h if mask == "per_head" else 1
+        m = torch.rand(b, hm, tq, tk, device=device, generator=g) > 0.3
+        if mask == "all_masked_row":
+            m[:, :, 3] = False
+    return [x.to(dtype) for x in (q, k, v, do)] + [m]
+
+
+#: gradients: f32 reassociation; bf16 one rounding of values of order
+#: the gradient's scale
+GRAD_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-5),
+            torch.bfloat16: dict(rtol=0.05, atol=0.02)}
+
+
+@pytest.mark.cuda
+def test_flash_attention_on_cuda_is_differentiable(cuda_device):
+    """On CUDA tensors that require grad, flash_attention's output has a
+    grad_fn and its gradients match the plain version's (the kernel's
+    fresh output tensor used to cut the graph at attention)."""
+    q, k, v, do, m = _qkv(cuda_device, (4, 2, 9, 11, 16), torch.float32, 2,
+                          "broadcast")
+    ins = [x.clone().requires_grad_() for x in (q, k, v)]
+    out = port.flash_attention(*ins, mask=m)
+    assert out.grad_fn is not None
+    out.backward(do)
+    ref_ins = [x.clone().requires_grad_() for x in (q, k, v)]
+    bias = torch.where(m, 0.0, port.NEG_MASK_VALUE)
+    port.flash_attention_reference(*ref_ins, bias).backward(do)
+    for a, b in zip(ins, ref_ins):
+        torch.testing.assert_close(a.grad, b.grad, **GRAD_TOL[torch.float32])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape,causal,mask", [
+    ((16, 1, 4, 65, 256), False, None),          # learner agent rows
+    ((2, 1, 268, 131, 256), False, None),        # learner mixer rows
+    ((8, 4, 65, 65, 64), False, None),           # dense learner heads
+    ((8, 2, 5, 7, 12), False, "broadcast"),      # odd shapes
+    ((4, 3, 33, 70, 256), True, "per_head"),     # multi tile, D 256
+    ((4, 2, 40, 40, 8), True, "all_masked_row"),
+])
+def test_flash_backward_kernels_match_plain(cuda_device, dtype, shape,
+                                            causal, mask):
+    """K1 + residuals, K2 and K3 against their plain versions."""
+    q, k, v, do, m = _qkv(cuda_device, shape, dtype, 3, mask)
+    bias = None if m is None else torch.where(m, 0.0, port.NEG_MASK_VALUE)
+    port.reset_launches()
+    o, mm, ll = port._launch_res(q, k, v, bias, causal)
+    dq, dk, dv = port._launch_bwd(q, k, v, bias, causal, o, mm, ll, do)
+    torch.cuda.synchronize()
+    assert port.LAUNCHES == {"flash_fwd": 0, "flash_fwd_res": 1,
+                             "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
+    o_r, m_r, l_r = port.flash_attention_fwd_reference(q, k, v, bias, causal)
+    torch.testing.assert_close(mm, m_r, rtol=1e-5, atol=0.0)
+    torch.testing.assert_close(ll, l_r, rtol=1e-5, atol=0.0)
+    torch.testing.assert_close(o, o_r, **TOL[dtype])
+    ref = port.flash_attention_bwd_reference(q, k, v, bias, causal, o_r,
+                                             m_r, l_r, do)
+    for got, want in zip((dq, dk, dv), ref):
+        assert got.dtype == dtype and got.shape == want.shape
+        scale = max(float(want.float().abs().max()), 1.0)
+        tol = dict(GRAD_TOL[dtype])
+        tol["atol"] *= scale if dtype == torch.bfloat16 else 1.0
+        torch.testing.assert_close(got.float(), want.float(), **tol)
+    if mask == "all_masked_row":
+        assert float(dq[:, :, 3].abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+def test_flash_backward_shared_kv_and_strided_views(cuda_device):
+    """The query-slice call: one tensor as keys and values, strided
+    views in, strided dO; autograd sums dk and dv."""
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    q = (torch.randn(6, 12, 64, device=cuda_device, generator=g) * 0.3)
+    k0 = torch.randn(6, 20, 64, device=cuda_device, generator=g) * 0.3
+    do = torch.randn(6, 64, 12, device=cuda_device, generator=g)
+    grads = []
+    for fn in ("kernel", "plain"):
+        qq = q.clone().requires_grad_()
+        kk = k0.clone().requires_grad_()
+        if fn == "kernel":
+            out = port.flash_attention(qq[:, None], kk[:, None], kk[:, None])
+        else:
+            out = port.flash_attention_reference(qq[:, None], kk[:, None],
+                                                 kk[:, None])
+        out.backward(do.transpose(1, 2)[:, None])
+        grads.append((qq.grad, kk.grad))
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, **GRAD_TOL[torch.float32])

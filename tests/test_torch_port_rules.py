@@ -67,22 +67,34 @@ def _cfg():
     return from_dict({"env_args": {"agv_num": 2, "mec_num": 1,
                                    "num_channels": 2},
                       "model": {"emb": 8, "heads": 2, "depth": 1,
-                                "mixer_emb": 8, "mixer_heads": 2}})
+                                "mixer_emb": 8, "mixer_heads": 2},
+                      "replay": {"compact_entity_store": False}})
 
 
 def test_entry_points_raise_without_cuda_unless_cpu_named(no_cuda):
+    from t2omca_tpu_torch.components.episode_buffer import (
+        PrioritizedReplayBuffer, ReplayBuffer)
     from t2omca_tpu_torch.controllers.basic_mac import BasicMAC
-    from t2omca_tpu_torch.convert import agent_state_from_flax
+    from t2omca_tpu_torch.convert import (agent_state_from_flax,
+                                          mixer_state_from_flax)
+    from t2omca_tpu_torch.learners import QMixLearner
     from t2omca_tpu_torch.device import resolve_device
     from t2omca_tpu_torch.envs.registry import make_env
     from t2omca_tpu_torch.serve.frontend import ServeFrontend
     cfg = _cfg()
     info = make_env(cfg.env_args).get_env_info()
     tree = {"feat_embedding": {"bias": np.zeros(8)}}
+    cpu_mac = BasicMAC.build(cfg, info, device="cpu")
+    buf_kw = dict(capacity=4, episode_limit=3, n_agents=2, n_actions=3,
+                  obs_dim=info["obs_shape"], state_dim=info["state_shape"])
     for call in (lambda: resolve_device(),
                  lambda: resolve_device("cuda"),
                  lambda: BasicMAC.build(cfg, info),
                  lambda: agent_state_from_flax(tree),
+                 lambda: mixer_state_from_flax(tree),
+                 lambda: QMixLearner.build(cfg, cpu_mac, info),
+                 lambda: ReplayBuffer(**buf_kw),
+                 lambda: PrioritizedReplayBuffer(**buf_kw),
                  lambda: ServeFrontend(cfg, {}, (1,))):
         with pytest.raises(RuntimeError, match="CUDA|cuda"):
             call()
@@ -91,6 +103,12 @@ def test_entry_points_raise_without_cuda_unless_cpu_named(no_cuda):
     params = mac.init_params(torch.Generator().manual_seed(0))
     assert all(v.device.type == "cpu" for v in params.values())
     assert mac.init_hidden(2).device.type == "cpu"
+    learner = QMixLearner.build(cfg, mac, info, device="cpu")
+    ls = learner.init_state(torch.Generator().manual_seed(0))
+    assert all(v.device.type == "cpu" for sub in ls.params.values()
+               for v in sub.values())
+    assert ReplayBuffer(device="cpu", **buf_kw).init().priorities.device \
+        .type == "cpu"
     fe = ServeFrontend(cfg, params, (1, 2), device="cpu")
     actions, _ = fe.select(np.zeros((3, 2, info["obs_shape"]), np.float32),
                            np.ones((3, 2, info["n_actions"]), np.bool_))
@@ -131,20 +149,25 @@ def test_exploration_is_not_ported_and_says_so():
 
 def test_kernel_sources_and_builder_target_sm90a():
     csrc = os.path.join(PORT, "kernels", "csrc")
-    cu = open(os.path.join(csrc, "flash_fwd.cu")).read()
-    op = open(os.path.join(csrc, "flash_fwd_op.cpp")).read()
     build = open(os.path.join(PORT, "kernels", "build.py")).read()
-    assert "sm_90a" in cu and "sm_90a" in build
-    assert "compute_90a" in build
-    assert "__global__" in cu and "TORCH_LIBRARY" in op
-    # the kernel computes its own products: no library GEMM inside
-    for lib in ("cublas", "cudnn", "torch::", "at::matmul"):
-        assert lib not in cu.lower()
+    assert "sm_90a" in build and "compute_90a" in build
+    for cu_name, op_name, kernels in (
+            ("flash_fwd.cu", "flash_fwd_op.cpp", ("flash_fwd_kernel",)),
+            ("flash_bwd.cu", "flash_bwd_op.cpp",
+             ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"))):
+        cu = open(os.path.join(csrc, cu_name)).read()
+        op = open(os.path.join(csrc, op_name)).read()
+        assert "sm_90a" in cu and "TORCH_LIBRARY" in op
+        assert "__global__" in cu and all(k in cu for k in kernels)
+        # the kernels compute their own products: no library GEMM inside
+        for lib in ("cublas", "cudnn", "torch::", "at::matmul"):
+            assert lib not in cu.lower()
 
 
 def test_builder_names_every_source_and_build_dir_is_ignored():
     from t2omca_tpu_torch.kernels import build
-    listed = set(build.CUDA_SOURCES + build.HOST_SOURCES)
+    listed = set(build.CUDA_SOURCES + build.HOST_SOURCES + build.HEADERS)
+    assert {"flash_bwd.cu", "flash_bwd_op.cpp"} <= listed
     assert listed == set(os.listdir(build.CSRC))
     gitignore = open(os.path.join(REPO, ".gitignore")).read()
     assert "t2omca_tpu_torch/kernels/_build/" in gitignore
