@@ -8,11 +8,18 @@ paths against its plain PyTorch version. Phases, one line each (any
 failed check ends the script with a non-zero exit):
 
 1. device    require CUDA; the card's name and power limit (nvidia-smi)
-2. build     compile the kernels from the checkout's sources (nvcc)
+2. build     compile the kernels from the checkout's sources (nvcc);
+             registers and spills of each kernel (ptxas) and its
+             tensor-core instructions (HMMA, cuobjdump): the bf16 K1 and
+             K3 bodies spill nothing and run on the tensor cores, and no
+             bf16 instance of the old CUDA-core bodies exists
 3. kernels   each kernel against its plain version at the main path's
-             shapes and the odd / masked / causal / all-masked cases;
-             times of kernel, plain version and the one-call library
-             yardstick (scaled_dot_product_attention, never on the path)
+             shapes and the odd / masked / causal / all-masked cases,
+             plus the bf16 tensor-core edges (Tq 4/65/268, Tk 65/131, D
+             8/12/64/256, the serve shape as strided (B, T, H, D) views,
+             k is v, causal per-head masks, all-negative logits); times
+             of kernel, plain version and the one-call library yardstick
+             (scaled_dot_product_attention, never on the path)
 4. serve     the serving front end at the north-star widths
              (configs/config3_tpu_northstar.yaml: 64 AGVs, 8 MECs,
              8 channels, emb 256, 4 heads, depth 2, standard heads) with
@@ -21,22 +28,25 @@ failed check ends the script with a non-zero exit):
              1, 7, 64 and 150 rows and a 3-turn session; legal actions,
              finite hidden, launch counts, and at f32 agreement with the
              query-slice path
-5. profile   device time of one max-bucket f32 dispatch by kernel
-             (torch.profiler), after the launch counts are read
+5. profile   device time of one max-bucket dispatch by kernel, f32 and
+             bf16 (torch.profiler), after the launch counts are read
 6. kernels-bwd  K1 + residuals, K2 and K3 against their plain versions
              at the learner agent (2048, 1, 4, 65, 256) and mixer
              (32, 1, 268, 131, 256) shapes in f32 and bf16, the dense
-             learner's heads, odd shapes, masks, causal and the
-             all-masked row; times of each kernel (and of K1) at the two
-             learner shapes beside its bound, its plain version and the
-             SDPA forward+backward yardstick (never on the path)
+             learner's heads, odd shapes, masks, causal, the all-masked
+             row and the bf16 edges of phase 3; times of each kernel at
+             the two learner shapes (and with k is v at bf16) beside its
+             bound, its plain version and its SDPA yardstick (forward for
+             K1 and K1 + residuals, backward alone for K2 and K3; never on
+             the path), and the fwd+bwd totals
 7. train     the trainer step (sample -> train -> priority feedback,
              train/program.py) at the north-star widths, bf16,
              kernels.attention=pallas, dense replay; 5 steps with exact
              launch counts of all four kernels, the p50 step time (bf16,
              and f32), the f32 pallas-vs-xla cross-check at batch 2
              (query slice and dense; loss, grad_norm, gradients and the
-             params after one step), and a profile of one bf16 step
+             params after one step), and a profile of one bf16 step that
+             must run the tensor-core K1 and K3 and no bf16 old body
 8. summary   the kernels JSON line, the card line, the result line
 
 Run from the repository root: ``python3 chip_smoke.py``. The last line
@@ -136,23 +146,148 @@ def bound_ms(nbytes: float, flops: float, dtype_name: str) -> tuple:
             "operations")
 
 
-def kernel_bounds(shape, dtype_name: str) -> dict:
+def kernel_bounds(shape, dtype_name: str, kv_same: bool = False) -> dict:
     """Bounds of K1, K1 + residuals, K2 and K3 on these inputs: each
     input read once, each output written once (m, l, Δ are f32 rows),
-    against 4, 4, 6 and 8 x B·H·Tq·Tk·D FLOPs."""
+    against 4, 4, 6 and 8 x B·H·Tq·Tk·D FLOPs. ``kv_same``: k and v are
+    one tensor (the query-slice call), read once."""
     b, h, tq, tk, d = shape
     it = 4 if dtype_name == "float32" else 2
     bh, mn = b * h, b * h * tq * tk * d
     qd, kd, row = bh * tq * d * it, bh * tk * d * it, bh * tq * 4
+    kv = kd if kv_same else 2 * kd
     return {
-        "flash_fwd": bound_ms(2 * qd + 2 * kd, 4 * mn, dtype_name),
-        "flash_fwd_res": bound_ms(2 * qd + 2 * kd + 2 * row, 4 * mn,
+        "flash_fwd": bound_ms(2 * qd + kv, 4 * mn, dtype_name),
+        "flash_fwd_res": bound_ms(2 * qd + kv + 2 * row, 4 * mn,
                                   dtype_name),
-        "flash_bwd_dq": bound_ms(3 * qd + 2 * kd + 3 * row, 6 * mn,
+        "flash_bwd_dq": bound_ms(3 * qd + kv + 3 * row, 6 * mn,
                                  dtype_name),
-        "flash_bwd_dkv": bound_ms(2 * qd + 4 * kd + 3 * row, 8 * mn,
+        "flash_bwd_dkv": bound_ms(2 * qd + kv + 2 * kd + 3 * row, 8 * mn,
                                   dtype_name),
     }
+
+
+#: the tensor-core bodies of K1 (both launches) and K3 at bf16, and the
+#: CUDA-core bodies that must exist for float only
+TC_KERNELS = ("flash_fwd_tc_kernel", "flash_bwd_dkv_tc_kernel")
+OLD_BODIES = ("flash_fwd_kernel", "flash_bwd_dkv_kernel")
+
+
+def kernel_label(mangled: str) -> str:
+    """flash_..._kernel<args> from a mangled kernel name (the template
+    arguments this repo uses: ints, bools, float and bf16)."""
+    import re
+    m = re.search(r"\d+(flash_\w+?_kernel)I(.+?)EEv", mangled)
+    if m is None:
+        return mangled
+    args = re.sub(r"Li(\d+)E", r"\1, ", m.group(2))
+    args = args.replace("Lb0E", "false, ").replace("Lb1E", "true, ")
+    args = args.replace("13__nv_bfloat16", "bf16").rstrip(", ")
+    return f"{m.group(1)}<{'float' if args == 'f' else args}>"
+
+
+def phase_build_report(lib: str, build) -> dict:
+    """ptxas registers and spills of every kernel (from the build log),
+    and the tensor-core instructions (HMMA) in each kernel's SASS
+    (cuobjdump). Fails if a tensor-core kernel spills or has no HMMA, or
+    if a bf16 instance of an old CUDA-core body was built. → {kernel:
+    HMMA count}."""
+    import re
+    with open(os.path.join(os.path.dirname(lib), "build.log")) as f:
+        log = f.read()
+    fn, usage = None, {}
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            fn = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m and fn:
+            usage.setdefault(fn, {})["spill"] = (int(m.group(1)),
+                                                 int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and fn:
+            usage.setdefault(fn, {})["regs"] = int(m.group(1))
+    cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "--dump-sass", lib],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    fn, hmma = None, {}
+    for ln in sass.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            fn = m.group(1)
+            hmma[fn] = 0
+        elif fn is not None and "HMMA" in ln:
+            hmma[fn] += 1
+    for name in sorted(set(usage) | set(hmma)):
+        u = usage.get(name, {})
+        st, ld = u.get("spill", (0, 0))
+        label = kernel_label(name)
+        print(f"[build] {label}: {u.get('regs')} registers, spill "
+              f"{st}/{ld} bytes, HMMA {hmma.get(name, 0)}", flush=True)
+        if any(k in name for k in TC_KERNELS):
+            check(st == 0 and ld == 0, f"{label} spills {st}/{ld} bytes")
+            check(hmma.get(name, 0) > 0, f"{label} has no HMMA in its SASS")
+        for old in OLD_BODIES:
+            check(not (old + "I13__nv_bfloat16") in name,
+                  f"a bf16 instance of {old} was built: {name}")
+    check(all(any(k in n and hmma[n] > 0 for n in hmma) for k in TC_KERNELS),
+          "a tensor-core kernel is missing from the library")
+    return {kernel_label(n): count for n, count in hmma.items()
+            if any(k in n for k in TC_KERNELS)}
+
+
+def make_inputs(torch, g, shape, dt, mask, extra=None):
+    """Seeded q, k, v, dO on the card (q and k with the module's Q1
+    scaling) and the boolean mask → (q, k, v, do, mask). ``extra``:
+    "kv" passes k as v (the query-slice call), "strided" gives the serve
+    path's (B, T, H, D) views, "negative" makes every real logit
+    negative (zero-filled pad keys would then win the row max if they
+    entered it)."""
+    dev = torch.device("cuda")
+    b, h, tq, tk, d = shape
+    dtype = getattr(torch, dt)
+    q, k = (torch.randn(b, h, t, d, device=dev, generator=g)
+            * d ** -0.25 for t in (tq, tk))       # Q1 scaling
+    if extra == "negative":
+        q, k = q.abs(), -k.abs()
+    v = torch.randn(b, h, tk, d, device=dev, generator=g)
+    do = torch.randn(b, h, tq, d, device=dev, generator=g)
+    q, k, v, do = (x.to(dtype) for x in (q, k, v, do))
+    if extra == "kv":
+        v = k
+    if extra == "strided":
+        q, k, v = (x.transpose(1, 2).contiguous().transpose(1, 2)
+                   for x in (q, k, v))
+    m = None
+    if mask is not None:
+        hm = h if mask == "per_head" else 1
+        m = torch.rand(b, hm, tq, tk, device=dev, generator=g) > 0.3
+        if mask == "all_masked_row":
+            m[:, :, 3] = False
+    return q, k, v, do, m
+
+
+#: bf16 cases at the tensor-core kernels' edges, shared by [kernels] and
+#: [kernels-bwd]: Tq 4/65/268 and Tk 65/131 (neither a multiple of the
+#: tiles), D 8/12/64/256, k is v, causal with a per-head mask, the
+#: all-masked row, and the pad-key trap of all-negative logits
+BF16_EDGES = [
+    ("agent_k_is_v", AGENT_SHAPE, "bfloat16", None, False, "kv"),
+    ("mixer_k_is_v", MIXER_SHAPE, "bfloat16", None, False, "kv"),
+    ("odd_d12", (8, 2, 5, 7, 12), "bfloat16", "broadcast", False, None),
+    ("causal_per_head_d12", (4, 3, 33, 70, 12), "bfloat16", "per_head",
+     True, None),
+    ("causal_per_head", (64, 4, 65, 65, 64), "bfloat16", "per_head", True,
+     None),
+    ("all_masked_row_d8", (16, 2, 40, 40, 8), "bfloat16", "all_masked_row",
+     True, None),
+    ("negative_logits_agent", (256, 1, 4, 65, 256), "bfloat16", None, False,
+     "negative"),
+    ("negative_logits_d64", (64, 2, 65, 131, 64), "bfloat16", None, False,
+     "negative"),
+]
 
 
 def phase_kernels(torch, att):
@@ -160,40 +295,38 @@ def phase_kernels(torch, att):
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(SEED)
     cases = [
-        # (name, (B, H, Tq, Tk, D), dtype, mask, causal)
-        ("serve", (4096, 4, 65, 65, 64), "float32", None, False),
-        ("serve", (4096, 4, 65, 65, 64), "bfloat16", None, False),
-        ("q1_heads_d256", (1024, 4, 65, 65, 256), "float32", None, False),
-        ("qslice_rows", (4096, 1, 4, 65, 256), "float32", None, False),
-        ("odd", (8, 2, 5, 7, 12), "float32", "broadcast", False),
+        # (name, (B, H, Tq, Tk, D), dtype, mask, causal, extra)
+        ("serve", (4096, 4, 65, 65, 64), "float32", None, False, None),
+        ("serve", (4096, 4, 65, 65, 64), "bfloat16", None, False, None),
+        ("serve_strided", (4096, 4, 65, 65, 64), "bfloat16", None, False,
+         "strided"),
+        ("q1_heads_d256", (1024, 4, 65, 65, 256), "float32", None, False,
+         None),
+        ("qslice_rows", (4096, 1, 4, 65, 256), "float32", None, False, None),
+        ("odd", (8, 2, 5, 7, 12), "float32", "broadcast", False, None),
         ("masked_per_head_causal", (64, 4, 65, 65, 64), "float32",
-         "per_head", True),
+         "per_head", True, None),
         ("masked_broadcast_bf16", (64, 4, 65, 65, 64), "bfloat16",
-         "broadcast", False),
+         "broadcast", False, None),
         ("all_masked_row", (16, 2, 40, 40, 8), "float32",
-         "all_masked_row", True),
-    ]
+         "all_masked_row", True, None),
+        ("agent", AGENT_SHAPE, "bfloat16", None, False, None),
+        ("mixer", MIXER_SHAPE, "bfloat16", None, False, None),
+    ] + BF16_EDGES
     errs = {}
     inputs = {}
-    for name, (b, h, tq, tk, d), dt, mask, causal in cases:
+    for name, (b, h, tq, tk, d), dt, mask, causal, extra in cases:
         dtype = getattr(torch, dt)
-        q, k = (torch.randn(b, h, t, d, device=dev, generator=g)
-                * d ** -0.25 for t in (tq, tk))       # Q1 scaling
-        v = torch.randn(b, h, tk, d, device=dev, generator=g)
-        q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
-        m = None
-        if mask is not None:
-            hm = h if mask == "per_head" else 1
-            m = torch.rand(b, hm, tq, tk, device=dev, generator=g) > 0.3
-            if mask == "all_masked_row":
-                m[:, :, 3] = False
+        q, k, v, _, m = make_inputs(torch, g, (b, h, tq, tk, d), dt, mask,
+                                    extra)
         out = att.flash_attention(q, k, v, mask=m, causal=causal)
         torch.cuda.synchronize()
         bias = None if m is None else torch.where(m, 0.0,
                                                   att.NEG_MASK_VALUE)
         ref = att.flash_attention_reference(q, k, v, bias, causal)
         err = (out.float() - ref.float()).abs().max().item()
-        check(out.dtype == dtype and out.shape == q.shape,
+        check(out.dtype == dtype and out.shape == q.shape and
+              out.stride() == q.stride(),
               f"{name} output {out.dtype} {tuple(out.shape)}")
         check(err <= TOL[dt], f"{name} {dt} max|kernel-plain| {err:.3e} "
                               f"> {TOL[dt]:.0e}")
@@ -203,15 +336,15 @@ def phase_kernels(torch, att):
                                          f"({uni.item():.3e})")
         errs[(name, dt)] = err
         print(f"[kernels] flash_fwd {name} B,H,Tq,Tk,D={b},{h},{tq},{tk},"
-              f"{d} {dt} mask={mask} causal={causal} max_abs_err={err:.3e}"
-              f" limit={TOL[dt]:.0e} ok", flush=True)
-        if name == "serve":
-            inputs[dt] = (q, k, v)
+              f"{d} {dt} mask={mask} causal={causal} extra={extra} "
+              f"max_abs_err={err:.3e} limit={TOL[dt]:.0e} ok", flush=True)
+        if name in ("serve", "serve_strided"):
+            inputs[(name, dt)] = (q, k, v)
         del q, k, v, out, ref
 
     import torch.nn.functional as F
     times = {}
-    for dt, (q, k, v) in inputs.items():
+    for (name, dt), (q, k, v) in inputs.items():
         b, h, tq, d = q.shape
         tk = k.shape[2]
         ms = cuda_ms(lambda: att.flash_attention(q, k, v))
@@ -219,8 +352,8 @@ def phase_kernels(torch, att):
         lib = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v,
                                                              scale=1.0))
         bound, by = attention_bound_ms(b, h, tq, tk, d, dt)
-        times[dt] = (ms, plain, lib, bound, by)
-        print(f"[kernels] flash_fwd time at serve shape {b}x{h}x{tq}x{d} "
+        times[(name, dt)] = (ms, plain, lib, bound, by)
+        print(f"[kernels] flash_fwd time at {name} shape {b}x{h}x{tq}x{d} "
               f"{dt}: kernel {ms:.4f} ms, plain {plain:.4f} ms, sdpa "
               f"{lib:.4f} ms, bound {bound:.4f} ms ({by}), kernel/bound "
               f"{ms / bound:.2f}x", flush=True)
@@ -352,12 +485,12 @@ def phase_serve(torch, att):
           f"rows: max|dq|={dq:.3e} (limit 1e-4) max|dh|={dh:.3e} action "
           f"mismatches={int(flips.sum())} (near-ties {int(near_tie.sum())})",
           flush=True)
-    return launches, fe, requests
+    return launches, fes, requests
 
 
-def phase_profile(torch, fe, requests, n_iter: int = 3):
-    """Where one max-bucket f32 dispatch spends device time: kernels and
-    copies by self device time (torch.profiler), against the host
+def phase_profile(torch, fe, requests, dt: str, n_iter: int = 3):
+    """Where one max-bucket dispatch at ``dt`` spends device time: kernels
+    and copies by self device time (torch.profiler), against the host
     clock of the same dispatches."""
     from torch.profiler import ProfilerActivity, profile
     obs, avail = requests(BUCKETS[-1])
@@ -382,7 +515,7 @@ def phase_profile(torch, fe, requests, n_iter: int = 3):
     busy = sum(r[0] for r in rows)
     check(busy > 0, "profiler saw no device time")
     rows.sort(reverse=True)
-    print(f"[profile] f32 bucket-{BUCKETS[-1]} dispatch: host {wall:.3f} ms,"
+    print(f"[profile] {dt} bucket-{BUCKETS[-1]} dispatch: host {wall:.3f} ms,"
           f" device busy {busy:.3f} ms ({100 * busy / wall:.1f}%), idle "
           f"{100 * (1 - busy / wall):.1f}%", flush=True)
     for ms, n, name in rows[:8]:
@@ -396,35 +529,27 @@ def phase_kernels_bwd(torch, att):
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(SEED + 7)
     cases = [
-        # (name, (B, H, Tq, Tk, D), dtype, mask, causal)
-        ("agent", AGENT_SHAPE, "float32", None, False),
-        ("agent", AGENT_SHAPE, "bfloat16", None, False),
-        ("mixer", MIXER_SHAPE, "float32", None, False),
-        ("mixer", MIXER_SHAPE, "bfloat16", None, False),
-        ("dense_heads", (64, 4, 65, 65, 64), "float32", None, False),
-        ("odd", (8, 2, 5, 7, 12), "float32", "broadcast", False),
+        # (name, (B, H, Tq, Tk, D), dtype, mask, causal, extra)
+        ("agent", AGENT_SHAPE, "float32", None, False, None),
+        ("agent", AGENT_SHAPE, "bfloat16", None, False, None),
+        ("mixer", MIXER_SHAPE, "float32", None, False, None),
+        ("mixer", MIXER_SHAPE, "bfloat16", None, False, None),
+        ("dense_heads", (64, 4, 65, 65, 64), "float32", None, False, None),
+        ("odd", (8, 2, 5, 7, 12), "float32", "broadcast", False, None),
         ("masked_per_head_causal", (64, 4, 65, 65, 64), "float32",
-         "per_head", True),
+         "per_head", True, None),
         ("masked_broadcast_bf16", (64, 4, 65, 65, 64), "bfloat16",
-         "broadcast", False),
+         "broadcast", False, None),
         ("all_masked_row", (16, 2, 40, 40, 8), "float32",
-         "all_masked_row", True),
-    ]
+         "all_masked_row", True, None),
+    ] + BF16_EDGES
     errs, inputs = {}, {}
-    for name, (b, h, tq, tk, d), dt, mask, causal in cases:
+    for name, (b, h, tq, tk, d), dt, mask, causal, extra in cases:
         dtype = getattr(torch, dt)
-        q, k = (torch.randn(b, h, t, d, device=dev, generator=g)
-                * d ** -0.25 for t in (tq, tk))       # Q1 scaling
-        v = torch.randn(b, h, tk, d, device=dev, generator=g)
-        do = torch.randn(b, h, tq, d, device=dev, generator=g)
-        q, k, v, do = (x.to(dtype) for x in (q, k, v, do))
-        bias = None
-        if mask is not None:
-            hm = h if mask == "per_head" else 1
-            m = torch.rand(b, hm, tq, tk, device=dev, generator=g) > 0.3
-            if mask == "all_masked_row":
-                m[:, :, 3] = False
-            bias = torch.where(m, 0.0, att.NEG_MASK_VALUE)
+        q, k, v, do, m = make_inputs(torch, g, (b, h, tq, tk, d), dt, mask,
+                                     extra)
+        bias = None if m is None else torch.where(m, 0.0,
+                                                  att.NEG_MASK_VALUE)
         o, mm, ll = att._launch_res(q, k, v, bias, causal)
         dq, dk, dv = att._launch_bwd(q, k, v, bias, causal, o, mm, ll, do)
         torch.cuda.synchronize()
@@ -432,11 +557,33 @@ def phase_kernels_bwd(torch, att):
                                                           causal)
         ref = att.flash_attention_bwd_reference(q, k, v, bias, causal, o_r,
                                                 m_r, l_r, do)
-        rel = lambda a, b_: ((a - b_).abs() / b_.abs().clamp(min=1e-30)
-                             ).max().item()
-        m_err, l_err = rel(mm, m_r), rel(ll, l_r)
-        check(m_err <= 1e-5 and l_err <= 1e-5,
-              f"{name} {dt} residuals: rel err m {m_err:.2e} l {l_err:.2e}")
+        rel_rows = lambda a, b_: ((a.double() - b_.double()).abs()
+                                  / b_.double().abs().clamp(min=1e-30))
+        m_rows = rel_rows(mm, m_r)
+        m_err, l_err = m_rows.max().item(), rel_rows(ll, l_r).max().item()
+        m_note, m_ok = "", m_err <= 1e-5
+        if dt == "bfloat16" or not m_ok:
+            # the row max in f64 from the same inputs: the exact value both
+            # f32 versions approximate. Where a row's max is near 0, two f32
+            # summation orders differ by more than 1e-5 relative and the
+            # plain f32 value is itself that far from exact: such rows are
+            # held to the exact value, at the same 1e-5
+            _, m64, _ = att.flash_attention_fwd_reference(
+                q.double(), k.double(), v.double(), bias, causal)
+            off = m_rows > 1e-5
+            k64, p64 = rel_rows(mm, m64), rel_rows(m_r, m64)
+            m_note = (f" (m vs f64: kernel {k64.max().item():.1e}, plain "
+                      f"{p64.max().item():.1e}")
+            if bool(off.any()):
+                m_ok = k64[off].max().item() <= 1e-5
+                m_note += (f"; {int(off.sum())} rows off the plain f32 "
+                           f"value by > 1e-5, where the kernel is "
+                           f"{k64[off].max().item():.1e} and the plain f32 "
+                           f"{p64[off].max().item():.1e} from f64")
+            m_note += ")"
+        check(m_ok and l_err <= 1e-5,
+              f"{name} {dt} residuals: rel err m {m_err:.2e} l {l_err:.2e}"
+              f"{m_note}")
         o_err = (o.float() - o_r.float()).abs().max().item()
         check(o_err <= TOL[dt], f"{name} {dt} K1+res output err {o_err:.3e}")
         rtol, atol = GRAD_TOL[dt]
@@ -457,13 +604,19 @@ def phase_kernels_bwd(torch, att):
             check(dq[:, :, 3].abs().max().item() == 0.0,
                   "all-masked row: dq not exactly 0")
             check(dv.abs().max().item() > 0.0, "all-masked row: dv is 0")
+            check(bool((mm[:, :, 3] == att.NEG_MASK_VALUE).all()) and
+                  bool((ll[:, :, 3] == tk).all()),
+                  "all-masked row: m != -1e9 or l != Tk")
+        if extra == "negative":
+            check(bool((mm < 0).all()), "a pad key entered a row's max")
         errs[(name, dt)] = {"flash_fwd_res": o_err,
                             "flash_bwd_dq": gerr["dq"],
                             "flash_bwd_dkv": max(gerr["dk"], gerr["dv"])}
         print(f"[kernels-bwd] {name} B,H,Tq,Tk,D={b},{h},{tq},{tk},{d} {dt}"
-              f" mask={mask} causal={causal}: m/l rel err {m_err:.1e}/"
-              f"{l_err:.1e}, o {o_err:.2e}, dq {gerr['dq']:.2e}, dk "
-              f"{gerr['dk']:.2e}, dv {gerr['dv']:.2e} ok", flush=True)
+              f" mask={mask} causal={causal} extra={extra}: m/l rel err "
+              f"{m_err:.1e}/{l_err:.1e}{m_note}, o {o_err:.2e}, dq "
+              f"{gerr['dq']:.2e}, dk {gerr['dk']:.2e}, dv {gerr['dv']:.2e} "
+              f"ok", flush=True)
         if name in ("agent", "mixer"):
             inputs[(name, dt)] = (q, k, v, do)
         del q, k, v, do, o, dq, dk, dv, ref, o_r
@@ -472,60 +625,71 @@ def phase_kernels_bwd(torch, att):
     import torch.nn.functional as F
     times = {}
     for (name, dt), (q, k, v, do) in inputs.items():
-        shape = tuple(q.shape) + (k.shape[2],)
-        shape = (shape[0], shape[1], shape[2], shape[4], shape[3])
-        o, mm, ll = att._launch_res(q, k, v, None, False)
-        delta = (do.float() * o.float()).sum(dim=-1)
-        bounds = kernel_bounds(shape, dt)
+        shape = (q.shape[0], q.shape[1], q.shape[2], k.shape[2], q.shape[3])
         qr, kr, vr = (x.detach().clone().requires_grad_() for x in (q, k, v))
-
-        def sdpa_fwd_bwd():
-            out = F.scaled_dot_product_attention(qr, kr, vr, scale=1.0)
-            out.backward(do)
-
-        def flash_fwd_bwd():
-            out = att.flash_attention(qr, kr, vr)
-            out.backward(do)
-
-        row = {
-            "flash_fwd": (
-                cuda_ms(lambda: att._launch(q, k, v, None, False)),
-                cuda_ms(lambda: att.flash_attention_reference(q, k, v))),
-            "flash_fwd_res": (
-                cuda_ms(lambda: att._launch_res(q, k, v, None, False)),
-                cuda_ms(lambda: att.flash_attention_fwd_reference(q, k,
-                                                                  v))),
-            "flash_bwd_dq": (
-                cuda_ms(lambda: att._launch_bwd_dq(q, k, v, None, False, do,
-                                                   mm, ll, delta)), None),
-            "flash_bwd_dkv": (
-                cuda_ms(lambda: att._launch_bwd_dkv(q, k, v, None, False,
-                                                    do, mm, ll, delta)),
-                None),
-        }
-        plain_bwd = cuda_ms(lambda: att.flash_attention_bwd_reference(
-            q, k, v, None, False, o, mm, ll, do))
+        out = F.scaled_dot_product_attention(qr, kr, vr, scale=1.0)
         sdpa_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, scale=1.0))
+        sdpa_bwd = cuda_ms(lambda: torch.autograd.grad(
+            out, (qr, kr, vr), do, retain_graph=True))
+
+        def sdpa_fwd_bwd():
+            F.scaled_dot_product_attention(qr, kr, vr,
+                                           scale=1.0).backward(do)
+
+        def flash_fwd_bwd():
+            att.flash_attention(qr, kr, vr).backward(do)
+
         sdpa = cuda_ms(sdpa_fwd_bwd)
         flash_total = cuda_ms(flash_fwd_bwd)
-        for kname, (ms, plain) in row.items():
-            bnd, by = bounds[kname]
-            lib = sdpa_fwd if kname == "flash_fwd" else sdpa
-            times[(kname, name, dt)] = dict(
-                ms=ms, plain_ms=plain if plain is not None else plain_bwd,
-                bound_ms=bnd, bound_by=by, library_ms=lib,
-                shape=list(shape), dtype=dt)
-            print(f"[kernels-bwd] time {kname} {name} {dt}: kernel "
-                  f"{ms:.4f} ms, plain {times[(kname, name, dt)]['plain_ms']:.4f}"
-                  f" ms, bound {bnd:.4f} ms ({by}), sdpa "
-                  f"{'fwd' if kname == 'flash_fwd' else 'fwd+bwd'} "
-                  f"{lib:.4f} ms, kernel/bound {ms / bnd:.1f}x", flush=True)
+        # k is v (the query-slice call) at bf16: K1, K1 + residuals and K3
+        # read the one tensor once
+        for kv_same in ((False, True) if dt == "bfloat16" else (False,)):
+            vv = k if kv_same else v
+            o, mm, ll = att._launch_res(q, k, vv, None, False)
+            delta = (do.float() * o.float()).sum(dim=-1)
+            bounds = kernel_bounds(shape, dt, kv_same)
+            row = {
+                "flash_fwd": (
+                    cuda_ms(lambda: att._launch(q, k, vv, None, False)),
+                    cuda_ms(lambda: att.flash_attention_reference(q, k, vv)),
+                    sdpa_fwd),
+                "flash_fwd_res": (
+                    cuda_ms(lambda: att._launch_res(q, k, vv, None, False)),
+                    cuda_ms(lambda: att.flash_attention_fwd_reference(
+                        q, k, vv)), sdpa_fwd),
+                "flash_bwd_dq": (
+                    cuda_ms(lambda: att._launch_bwd_dq(
+                        q, k, vv, None, False, do, mm, ll, delta)), None,
+                    sdpa_bwd),
+                "flash_bwd_dkv": (
+                    cuda_ms(lambda: att._launch_bwd_dkv(
+                        q, k, vv, None, False, do, mm, ll, delta)), None,
+                    sdpa_bwd),
+            }
+            plain_bwd = cuda_ms(lambda: att.flash_attention_bwd_reference(
+                q, k, vv, None, False, o, mm, ll, do))
+            tag = name + ("_k_is_v" if kv_same else "")
+            for kname, (ms, plain, lib) in row.items():
+                bnd, by = bounds[kname]
+                times[(kname, tag, dt)] = dict(
+                    ms=ms, plain_ms=plain if plain is not None else plain_bwd,
+                    bound_ms=bnd, bound_by=by, library_ms=lib,
+                    shape=list(shape), dtype=dt, k_is_v=kv_same)
+                print(f"[kernels-bwd] time {kname} {tag} {dt}: kernel "
+                      f"{ms:.4f} ms, plain "
+                      f"{times[(kname, tag, dt)]['plain_ms']:.4f} ms, bound "
+                      f"{bnd:.4f} ms ({by}), sdpa "
+                      f"{'fwd' if kname.startswith('flash_fwd') else 'bwd'} "
+                      f"{lib:.4f} ms, kernel/bound {ms / bnd:.1f}x, "
+                      f"kernel/sdpa {ms / lib:.2f}x", flush=True)
+            del o, mm, ll, delta
         print(f"[kernels-bwd] time {name} {dt}: flash fwd+bwd through the "
               f"autograd Function {flash_total:.4f} ms vs sdpa fwd+bwd "
-              f"{sdpa:.4f} ms (plain bwd covers dq, dk, dv together: "
-              f"{plain_bwd:.4f} ms)", flush=True)
-        del qr, kr, vr, o, mm, ll, delta
+              f"{sdpa:.4f} ms (sdpa fwd {sdpa_fwd:.4f}, bwd alone "
+              f"{sdpa_bwd:.4f}; plain bwd covers dq, dk, dv together)",
+              flush=True)
+        del qr, kr, vr, out
     del inputs
     torch.cuda.empty_cache()
     return errs, times
@@ -798,6 +962,13 @@ def phase_profile_train(torch, buffer, ring, cfg, info):
             us = e.self_cuda_time_total
         if us > 0:
             rows.append((us / 1e3, e.count, e.key))
+    names = [r[2] for r in rows]
+    for k in TC_KERNELS:
+        check(any(k in n for n in names),
+              f"the bf16 trainer step ran no {k}")
+    for old in OLD_BODIES:
+        check(not any(f"{old}<__nv_bfloat16>" in n for n in names),
+              f"the bf16 trainer step ran a bf16 {old}")
     busy = sum(r[0] for r in rows)
     check(busy > 0, "profiler saw no device time in the trainer step")
     rows.sort(reverse=True)
@@ -828,52 +999,74 @@ def main() -> int:
     print(f"[device] {smi} | torch {torch.__version__} cuda "
           f"{torch.version.cuda} | devices {count}", flush=True)
 
+    phases = {}
     t0 = time.perf_counter()
     lib = build.build()
     build.load()
-    with open(os.path.join(os.path.dirname(lib), "build.log")) as f:
-        usage = [ln.strip() for ln in f if "registers" in ln
-                 or "spill" in ln]
     print(f"[build] {os.path.relpath(lib)} in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    for ln in usage:
-        print(f"[build] ptxas: {ln}", flush=True)
+    hmma = phase_build_report(lib, build)
 
+    def lap(name):
+        nonlocal t0
+        phases[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+    lap("build")
     errs, times = phase_kernels(torch, att)
-    launches, fe32, requests = phase_serve(torch, att)
-    phase_profile(torch, fe32, requests)
-    del fe32
+    lap("kernels")
+    launches, fes, requests = phase_serve(torch, att)
+    lap("serve")
+    for dt in ("float32", "bfloat16"):
+        phase_profile(torch, fes[dt], requests, dt)
+    del fes
     torch.cuda.empty_cache()
+    lap("profile")
     errs_bwd, times_bwd = phase_kernels_bwd(torch, att)
+    lap("kernels-bwd")
     train, buffer, ring, cfg, info = phase_train(torch, att)
+    lap("train")
     phase_profile_train(torch, buffer, ring, cfg, info)
+    lap("profile-train")
 
-    ms, plain, lib_ms, bound, by = times["float32"]
-    learner_times = lambda name: [times_bwd[(name, s, dt)]
-                                  for s in ("agent", "mixer")
-                                  for dt in ("bfloat16", "float32")]
+    def fwd_times(key):
+        ms, plain, lib_ms, bound, by = times[key]
+        return {"ms": ms, "plain_ms": plain, "library_ms": lib_ms,
+                "bound_ms": bound, "bound_by": by}
+
+    def learner_times(name):
+        return [times_bwd[key] for key in times_bwd if key[0] == name]
+
+    csrc = "t2omca_tpu_torch/kernels/csrc/"
     kernels = [{
         "name": "flash_fwd",
         "route": "cuda",
-        "source": "t2omca_tpu_torch/kernels/csrc/flash_fwd.cu",
-        "replaces": "t2omca_tpu/kernels/attention.py:115",
+        "source": csrc + "flash_fwd.cu",
+        "source_bf16": csrc + "flash_fwd_tc.cu",
+        "replaces": "t2omca_tpu/kernels/attention.py:115 (pallas_call :392)",
         "launches": launches["flash_fwd"] + train["launches"]["flash_fwd"],
         "launches_by_path": {"serve": launches["flash_fwd"],
                              "train": train["launches"]["flash_fwd"]},
         "max_abs_err": errs[("serve", "float32")],
-        "ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
-        "library_ms": lib_ms,
+        **fwd_times(("serve", "float32")),
         "shape": [4096, 4, 65, 65, 64], "dtype": "float32",
+        "serve_bfloat16": dict(fwd_times(("serve", "bfloat16")),
+                               max_abs_err=errs[("serve", "bfloat16")]),
+        "serve_strided_bfloat16": fwd_times(("serve_strided", "bfloat16")),
         "learner_shapes": learner_times("flash_fwd"),
     }]
-    sources = {"flash_fwd_res": ("flash_fwd.cu", ":115 (pallas_call :383)"),
-               "flash_bwd_dq": ("flash_bwd.cu", ":210 (pallas_call :437)"),
-               "flash_bwd_dkv": ("flash_bwd.cu", ":253 (pallas_call :464)")}
-    for name, (src, line) in sources.items():
+    sources = {
+        "flash_fwd_res": ("flash_fwd_tc.cu", "flash_fwd.cu",
+                          ":115 (pallas_call :383)"),
+        "flash_bwd_dq": ("flash_bwd.cu", "flash_bwd.cu",
+                         ":210 (pallas_call :437)"),
+        "flash_bwd_dkv": ("flash_bwd_tc.cu", "flash_bwd.cu",
+                          ":253 (pallas_call :464)")}
+    for name, (src, src32, line) in sources.items():
         head = times_bwd[(name, "agent", "bfloat16")]
         kernels.append({
             "name": name, "route": "cuda",
-            "source": f"t2omca_tpu_torch/kernels/csrc/{src}",
+            "source": csrc + src, "source_f32": csrc + src32,
             "replaces": f"t2omca_tpu/kernels/attention.py{line}",
             "launches": train["launches"][name],
             "launches_by_path": {"serve": 0,
@@ -886,10 +1079,17 @@ def main() -> int:
             "max_abs_err_f32": errs_bwd[("agent", "float32")][name],
             "learner_shapes": learner_times(name),
         })
+    tc_of = {"flash_fwd": TC_KERNELS[0], "flash_fwd_res": TC_KERNELS[0],
+             "flash_bwd_dkv": TC_KERNELS[1]}
+    for k in kernels:
+        tc = tc_of.get(k["name"])
+        k["hmma_in_sass"] = {n: c for n, c in hmma.items()
+                             if tc is not None and n.startswith(tc)}
     print(f"[summary] trainer step p50: bf16 {train['p50_bf16_ms']:.1f} ms, "
           f"f32 {train['p50_f32_ms']:.1f} ms (T="
           f"{train['f32_episode_limit']})", flush=True)
-    print(f"[summary] total {time.perf_counter() - t_start:.1f} s",
+    print(f"[summary] total {time.perf_counter() - t_start:.1f} s; by phase: "
+          + ", ".join(f"{k} {v:.1f} s" for k, v in phases.items()),
           flush=True)
     print(smi_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,0 +1,137 @@
+#!/usr/bin/env python3
+"""Time one checkout of the PyTorch port on the card: its bf16 serve
+dispatch and its flash-attention kernels. Run it once per checkout, in
+turns (parent, change, change, parent), inside one chip call, to compare
+two versions on one card:
+
+    python3 scripts/torch_kernel_ab.py --repo DIR [--label NAME]
+
+``--repo`` is the root of the checkout whose ``t2omca_tpu_torch`` is
+timed (its kernels build there at first use). Prints one JSON line: the
+label, the card and its power limit, the bf16 bucket-64 dispatch p50
+(host clock around ``ServeFrontend.select`` incl. H2D/D2H, north-star
+widths of ``configs/config3_tpu_northstar.yaml``, use_qslice=false,
+kernels.attention=pallas, random weights from seed 0) and CUDA-event
+times of K1 (serve, learner agent and mixer shapes), K1 + residuals, K2
+and K3 (agent and mixer) at bf16, with k and v one tensor at the learner
+shapes as the query-slice call passes them. Needs one NVIDIA GPU.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+SEED = 0
+REPS = 30            # dispatches timed after the warm-up
+NORTH_STAR = {
+    "env_args": {"agv_num": 64, "mec_num": 8, "num_channels": 8,
+                 "episode_limit": 150},
+    "model": {"emb": 256, "heads": 4, "depth": 2, "mixer_emb": 256,
+              "mixer_heads": 4, "mixer_depth": 2, "standard_heads": True,
+              "dtype": "bfloat16", "use_qslice": False},
+    "kernels": {"attention": "pallas"},
+}
+SHAPES = {"serve": (4096, 4, 65, 65, 64), "agent": (2048, 1, 4, 65, 256),
+          "mixer": (32, 1, 268, 131, 256)}
+
+
+def cuda_ms(torch, fn, iters: int = 30, warmup: int = 3) -> float:
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def dispatch_p50(torch) -> float:
+    import numpy as np
+    from t2omca_tpu_torch.config import from_dict
+    from t2omca_tpu_torch.controllers.basic_mac import BasicMAC
+    from t2omca_tpu_torch.envs.registry import make_env
+    from t2omca_tpu_torch.serve.frontend import ServeFrontend
+    cfg = from_dict(json.loads(json.dumps(NORTH_STAR)))
+    info = make_env(cfg.env_args).get_env_info()
+    params = BasicMAC.build(cfg, info).init_params(
+        torch.Generator().manual_seed(SEED))
+    fe = ServeFrontend(cfg, params, (64,), dtype="bfloat16")
+    fe.warmup()
+    rng = np.random.default_rng(SEED)
+    a, od, na = info["n_agents"], info["obs_shape"], info["n_actions"]
+    times = []
+    for _ in range(REPS):
+        obs = rng.standard_normal((64, a, od)).astype(np.float32)
+        avail = rng.random((64, a, na)) < 0.6
+        avail[..., 0] = True
+        t0 = time.perf_counter()
+        fe.select(obs, avail)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def kernel_times(torch, att) -> dict:
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    out = {}
+    for name, (b, h, tq, tk, d) in SHAPES.items():
+        q, k = ((torch.randn(b, h, t, d, device=dev, generator=g)
+                 * d ** -0.25).bfloat16() for t in (tq, tk))
+        v = torch.randn(b, h, tk, d, device=dev, generator=g).bfloat16()
+        do = torch.randn(b, h, tq, d, device=dev, generator=g).bfloat16()
+        if name == "serve":     # the serve path's (B, T, H, D) views
+            q, k, v = (x.transpose(1, 2).contiguous().transpose(1, 2)
+                       for x in (q, k, v))
+            out["flash_fwd serve"] = cuda_ms(
+                torch, lambda: att._launch(q, k, v, None, False))
+            continue
+        for kv_name, vv in (("", v), (" k_is_v", k)):
+            o, m, l = att._launch_res(q, k, vv, None, False)
+            delta = (do.float() * o.float()).sum(dim=-1)
+            tag = name + kv_name
+            out[f"flash_fwd {tag}"] = cuda_ms(
+                torch, lambda: att._launch(q, k, vv, None, False))
+            out[f"flash_fwd_res {tag}"] = cuda_ms(
+                torch, lambda: att._launch_res(q, k, vv, None, False))
+            out[f"flash_bwd_dq {tag}"] = cuda_ms(
+                torch, lambda: att._launch_bwd_dq(q, k, vv, None, False, do,
+                                                  m, l, delta))
+            out[f"flash_bwd_dkv {tag}"] = cuda_ms(
+                torch, lambda: att._launch_bwd_dkv(q, k, vv, None, False, do,
+                                                   m, l, delta))
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--repo", required=True)
+    ap.add_argument("--label", default=None)
+    args = ap.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        print("torch_kernel_ab: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.abspath(args.repo))
+    from t2omca_tpu_torch.kernels import attention as att
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60).stdout.strip()
+    result = {"label": args.label or args.repo, "card": smi,
+              "dispatch_bf16_b64_p50_ms": dispatch_p50(torch)}
+    result.update(kernel_times(torch, att))
+    print(json.dumps(result), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -16,13 +16,27 @@ semantics, which every version here keeps exactly:
 Four kernels, all CUDA C++ for ``sm_90a`` built at first use by
 ``build.py`` (a build or launch failure raises):
 
-* K1 ``flash_fwd`` (``csrc/flash_fwd.cu``): the forward;
+* K1 ``flash_fwd``: the forward;
 * K1 + residuals ``flash_fwd_res``: the forward that also writes each
   row's final running max ``m`` and denominator ``l`` (f32 ``(B, H,
   Tq)``, kept separate: an all-masked row has ``m = −1e9``, which would
   swallow ``log l`` in a fused logsumexp);
-* K2 ``flash_bwd_dq`` and K3 ``flash_bwd_dkv`` (``csrc/flash_bwd.cu``):
-  the gradients, recomputing P from ``(q, k, m, l)``.
+* K2 ``flash_bwd_dq`` and K3 ``flash_bwd_dkv``: the gradients,
+  recomputing P from ``(q, k, m, l)``.
+
+f32 inputs run CUDA-core bodies (``csrc/flash_fwd.cu``,
+``csrc/flash_bwd.cu``), as does K2 at bf16. The bf16 bodies of K1 (both
+launches, ``csrc/flash_fwd_tc.cu``) and K3 (``csrc/flash_bwd_tc.cu``)
+run their products on Hopper's tensor cores (``mma.sync`` with bf16
+operands and f32 accumulation), because at every main-path shape the
+function is bound by bytes but f32 products on the CUDA cores cost as
+much as the whole byte time. Their one new rounding, stated here once:
+they round P (K1, K3) and dS (K3) to bf16 before the products with V,
+dO and Q, where the plain versions below keep f32 P; the statistics
+``m``, ``l`` and every accumulator stay f32, and the card's tolerances
+are unchanged (``chip_smoke.py``, ``tests/test_torch_cuda.py``;
+``tests/test_torch_attention_bf16_rounding.py`` holds a plain model of
+that rounding against JAX on the CPU).
 
 ``flash_attention`` dispatches on autograd and the device and on nothing
 else. Under grad mode with an input that requires grad it goes through

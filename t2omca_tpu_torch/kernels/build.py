@@ -31,10 +31,11 @@ CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                           "_build")
 LIB_NAME = "libt2omca_kernels.so"
-CUDA_SOURCES = ("flash_fwd.cu", "flash_bwd.cu")
+CUDA_SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "flash_fwd_tc.cu",
+                "flash_bwd_tc.cu")
 HOST_SOURCES = ("flash_fwd_op.cpp", "flash_bwd_op.cpp")
 #: included by the CUDA sources (hashed into the build key with them)
-HEADERS = ("flash_common.cuh",)
+HEADERS = ("flash_common.cuh", "flash_mma.cuh")
 #: Hopper with the architecture-specific features (wgmma, setmaxnreg)
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 

@@ -1,4 +1,7 @@
-// Flash-attention backward for Hopper (sm_90a), hand-written CUDA C++.
+// Flash-attention backward for Hopper (sm_90a), hand-written CUDA C++:
+// K2 (f32 and bf16) and the f32 K3 on the CUDA cores. The bf16 K3 is the
+// tensor-core body of flash_bwd_tc.cu (t2o_flash_bwd_dkv below dispatches
+// on the dtype).
 //
 // Replaces the TPU kernels of t2omca_tpu/kernels/attention.py's `_build`
 // backward (:402):
@@ -41,7 +44,7 @@
 //   dot products from shared memory), then the owned 4x4 output blocks
 //   accumulate in registers as in K1's PV phase.
 //
-// Tensor cores and TMA are later work; see PERF.md for times.
+// Tensor cores for K2 and for f32 are later work; see PERF.md for times.
 
 #include "flash_common.cuh"
 
@@ -217,6 +220,7 @@ flash_bwd_dq_kernel(const BwdParams p) {
 }
 
 // K3: dK and dV for one (b, h, k-tile), looping over the q tiles.
+// Instantiated for float only: bf16 runs flash_bwd_tc.cu.
 template <typename T>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dkv_kernel(const BwdParams p) {
@@ -418,6 +422,12 @@ bool make_params(BwdParams* p, const void* q, const void* k, const void* v,
 
 extern "C" {
 
+int t2o_flash_bwd_dkv_bf16(const void* q, const void* k, const void* v,
+                           const float* bias, const void* g, const float* m,
+                           const float* l, const float* delta, void* dk,
+                           void* dv, int B, int H, int Tq, int Tk, int D,
+                           const int64_t* strides, int causal, void* stream);
+
 // K2: dq. dtype 0 = float32, 1 = bfloat16; q, k, v, dO and dq share it.
 // Returns a cudaError_t code (0 = launched).
 int t2o_flash_bwd_dq(const void* q, const void* k, const void* v,
@@ -444,9 +454,10 @@ int t2o_flash_bwd_dkv(const void* q, const void* k, const void* v,
   if (!make_params(&p, q, k, v, bias, g, m, l, delta, nullptr, dk, dv, dtype,
                    B, H, Tq, Tk, D, strides, causal))
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(dtype == 0 ? launch_dkv<float>(p, s)
-                          : launch_dkv<__nv_bfloat16>(p, s));
+  if (dtype == 1)
+    return t2o_flash_bwd_dkv_bf16(q, k, v, bias, g, m, l, delta, dk, dv, B, H,
+                                  Tq, Tk, D, strides, causal, stream);
+  return (int)launch_dkv<float>(p, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -1,4 +1,6 @@
-// Flash-attention forward for Hopper (sm_90a), hand-written CUDA C++.
+// Flash-attention forward for Hopper (sm_90a), hand-written CUDA C++:
+// the f32 body on the CUDA cores. bf16 inputs go to the tensor-core body
+// of flash_fwd_tc.cu (t2o_flash_fwd below dispatches on the dtype).
 //
 // Replaces the TPU kernel `_flash_attention_kernel`
 // (t2omca_tpu/kernels/attention.py:115), both of its launches by
@@ -48,7 +50,8 @@
 //   output in registers for the whole key loop; per key it reads 4 P
 //   values and one float4 of V for 16 FMAs.
 //
-// Tensor cores (wgmma) and TMA are later work; see PERF.md for times.
+// Tensor cores for f32 (3xTF32 to keep the f32 tolerance) are later work;
+// see PERF.md for times.
 
 #include "flash_common.cuh"
 
@@ -74,7 +77,8 @@ struct Params {
   int vec;  // q, k, v, o rows load/store as aligned groups of 4 elements
 };
 
-// two CTAs per SM: registers capped at 128 per thread
+// two CTAs per SM: registers capped at 128 per thread. Instantiated for
+// float only: bf16 runs flash_fwd_tc.cu.
 template <typename T>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_fwd_kernel(const Params p) {
@@ -286,6 +290,11 @@ cudaError_t launch(const Params& p, size_t smem, cudaStream_t stream) {
 
 extern "C" {
 
+int t2o_flash_fwd_bf16(const void* q, const void* k, const void* v,
+                       const float* bias, void* o, float* m, float* l, int B,
+                       int H, int Tq, int Tk, int D, const int64_t* strides,
+                       int causal, void* stream);
+
 // dtype: 0 = float32, 1 = bfloat16. strides: 20 int64 in elements, four
 // each for q, k, v, bias, o over (B, H, T, D) resp. (B, H, Tq, Tk); the
 // bias strides are ignored when bias is null. m and l: null, or both
@@ -299,6 +308,9 @@ int t2o_flash_fwd(const void* q, const void* k, const void* v,
   if (B < 1 || H < 1 || Tq < 1 || Tk < 1 || D < 1 || D > 256 ||
       (dtype != 0 && dtype != 1) || ((m == nullptr) != (l == nullptr)))
     return (int)cudaErrorInvalidValue;
+  if (dtype == 1)
+    return t2o_flash_fwd_bf16(q, k, v, bias, o, m, l, B, H, Tq, Tk, D,
+                              strides, causal, stream);
   Params p;
   p.q = q;
   p.k = k;
@@ -320,9 +332,8 @@ int t2o_flash_fwd(const void* q, const void* k, const void* v,
     p.so[i] = strides[16 + i];
   }
   p.causal = causal;
-  p.vec = D % 4 == 0 && rows_of_4(q, p.sq, dtype) &&
-          rows_of_4(k, p.sk, dtype) && rows_of_4(v, p.sv, dtype) &&
-          rows_of_4(o, p.so, dtype);
+  p.vec = D % 4 == 0 && rows_of_4(q, p.sq, 0) && rows_of_4(k, p.sk, 0) &&
+          rows_of_4(v, p.sv, 0) && rows_of_4(o, p.so, 0);
   p.g.D = D;
   p.g.dp = (D + 3) / 4 * 4;
   p.g.ld = p.g.dp + 4;
@@ -337,10 +348,7 @@ int t2o_flash_fwd(const void* q, const void* k, const void* v,
   const size_t smem =
       sizeof(float) * ((size_t)p.bq * p.g.ld + 2 * (size_t)p.bk * p.g.ld +
                        (size_t)p.bq * (p.bk + 1) + 3 * (size_t)p.bq);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = dtype == 0 ? launch<float>(p, smem, s)
-                               : launch<__nv_bfloat16>(p, smem, s);
-  return (int)err;
+  return (int)launch<float>(p, smem, static_cast<cudaStream_t>(stream));
 }
 
 const char* t2o_cuda_error_string(int code) {

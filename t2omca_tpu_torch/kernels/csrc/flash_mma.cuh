@@ -1,0 +1,161 @@
+// Hopper tensor-core building blocks of the bf16 flash kernels
+// (flash_fwd_tc.cu, flash_bwd_tc.cu): warp-level mma.sync m16n8k16 with
+// bf16 operands and f32 accumulation, ldmatrix fragment loads from shared
+// memory, cp.async 16-byte copies into shared memory, and the staging of a
+// strided (T, D) slab of bf16 rows as bf16 in shared memory.
+//
+// Fragment layout of mma.m16n8k16 (g = lane / 4, t = lane % 4):
+//   A (16 x 16, row major), 4 x b32:  a0 (g, 2t..2t+1)     a1 (g+8, 2t..)
+//                                     a2 (g, 2t+8..2t+9)   a3 (g+8, 2t+8..)
+//   B (16 x 8, k x n), 2 x b32:       b0 (k 2t..2t+1, n g) b1 (k 2t+8.., n g)
+//   C (16 x 8, f32), 4 x f32:         c0, c1 (g, 2t..2t+1)  c2, c3 (g+8, ..)
+// so the C fragments of two neighbouring n8 tiles are, packed to bf16, the
+// A fragment of a 16-deep product: S never leaves the registers.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+namespace t2o {
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Four 8x8 b16 matrices; lanes 8i..8i+7 give the row addresses of matrix i.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// c += a b on the tensor cores (bf16 x bf16 -> f32)
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two f32 -> one b32 of two bf16 (round to nearest even), lo in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// 16-byte global -> shared copy that bypasses L1; src_bytes 0 fills zeros
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src,
+                                            int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+}
+
+// Stage rows [0, n_rows) of a (T, D) bf16 slab into shared rows of `ld`
+// elements, columns padded with zeros to dp (a multiple of 16), rows
+// n_valid..n_rows-1 zero-filled. With `vec` (D % 8 == 0, unit column
+// stride, 16-byte aligned rows) each 16-byte chunk is one cp.async (the
+// caller commits and waits); otherwise the chunk is gathered with scalar
+// loads and stored at once, inside the same kernel.
+__device__ __forceinline__ void stage_bf16(
+    __nv_bfloat16* dst, int ld, const __nv_bfloat16* src, int64_t s_row,
+    int64_t s_col, int n_valid, int n_rows, int D, int dp, bool vec,
+    int tid, int nthreads) {
+  const int chunks = dp / 8;
+  for (int u = tid; u < n_rows * chunks; u += nthreads) {
+    const int r = u / chunks;
+    const int c = (u - r * chunks) * 8;
+    __nv_bfloat16* d = dst + r * ld + c;
+    const bool row_ok = r < n_valid;
+    if (vec) {
+      const bool ok = row_ok && c < D;
+      cp_async_16(d, ok ? src + (int64_t)r * s_row + c : src, ok ? 16 : 0);
+    } else {
+      uint32_t w[4];
+      const __nv_bfloat16* row = src + (int64_t)r * s_row;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c0 = c + 2 * e;
+        __nv_bfloat162 x;
+        x.x = row_ok && c0 < D ? row[(int64_t)c0 * s_col]
+                               : __float2bfloat16_rn(0.f);
+        x.y = row_ok && c0 + 1 < D ? row[(int64_t)(c0 + 1) * s_col]
+                                   : __float2bfloat16_rn(0.f);
+        w[e] = *reinterpret_cast<const uint32_t*>(&x);
+      }
+      *reinterpret_cast<uint4*>(d) = make_uint4(w[0], w[1], w[2], w[3]);
+    }
+  }
+}
+
+// Round a warp's (16 x 8N) f32 accumulator fragments to bf16 into shared
+// rows of `ld` at `blk` (the caller syncs the warp before reading them).
+template <int N>
+__device__ __forceinline__ void stage_frag(__nv_bfloat16* blk, int ld,
+                                           const float (&acc)[N][4], int g,
+                                           int t) {
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+    *reinterpret_cast<uint32_t*>(blk + g * ld + 8 * n + 2 * t) =
+        pack_bf16(acc[n][0], acc[n][1]);
+    *reinterpret_cast<uint32_t*>(blk + (g + 8) * ld + 8 * n + 2 * t) =
+        pack_bf16(acc[n][2], acc[n][3]);
+  }
+}
+
+// Write a warp's (16 x w) bf16 block, staged at `src` in shared rows of
+// `ld`, to rows [0, n_rows) and columns [c0, min(c0 + w, D)) of a strided
+// output: 16-byte stores where the output's rows allow them (`vec`),
+// strided scalar stores otherwise.
+__device__ __forceinline__ void store_block_bf16(
+    __nv_bfloat16* dst, int64_t s_row, int64_t s_col, const __nv_bfloat16* src,
+    int ld, int n_rows, int c0, int w, int D, bool vec, int lane) {
+  const int chunks = w / 8;
+  for (int u = lane; u < 16 * chunks; u += 32) {
+    const int r = u / chunks;
+    const int c = c0 + (u - r * chunks) * 8;
+    if (r >= n_rows || c >= D) continue;
+    const __nv_bfloat16* s = src + r * ld + (c - c0);
+    __nv_bfloat16* d = dst + (int64_t)r * s_row;
+    if (vec) {
+      *reinterpret_cast<uint4*>(d + c) = *reinterpret_cast<const uint4*>(s);
+    } else {
+      for (int e = 0; e < 8 && c + e < D; ++e) d[(int64_t)(c + e) * s_col] = s[e];
+    }
+  }
+}
+
+// Host side: do a bf16 tensor's rows allow 16-byte copies? (D % 8 == 0,
+// unit column stride, every other stride a multiple of 8 elements, 16-byte
+// aligned base); strides over (B, H, T, D).
+inline bool rows_of_8(const void* ptr, const int64_t* s, int D) {
+  return reinterpret_cast<uintptr_t>(ptr) % 16 == 0 && D % 8 == 0 &&
+         s[0] % 8 == 0 && s[1] % 8 == 0 && s[2] % 8 == 0 && s[3] == 1;
+}
+
+// Host side: the padded head widths the tensor-core kernels are built for.
+inline int padded_head_dim(int D) {
+  return D <= 16 ? 16 : D <= 32 ? 32 : D <= 64 ? 64 : D <= 128 ? 128 : 256;
+}
+
+}  // namespace t2o

@@ -168,6 +168,79 @@ def test_flash_backward_kernels_match_plain(cuda_device, dtype, shape,
         assert float(dq[:, :, 3].abs().max()) == 0.0
 
 
+def _assert_row_max_close(mm, m_r, q, k, v, bias, causal):
+    """m within 1e-5 relative of the plain version; on rows where that
+    fails, within 1e-5 relative of the exact row max (the plain version
+    in f64). A row whose max is near 0 puts two f32 summation orders
+    more than 1e-5 apart, and the plain f32 value itself that far from
+    exact; the bf16 K1 + residuals writes the correctly rounded max."""
+    rel = lambda a, b: (a.double() - b.double()).abs() / b.double().abs()
+    off = rel(mm, m_r) > 1e-5
+    if bool(off.any()):
+        _, m64, _ = port.flash_attention_fwd_reference(
+            q.double(), k.double(), v.double(), bias, causal)
+        assert float(rel(mm, m64)[off].max()) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,causal,mask,extra", [
+    ((16, 1, 4, 65, 256), False, None, "k_is_v"),      # agent, k0 once
+    ((2, 1, 268, 131, 256), False, None, "k_is_v"),    # mixer, k0 once
+    ((4, 3, 33, 70, 12), True, "per_head", None),      # D 12: scalar staging
+    ((8, 4, 65, 65, 64), True, "per_head", None),      # bf16 causal
+    ((16, 1, 4, 65, 256), False, None, "negative"),    # pad-key trap, Tq 4
+    ((4, 2, 268, 131, 64), False, None, "negative"),   # pad-key trap, Tq 268
+], ids=["agent_k_is_v", "mixer_k_is_v", "d12_causal", "causal_per_head",
+        "negative_agent", "negative_mixer"])
+def test_bf16_tensor_core_kernels_at_their_edges(cuda_device, shape, causal,
+                                                 mask, extra):
+    """The bf16 K1 (both launches) and K3 tensor-core bodies against the
+    plain versions where their tiling and staging have edges: Tq 4 and
+    268 and Tk 65 and 131 (no multiple of 16), D 12 (rows not 16-byte
+    aligned), k and v one tensor (staged once), causal with a per-head
+    mask, and all-negative logits, where a zero-filled pad key would win
+    every row's max if it entered the softmax."""
+    dtype = torch.bfloat16
+    q, k, v, do, m = _qkv(cuda_device, shape, dtype, 5, mask)
+    if extra == "negative":
+        q, k = q.abs(), -k.abs()
+    if extra == "k_is_v":
+        v = k
+    bias = None if m is None else torch.where(m, 0.0, port.NEG_MASK_VALUE)
+    out = port._launch(q, k, v, bias, causal)
+    o, mm, ll = port._launch_res(q, k, v, bias, causal)
+    dq, dk, dv = port._launch_bwd(q, k, v, bias, causal, o, mm, ll, do)
+    torch.cuda.synchronize()
+    o_r, m_r, l_r = port.flash_attention_fwd_reference(q, k, v, bias, causal)
+    torch.testing.assert_close(out, o_r, **TOL[dtype])
+    torch.testing.assert_close(o, o_r, **TOL[dtype])
+    _assert_row_max_close(mm, m_r, q, k, v, bias, causal)
+    torch.testing.assert_close(ll, l_r, rtol=1e-5, atol=0.0)
+    if extra == "negative":
+        assert bool((mm < 0).all())
+    ref = port.flash_attention_bwd_reference(q, k, v, bias, causal, o_r,
+                                             m_r, l_r, do)
+    for got, want in zip((dq, dk, dv), ref):
+        scale = max(float(want.float().abs().max()), 1.0)
+        torch.testing.assert_close(got.float(), want.float(), rtol=0.05,
+                                   atol=0.02 * scale)
+
+
+@pytest.mark.cuda
+def test_bf16_strided_serve_views(cuda_device):
+    """The serve path's (B, T, H, D) projections, transposed, in bf16:
+    the tensor-core K1 takes 16-byte copies of the 128-byte rows in
+    place and writes its output in q's layout."""
+    g = torch.Generator(device=cuda_device).manual_seed(6)
+    x = (torch.randn(3, 16, 65, 4, 64, device=cuda_device, generator=g)
+         * 0.35).to(torch.bfloat16)
+    q, k, v = (t.transpose(1, 2) for t in x)
+    out = port.flash_attention(q, k, v)
+    assert out.stride() == q.stride()
+    torch.testing.assert_close(out, port.flash_attention_reference(q, k, v),
+                               **TOL[torch.bfloat16])
+
+
 @pytest.mark.cuda
 def test_flash_backward_shared_kv_and_strided_views(cuda_device):
     """The query-slice call: one tensor as keys and values, strided

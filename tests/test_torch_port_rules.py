@@ -164,10 +164,37 @@ def test_kernel_sources_and_builder_target_sm90a():
             assert lib not in cu.lower()
 
 
+def test_bf16_bodies_are_tensor_core_kernels():
+    """The bf16 K1 and K3 bodies are their own CUDA sources on mma.sync
+    (no library call computes their products), and the old CUDA-core
+    bodies are instantiated for float only: the bf16 dtype code of the
+    C entry points goes to the tensor-core files."""
+    csrc = os.path.join(PORT, "kernels", "csrc")
+    read = lambda n: open(os.path.join(csrc, n)).read()
+    mma = read("flash_mma.cuh")
+    assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in mma
+    assert "ldmatrix" in mma and "cp.async" in mma
+    for name, kernel, entry in (
+            ("flash_fwd_tc.cu", "flash_fwd_tc_kernel", "t2o_flash_fwd_bf16"),
+            ("flash_bwd_tc.cu", "flash_bwd_dkv_tc_kernel",
+             "t2o_flash_bwd_dkv_bf16")):
+        cu = read(name)
+        assert "sm_90a" in cu and '#include "flash_mma.cuh"' in cu
+        assert "__global__" in cu and kernel in cu and entry in cu
+        for lib in ("cublas", "cudnn", "torch::", "at::matmul", "wmma"):
+            assert lib not in cu.lower()
+    fwd, bwd = read("flash_fwd.cu"), read("flash_bwd.cu")
+    assert "launch<float>" in fwd and "__nv_bfloat16>(p" not in fwd
+    assert "t2o_flash_fwd_bf16(" in fwd
+    assert "launch_dkv<float>" in bwd and "launch_dkv<__nv_bfloat16>" \
+        not in bwd and "t2o_flash_bwd_dkv_bf16(" in bwd
+
+
 def test_builder_names_every_source_and_build_dir_is_ignored():
     from t2omca_tpu_torch.kernels import build
     listed = set(build.CUDA_SOURCES + build.HOST_SOURCES + build.HEADERS)
-    assert {"flash_bwd.cu", "flash_bwd_op.cpp"} <= listed
+    assert {"flash_bwd.cu", "flash_bwd_op.cpp", "flash_fwd_tc.cu",
+            "flash_bwd_tc.cu", "flash_mma.cuh"} <= listed
     assert listed == set(os.listdir(build.CSRC))
     gitignore = open(os.path.join(REPO, ".gitignore")).read()
     assert "t2omca_tpu_torch/kernels/_build/" in gitignore
