@@ -11,8 +11,10 @@ failed check ends the script with a non-zero exit):
 2. build     compile the kernels from the checkout's sources (nvcc);
              registers and spills of each kernel (ptxas) and its
              tensor-core instructions (HMMA, cuobjdump): the bf16 K1 and
-             K3 bodies spill nothing and run on the tensor cores, and no
-             bf16 instance of the old CUDA-core bodies exists
+             K3 bodies and both K2 bodies (bf16, f32 as 3xTF32) spill
+             nothing and run on the tensor cores, no bf16 instance of the
+             old CUDA-core K1 and K3 bodies exists, and no instance of the
+             old K2 body
 3. kernels   each kernel against its plain version at the main path's
              shapes and the odd / masked / causal / all-masked cases,
              plus the bf16 tensor-core edges (Tq 4/65/268, Tk 65/131, D
@@ -34,11 +36,14 @@ failed check ends the script with a non-zero exit):
              at the learner agent (2048, 1, 4, 65, 256) and mixer
              (32, 1, 268, 131, 256) shapes in f32 and bf16, the dense
              learner's heads, odd shapes, masks, causal, the all-masked
-             row and the bf16 edges of phase 3; times of each kernel at
-             the two learner shapes (and with k is v at bf16) beside its
+             row, the bf16 edges of phase 3 and the f32 edges of the
+             3xTF32 K2 (k is v, all-negative logits, causal with a
+             per-head mask at D 12); times of each kernel at the two
+             learner shapes (and with k is v) beside its
              bound, its plain version and its SDPA yardstick (forward for
-             K1 and K1 + residuals, backward alone for K2 and K3; never on
-             the path), and the fwd+bwd totals
+             K1 and K1 + residuals; backward alone for K2 and K3, as the
+             device time of its kernels in a profiler trace; never on the
+             path), and the fwd+bwd totals
 7. train     the trainer step (sample -> train -> priority feedback,
              train/program.py) at the north-star widths, bf16,
              kernels.attention=pallas, dense replay; 5 steps with exact
@@ -46,7 +51,7 @@ failed check ends the script with a non-zero exit):
              and f32), the f32 pallas-vs-xla cross-check at batch 2
              (query slice and dense; loss, grad_norm, gradients and the
              params after one step), and a profile of one bf16 step that
-             must run the tensor-core K1 and K3 and no bf16 old body
+             must run the tensor-core K1, K2 and K3 and no bf16 old body
 8. summary   the kernels JSON line, the card line, the result line
 
 Run from the repository root: ``python3 chip_smoke.py``. The last line
@@ -76,9 +81,10 @@ REQUEST_SIZES = (1, 7, 64, 150)
 REPEATS = 5
 SEED = 0
 #: H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s and FLOP/s by
-#: operand type (float32 outside the tensor cores; bf16 tensor cores)
+#: operand type (float32 outside the tensor cores; bf16 and tf32 tensor
+#: cores)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "tf32": 494.7e12}
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 #: backward kernels (and K1 + residuals' output) against their plain
 #: versions: f32 reassociation of D- and T-long sums; bf16 one rounding
@@ -124,24 +130,46 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def attention_bound_ms(b, h, tq, tk, d, dtype_name: str) -> tuple:
-    """Least time for the attention function on these inputs: each of q,
-    k, v read once and o written once, against 4·B·H·Tq·Tk·D FLOPs (QKᵀ
-    and PV) at the operand type's peak. → (ms, "bytes"|"operations")."""
-    item = 4 if dtype_name == "float32" else 2
-    nbytes = item * b * h * (2 * tq * d + 2 * tk * d)
-    flops = 4.0 * b * h * tq * tk * d
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
-    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
-            "operations")
+def device_rows(prof, n_iter: int = 1) -> list:
+    """[(device ms per iteration, launches per iteration, name)] of every
+    kernel and copy in a torch.profiler trace, by self device time."""
+    rows = []
+    for e in prof.key_averages():
+        if not str(e.device_type).endswith("CUDA"):
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        if us > 0:
+            rows.append((us / 1e3 / n_iter, e.count // n_iter, e.key))
+    return rows
 
 
-def bound_ms(nbytes: float, flops: float, dtype_name: str) -> tuple:
+def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Device time of one call of ``fn``: the self device time of the
+    kernels it launches, summed from a torch.profiler trace of ``iters``
+    calls. Unlike ``cuda_ms`` it leaves out the host's gaps between
+    launches, which dominate a call that goes through the autograd
+    engine."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    busy = sum(r[0] for r in device_rows(prof, iters))
+    check(busy > 0, "profiler saw no device time")
+    return busy
+
+
+def bound_ms(nbytes: float, flops: float, peak: str) -> tuple:
     """→ (least ms, "bytes"|"operations"): the larger of the bytes over
-    the HBM rate and the FLOPs over the operand type's peak."""
+    the HBM rate and the FLOPs over the ``peak`` type's rate."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
+    t_ops = flops / PEAK_FLOPS[peak] * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
             "operations")
 
@@ -149,28 +177,37 @@ def bound_ms(nbytes: float, flops: float, dtype_name: str) -> tuple:
 def kernel_bounds(shape, dtype_name: str, kv_same: bool = False) -> dict:
     """Bounds of K1, K1 + residuals, K2 and K3 on these inputs: each
     input read once, each output written once (m, l, Δ are f32 rows),
-    against 4, 4, 6 and 8 x B·H·Tq·Tk·D FLOPs. ``kv_same``: k and v are
-    one tensor (the query-slice call), read once."""
+    against 4, 4, 6 and 8 x B·H·Tq·Tk·D FLOPs at the operand type's
+    peak. The f32 K2 runs on the tensor cores as 3xTF32: three tf32
+    products for each f32 one, at the tf32 peak. ``kv_same``: k and v
+    are one tensor (the query-slice call), read once."""
     b, h, tq, tk, d = shape
     it = 4 if dtype_name == "float32" else 2
     bh, mn = b * h, b * h * tq * tk * d
     qd, kd, row = bh * tq * d * it, bh * tk * d * it, bh * tq * 4
     kv = kd if kv_same else 2 * kd
+    dq_ops, dq_peak = ((18 * mn, "tf32") if dtype_name == "float32"
+                       else (6 * mn, dtype_name))
     return {
         "flash_fwd": bound_ms(2 * qd + kv, 4 * mn, dtype_name),
         "flash_fwd_res": bound_ms(2 * qd + kv + 2 * row, 4 * mn,
                                   dtype_name),
-        "flash_bwd_dq": bound_ms(3 * qd + kv + 3 * row, 6 * mn,
-                                 dtype_name),
+        "flash_bwd_dq": bound_ms(3 * qd + kv + 3 * row, dq_ops, dq_peak),
         "flash_bwd_dkv": bound_ms(2 * qd + kv + 2 * kd + 3 * row, 8 * mn,
                                   dtype_name),
     }
 
 
-#: the tensor-core bodies of K1 (both launches) and K3 at bf16, and the
-#: CUDA-core bodies that must exist for float only
-TC_KERNELS = ("flash_fwd_tc_kernel", "flash_bwd_dkv_tc_kernel")
+#: the tensor-core bodies: K1 (both launches), K3 and K2 at bf16, and K2
+#: at f32 (3xTF32); the bf16 trainer step runs the first three
+TC_KERNELS = ("flash_fwd_tc_kernel", "flash_bwd_dkv_tc_kernel",
+              "flash_bwd_dq_tc_kernel", "flash_bwd_dq_3xtf32_kernel")
+BF16_TC_KERNELS = ("flash_fwd_tc_kernel", "flash_bwd_dkv_tc_kernel",
+                   "flash_bwd_dq_tc_kernel")
+#: the CUDA-core bodies: those that must exist for float only, and the old
+#: K2, which must exist at no dtype
 OLD_BODIES = ("flash_fwd_kernel", "flash_bwd_dkv_kernel")
+GONE_BODIES = ("flash_bwd_dq_kernel",)
 
 
 def kernel_label(mangled: str) -> str:
@@ -189,9 +226,9 @@ def kernel_label(mangled: str) -> str:
 def phase_build_report(lib: str, build) -> dict:
     """ptxas registers and spills of every kernel (from the build log),
     and the tensor-core instructions (HMMA) in each kernel's SASS
-    (cuobjdump). Fails if a tensor-core kernel spills or has no HMMA, or
-    if a bf16 instance of an old CUDA-core body was built. → {kernel:
-    HMMA count}."""
+    (cuobjdump). Fails if a tensor-core kernel spills or has no HMMA, if a
+    bf16 instance of an old CUDA-core body was built, or any instance of
+    the old K2. → {kernel: HMMA count}."""
     import re
     with open(os.path.join(os.path.dirname(lib), "build.log")) as f:
         log = f.read()
@@ -232,6 +269,9 @@ def phase_build_report(lib: str, build) -> dict:
         for old in OLD_BODIES:
             check(not (old + "I13__nv_bfloat16") in name,
                   f"a bf16 instance of {old} was built: {name}")
+        for gone in GONE_BODIES:
+            check(f"{len(gone)}{gone}I" not in name,
+                  f"an instance of the old {gone} was built: {name}")
     check(all(any(k in n and hmma[n] > 0 for n in hmma) for k in TC_KERNELS),
           "a tensor-core kernel is missing from the library")
     return {kernel_label(n): count for n, count in hmma.items()
@@ -287,6 +327,19 @@ BF16_EDGES = [
      "negative"),
     ("negative_logits_d64", (64, 2, 65, 131, 64), "bfloat16", None, False,
      "negative"),
+]
+#: f32 cases at the 3xTF32 K2's edges ([kernels-bwd]): k is v at both
+#: learner shapes, the pad-key trap of all-negative logits at Tq 4 and 65,
+#: and causal with a per-head mask at D 12 (scalar staging)
+F32_EDGES = [
+    ("agent_k_is_v", AGENT_SHAPE, "float32", None, False, "kv"),
+    ("mixer_k_is_v", MIXER_SHAPE, "float32", None, False, "kv"),
+    ("negative_logits_agent", (256, 1, 4, 65, 256), "float32", None, False,
+     "negative"),
+    ("negative_logits_d64", (64, 2, 65, 131, 64), "float32", None, False,
+     "negative"),
+    ("causal_per_head_d12", (4, 3, 33, 70, 12), "float32", "per_head", True,
+     None),
 ]
 
 
@@ -351,7 +404,7 @@ def phase_kernels(torch, att):
         plain = cuda_ms(lambda: att.flash_attention_reference(q, k, v))
         lib = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v,
                                                              scale=1.0))
-        bound, by = attention_bound_ms(b, h, tq, tk, d, dt)
+        bound, by = kernel_bounds((b, h, tq, tk, d), dt)["flash_fwd"]
         times[(name, dt)] = (ms, plain, lib, bound, by)
         print(f"[kernels] flash_fwd time at {name} shape {b}x{h}x{tq}x{d} "
               f"{dt}: kernel {ms:.4f} ms, plain {plain:.4f} ms, sdpa "
@@ -503,15 +556,7 @@ def phase_profile(torch, fe, requests, dt: str, n_iter: int = 3):
             fe.select(obs, avail)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / n_iter
-    rows = []
-    for e in prof.key_averages():
-        if not str(e.device_type).endswith("CUDA"):
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
-        if us > 0:
-            rows.append((us / 1e3 / n_iter, e.count // n_iter, e.key))
+    rows = device_rows(prof, n_iter)
     busy = sum(r[0] for r in rows)
     check(busy > 0, "profiler saw no device time")
     rows.sort(reverse=True)
@@ -542,7 +587,7 @@ def phase_kernels_bwd(torch, att):
          "broadcast", False, None),
         ("all_masked_row", (16, 2, 40, 40, 8), "float32",
          "all_masked_row", True, None),
-    ] + BF16_EDGES
+    ] + BF16_EDGES + F32_EDGES
     errs, inputs = {}, {}
     for name, (b, h, tq, tk, d), dt, mask, causal, extra in cases:
         dtype = getattr(torch, dt)
@@ -630,7 +675,9 @@ def phase_kernels_bwd(torch, att):
         out = F.scaled_dot_product_attention(qr, kr, vr, scale=1.0)
         sdpa_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, scale=1.0))
-        sdpa_bwd = cuda_ms(lambda: torch.autograd.grad(
+        # device time: the host's trip through the autograd engine takes
+        # longer than SDPA's backward kernels at these shapes
+        sdpa_bwd = device_ms(lambda: torch.autograd.grad(
             out, (qr, kr, vr), do, retain_graph=True))
 
         def sdpa_fwd_bwd():
@@ -642,9 +689,9 @@ def phase_kernels_bwd(torch, att):
 
         sdpa = cuda_ms(sdpa_fwd_bwd)
         flash_total = cuda_ms(flash_fwd_bwd)
-        # k is v (the query-slice call) at bf16: K1, K1 + residuals and K3
-        # read the one tensor once
-        for kv_same in ((False, True) if dt == "bfloat16" else (False,)):
+        # k is v (the query-slice call): K1, K1 + residuals, K2 and K3 read
+        # the one tensor once
+        for kv_same in (False, True):
             vv = k if kv_same else v
             o, mm, ll = att._launch_res(q, k, vv, None, False)
             delta = (do.float() * o.float()).sum(dim=-1)
@@ -687,7 +734,8 @@ def phase_kernels_bwd(torch, att):
         print(f"[kernels-bwd] time {name} {dt}: flash fwd+bwd through the "
               f"autograd Function {flash_total:.4f} ms vs sdpa fwd+bwd "
               f"{sdpa:.4f} ms (sdpa fwd {sdpa_fwd:.4f}, bwd alone "
-              f"{sdpa_bwd:.4f}; plain bwd covers dq, dk, dv together)",
+              f"{sdpa_bwd:.4f} device time; plain bwd covers dq, dk, dv "
+              f"together)",
               flush=True)
         del qr, kr, vr, out
     del inputs
@@ -953,22 +1001,17 @@ def phase_profile_train(torch, buffer, ring, cfg, info):
         train_iter(ts, 2000, generator=g)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    rows = []
-    for e in prof.key_averages():
-        if not str(e.device_type).endswith("CUDA"):
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
-        if us > 0:
-            rows.append((us / 1e3, e.count, e.key))
+    rows = device_rows(prof)
     names = [r[2] for r in rows]
-    for k in TC_KERNELS:
+    for k in BF16_TC_KERNELS:
         check(any(k in n for n in names),
               f"the bf16 trainer step ran no {k}")
     for old in OLD_BODIES:
         check(not any(f"{old}<__nv_bfloat16>" in n for n in names),
               f"the bf16 trainer step ran a bf16 {old}")
+    for gone in GONE_BODIES:
+        check(not any(f"{gone}<" in n for n in names),
+              f"the bf16 trainer step ran the old {gone}")
     busy = sum(r[0] for r in rows)
     check(busy > 0, "profiler saw no device time in the trainer step")
     rows.sort(reverse=True)
@@ -1058,7 +1101,7 @@ def main() -> int:
     sources = {
         "flash_fwd_res": ("flash_fwd_tc.cu", "flash_fwd.cu",
                           ":115 (pallas_call :383)"),
-        "flash_bwd_dq": ("flash_bwd.cu", "flash_bwd.cu",
+        "flash_bwd_dq": ("flash_bwd_dq_tc.cu", "flash_bwd_dq_tc.cu",
                          ":210 (pallas_call :437)"),
         "flash_bwd_dkv": ("flash_bwd_tc.cu", "flash_bwd.cu",
                           ":253 (pallas_call :464)")}
@@ -1079,12 +1122,14 @@ def main() -> int:
             "max_abs_err_f32": errs_bwd[("agent", "float32")][name],
             "learner_shapes": learner_times(name),
         })
-    tc_of = {"flash_fwd": TC_KERNELS[0], "flash_fwd_res": TC_KERNELS[0],
-             "flash_bwd_dkv": TC_KERNELS[1]}
+    tc_of = {"flash_fwd": ("flash_fwd_tc_kernel",),
+             "flash_fwd_res": ("flash_fwd_tc_kernel",),
+             "flash_bwd_dkv": ("flash_bwd_dkv_tc_kernel",),
+             "flash_bwd_dq": ("flash_bwd_dq_tc_kernel",
+                              "flash_bwd_dq_3xtf32_kernel")}
     for k in kernels:
-        tc = tc_of.get(k["name"])
         k["hmma_in_sass"] = {n: c for n, c in hmma.items()
-                             if tc is not None and n.startswith(tc)}
+                             if n.startswith(tc_of[k["name"]])}
     print(f"[summary] trainer step p50: bf16 {train['p50_bf16_ms']:.1f} ms, "
           f"f32 {train['p50_f32_ms']:.1f} ms (T="
           f"{train['f32_episode_limit']})", flush=True)

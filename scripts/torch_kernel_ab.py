@@ -14,7 +14,13 @@ widths of ``configs/config3_tpu_northstar.yaml``, use_qslice=false,
 kernels.attention=pallas, random weights from seed 0) and CUDA-event
 times of K1 (serve, learner agent and mixer shapes), K1 + residuals, K2
 and K3 (agent and mixer) at bf16, with k and v one tensor at the learner
-shapes as the query-slice call passes them. Needs one NVIDIA GPU.
+shapes as the query-slice call passes them; K2 at f32 too (agent and
+mixer, k is v and not), and SDPA's backward alone (``torch.autograd.grad``
+after one ``scaled_dot_product_attention`` forward, never on the path) at
+the learner shapes in both dtypes as the yardstick of the same run: the
+device time of its kernels from a torch.profiler trace, since the host's
+trip through the autograd engine takes longer than those kernels.
+Needs one NVIDIA GPU.
 """
 
 from __future__ import annotations
@@ -54,6 +60,25 @@ def cuda_ms(torch, fn, iters: int = 30, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(torch, fn, iters: int = 30, warmup: int = 3) -> float:
+    """Self device time of the kernels one call of ``fn`` launches, from a
+    torch.profiler trace of ``iters`` calls."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = 0.0
+    for e in prof.key_averages():
+        if str(e.device_type).endswith("CUDA"):
+            t = getattr(e, "self_device_time_total", None)
+            us += e.self_cuda_time_total if t is None else t
+    return us / 1e3 / iters
+
+
 def dispatch_p50(torch) -> float:
     import numpy as np
     from t2omca_tpu_torch.config import from_dict
@@ -80,34 +105,47 @@ def dispatch_p50(torch) -> float:
 
 
 def kernel_times(torch, att) -> dict:
+    import torch.nn.functional as F
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(SEED)
     out = {}
-    for name, (b, h, tq, tk, d) in SHAPES.items():
-        q, k = ((torch.randn(b, h, t, d, device=dev, generator=g)
-                 * d ** -0.25).bfloat16() for t in (tq, tk))
-        v = torch.randn(b, h, tk, d, device=dev, generator=g).bfloat16()
-        do = torch.randn(b, h, tq, d, device=dev, generator=g).bfloat16()
-        if name == "serve":     # the serve path's (B, T, H, D) views
-            q, k, v = (x.transpose(1, 2).contiguous().transpose(1, 2)
-                       for x in (q, k, v))
-            out["flash_fwd serve"] = cuda_ms(
-                torch, lambda: att._launch(q, k, v, None, False))
-            continue
-        for kv_name, vv in (("", v), (" k_is_v", k)):
-            o, m, l = att._launch_res(q, k, vv, None, False)
-            delta = (do.float() * o.float()).sum(dim=-1)
-            tag = name + kv_name
-            out[f"flash_fwd {tag}"] = cuda_ms(
-                torch, lambda: att._launch(q, k, vv, None, False))
-            out[f"flash_fwd_res {tag}"] = cuda_ms(
-                torch, lambda: att._launch_res(q, k, vv, None, False))
-            out[f"flash_bwd_dq {tag}"] = cuda_ms(
-                torch, lambda: att._launch_bwd_dq(q, k, vv, None, False, do,
-                                                  m, l, delta))
-            out[f"flash_bwd_dkv {tag}"] = cuda_ms(
-                torch, lambda: att._launch_bwd_dkv(q, k, vv, None, False, do,
-                                                   m, l, delta))
+    for dt in (torch.bfloat16, torch.float32):
+        sfx = "" if dt == torch.bfloat16 else " f32"
+        for name, (b, h, tq, tk, d) in SHAPES.items():
+            if dt == torch.float32 and name == "serve":
+                continue
+            q, k = ((torch.randn(b, h, t, d, device=dev, generator=g)
+                     * d ** -0.25).to(dt) for t in (tq, tk))
+            v = torch.randn(b, h, tk, d, device=dev, generator=g).to(dt)
+            do = torch.randn(b, h, tq, d, device=dev, generator=g).to(dt)
+            if name == "serve":     # the serve path's (B, T, H, D) views
+                q, k, v = (x.transpose(1, 2).contiguous().transpose(1, 2)
+                           for x in (q, k, v))
+                out["flash_fwd serve"] = cuda_ms(
+                    torch, lambda: att._launch(q, k, v, None, False))
+                continue
+            qr, kr, vr = (x.clone().requires_grad_() for x in (q, k, v))
+            sdpa = F.scaled_dot_product_attention(qr, kr, vr, scale=1.0)
+            out[f"sdpa_bwd {name}{sfx}"] = device_ms(
+                torch, lambda: torch.autograd.grad(sdpa, (qr, kr, vr), do,
+                                                   retain_graph=True))
+            del qr, kr, vr, sdpa
+            for kv_name, vv in (("", v), (" k_is_v", k)):
+                o, m, l = att._launch_res(q, k, vv, None, False)
+                delta = (do.float() * o.float()).sum(dim=-1)
+                tag = name + kv_name + sfx
+                out[f"flash_bwd_dq {tag}"] = cuda_ms(
+                    torch, lambda: att._launch_bwd_dq(q, k, vv, None, False,
+                                                      do, m, l, delta))
+                if dt == torch.float32:
+                    continue
+                out[f"flash_fwd {tag}"] = cuda_ms(
+                    torch, lambda: att._launch(q, k, vv, None, False))
+                out[f"flash_fwd_res {tag}"] = cuda_ms(
+                    torch, lambda: att._launch_res(q, k, vv, None, False))
+                out[f"flash_bwd_dkv {tag}"] = cuda_ms(
+                    torch, lambda: att._launch_bwd_dkv(q, k, vv, None, False,
+                                                       do, m, l, delta))
     return out
 
 
@@ -123,6 +161,7 @@ def main() -> int:
     sys.path.insert(0, os.path.abspath(args.repo))
     from t2omca_tpu_torch.kernels import attention as att
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60).stdout.strip()

@@ -1,7 +1,13 @@
-// Flash-attention backward for Hopper (sm_90a), hand-written CUDA C++:
-// K2 (f32 and bf16) and the f32 K3 on the CUDA cores. The bf16 K3 is the
-// tensor-core body of flash_bwd_tc.cu (t2o_flash_bwd_dkv below dispatches
-// on the dtype).
+// Flash-attention backward for Hopper (sm_90a), hand-written CUDA C++: the
+// C entry points of K2 and K3, and the f32 K3 on the CUDA cores.
+//
+// What runs where:
+//   K2 (dq), f32 and bf16    flash_bwd_dq_tc.cu: tensor cores (bf16 on
+//                            mma.sync m16n8k16; f32 as 3xTF32 on m16n8k8)
+//   K3 (dk, dv), bf16        flash_bwd_tc.cu: tensor cores (m16n8k16)
+//   K3 (dk, dv), f32         this file: CUDA cores
+// t2o_flash_bwd_dq and t2o_flash_bwd_dkv below validate the arguments and
+// dispatch on the dtype.
 //
 // Replaces the TPU kernels of t2omca_tpu/kernels/attention.py's `_build`
 // backward (:402):
@@ -29,14 +35,12 @@
 // Tk=65, D=256; mixer B=32, H=1, Tq=268, Tk=131, D=256) the kernels read
 // q, k, v, dO once each plus the f32 row statistics and write their
 // gradients: a few hundred MB at most against a few GFLOP, so both are
-// bytes-bound on paper (PERF.md has the numbers). The design is the
-// simple one, on CUDA cores in f32:
+// bytes-bound on paper (PERF.md has the numbers). The f32 K3 here is the
+// simple design, on CUDA cores:
 //
-// * K2: one CTA of 256 threads per (b, h, q-tile) that loops over the key
-//   tiles (the TPU grid's dq cell); K3: one CTA per (b, h, k-tile) whose
-//   loop over q-tiles replaces the TPU's sequential grid axis (:270-297).
-//   Each CTA owns its output rows, so no atomics are needed and the sums
-//   are deterministic.
+// * One CTA of 256 threads per (b, h, k-tile) whose loop over q-tiles
+//   replaces the TPU's sequential grid axis (:270-297). Each CTA owns its
+//   output rows, so no atomics are needed and the sums are deterministic.
 // * Tiles hold up to 80 rows at D <= 64 and 32 rows otherwise (so K3 at
 //   the mixer shape has 5 key tiles per (b, h), 160 CTAs). All four
 //   staged slabs (q, dO, k, v) are f32 in shared memory: 137 KB at D=256.
@@ -44,7 +48,8 @@
 //   dot products from shared memory), then the owned 4x4 output blocks
 //   accumulate in registers as in K1's PV phase.
 //
-// Tensor cores for K2 and for f32 are later work; see PERF.md for times.
+// The 3xTF32 helpers of flash_mma.cuh are the way to move it onto the
+// tensor cores; see PERF.md for times.
 
 #include "flash_common.cuh"
 
@@ -61,22 +66,21 @@ struct BwdParams {
   const float* m;       // (B, H, Tq) contiguous: residuals of K1
   const float* l;
   const float* delta;   // (B, H, Tq) contiguous: rowsum(dO o O)
-  void* dq;
   void* dk;
   void* dv;
   int B, H, Tq, Tk, D;
-  int64_t sq[4], sk[4], sv[4], sg[4], sb[4], sdq[4], sdk[4], sdv[4];
+  int64_t sq[4], sk[4], sv[4], sg[4], sb[4], sdk[4], sdv[4];
   int causal;
   int bq, nq;    // rows per q tile, q tiles per (b, h)
   int bk, nk;    // keys per k tile, k tiles per (b, h)
   Slab s;        // staged slab geometry
-  int vq, vk, vv, vg, vdq, vdk, vdv;   // per-tensor 4-element row access
+  int vq, vk, vv, vg, vdk, vdv;   // per-tensor 4-element row access
 };
 
 // P and dS of one (q-tile, k-tile) pair, one element per thread, from the
 // staged slabs: rows i < rows of the q tile starting at q0, columns
 // j < kcols of the k tile starting at k0. mr/lr/dr hold the q tile's
-// residuals and Delta. p_s may be null (K2 needs only dS).
+// residuals and Delta.
 __device__ __forceinline__ void p_ds_tile(
     const BwdParams& p, const float* q_s, const float* g_s, const float* k_s,
     const float* v_s, const float* mr, const float* lr, const float* dr,
@@ -108,7 +112,7 @@ __device__ __forceinline__ void p_ds_tile(
       replaced = true;
     }
     const float pv = expf(s - mr[i]) / lr[i];
-    if (p_s != nullptr) p_s[i * lds + j] = pv;
+    p_s[i * lds + j] = pv;
     ds_s[i * lds + j] = replaced ? 0.f : pv * (dp - dr[i]);
   }
 }
@@ -121,101 +125,6 @@ __device__ __forceinline__ void load_rows(float* m_s, float* l_s, float* d_s,
     m_s[i] = p.m[base + i];
     l_s[i] = p.l[base + i];
     d_s[i] = p.delta[base + i];
-  }
-}
-
-// K2: dQ for one (b, h, q-tile), looping over the key tiles.
-template <typename T>
-__global__ void __launch_bounds__(kThreads, 1)
-flash_bwd_dq_kernel(const BwdParams p) {
-  extern __shared__ __align__(16) float smem[];
-  const int ld = p.s.ld;
-  const int lds = p.bk + 1;
-  float* q_s = smem;                  // bq x ld
-  float* g_s = q_s + p.bq * ld;       // bq x ld
-  float* k_s = g_s + p.bq * ld;       // bk x ld
-  float* v_s = k_s + p.bk * ld;       // bk x ld
-  float* ds_s = v_s + p.bk * ld;      // bq x lds
-  float* m_s = ds_s + p.bq * lds;     // bq each
-  float* l_s = m_s + p.bq;
-  float* d_s = l_s + p.bq;
-
-  const int tid = threadIdx.x;
-  int cell = blockIdx.x;
-  const int qt = cell % p.nq;
-  cell /= p.nq;
-  const int h = cell % p.H;
-  const int b = cell / p.H;
-  const int q0 = qt * p.bq;
-  const int rows = min(p.bq, p.Tq - q0);
-
-  const T* q = static_cast<const T*>(p.q) + b * p.sq[0] + h * p.sq[1];
-  const T* k = static_cast<const T*>(p.k) + b * p.sk[0] + h * p.sk[1];
-  const T* v = static_cast<const T*>(p.v) + b * p.sv[0] + h * p.sv[1];
-  const T* g = static_cast<const T*>(p.g) + b * p.sg[0] + h * p.sg[1];
-  T* dq = static_cast<T*>(p.dq) + b * p.sdq[0] + h * p.sdq[1];
-  const float* bias =
-      p.bias == nullptr ? nullptr : p.bias + b * p.sb[0] + h * p.sb[1];
-
-  stage(q_s, q + (int64_t)q0 * p.sq[2], p.sq[2], p.sq[3], rows, p.s, p.vq);
-  stage(g_s, g + (int64_t)q0 * p.sg[2], p.sg[2], p.sg[3], rows, p.s, p.vg);
-  load_rows(m_s, l_s, d_s, p, b, h, q0, rows);
-
-  // dQ blocks owned by this thread: rows {rg + nrg*a}, columns 4ch..4ch+3
-  const int nrg = (rows + 3) / 4;
-  const int nch = p.s.dp / 4;
-  const int n_out = nrg * nch;
-  float4 acc[kAccTiles][4];
-#pragma unroll
-  for (int t = 0; t < kAccTiles; ++t)
-#pragma unroll
-    for (int a = 0; a < 4; ++a) acc[t][a] = make_float4(0.f, 0.f, 0.f, 0.f);
-
-  for (int kt = 0; kt < p.nk; ++kt) {
-    const int k0 = kt * p.bk;
-    const int kcols = min(p.bk, p.Tk - k0);
-    __syncthreads();  // the previous tile's K and dS are consumed
-    stage(k_s, k + (int64_t)k0 * p.sk[2], p.sk[2], p.sk[3], kcols, p.s,
-          p.vk);
-    stage(v_s, v + (int64_t)k0 * p.sv[2], p.sv[2], p.sv[3], kcols, p.s,
-          p.vv);
-    __syncthreads();
-    p_ds_tile(p, q_s, g_s, k_s, v_s, m_s, l_s, d_s, bias, q0, rows, k0,
-              kcols, nullptr, ds_s, lds);
-    __syncthreads();
-    // dQ += dS K on the owned blocks
-#pragma unroll
-    for (int t = 0; t < kAccTiles; ++t) {
-      const int u = tid + t * kThreads;
-      if (u < n_out) {
-        const int rg = u / nch, ch = u - rg * nch;
-        const float* dr[4];
-#pragma unroll
-        for (int a = 0; a < 4; ++a)
-          dr[a] = ds_s + min(rg + nrg * a, rows - 1) * lds;
-        const float* kc = k_s + 4 * ch;
-        for (int j = 0; j < kcols; ++j) {
-          const float4 kf = load4(kc + j * ld);
-#pragma unroll
-          for (int a = 0; a < 4; ++a) fma4(dr[a][j], kf, acc[t][a]);
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int t = 0; t < kAccTiles; ++t) {
-    const int u = tid + t * kThreads;
-    if (u < n_out) {
-      const int rg = u / nch, ch = u - rg * nch;
-#pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        const int i = rg + nrg * a;
-        if (i < rows)
-          write4(dq + (int64_t)(q0 + i) * p.sdq[2], p.sdq[3], 4 * ch, p.D,
-                 acc[t][a], p.vdq);
-      }
-    }
   }
 }
 
@@ -327,20 +236,6 @@ flash_bwd_dkv_kernel(const BwdParams p) {
 }
 
 template <typename T>
-cudaError_t launch_dq(const BwdParams& p, cudaStream_t stream) {
-  const size_t smem =
-      sizeof(float) * (2 * (size_t)p.bq * p.s.ld + 2 * (size_t)p.bk * p.s.ld +
-                       (size_t)p.bq * (p.bk + 1) + 3 * (size_t)p.bq);
-  auto kernel = flash_bwd_dq_kernel<T>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const int64_t grid = (int64_t)p.B * p.H * p.nq;
-  kernel<<<(unsigned)grid, kThreads, smem, stream>>>(p);
-  return cudaGetLastError();
-}
-
-template <typename T>
 cudaError_t launch_dkv(const BwdParams& p, cudaStream_t stream) {
   const size_t smem =
       sizeof(float) * (2 * (size_t)p.bk * p.s.ld + 2 * (size_t)p.bq * p.s.ld +
@@ -354,19 +249,21 @@ cudaError_t launch_dkv(const BwdParams& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// Fill the parameters shared by K2 and K3. strides: 32 int64 in elements,
-// four each for q, k, v, dO, bias, dq, dk, dv; the bias strides are ignored
-// when bias is null, and the strides of an output the launch does not
-// write (dq for K3; dk, dv for K2) too. → false for shapes the kernels do
-// not take.
+// Do the kernels take these sizes and this dtype code?
+bool valid_shape(int dtype, int B, int H, int Tq, int Tk, int D) {
+  return B >= 1 && H >= 1 && Tq >= 1 && Tk >= 1 && D >= 1 && D <= 256 &&
+         (dtype == 0 || dtype == 1);
+}
+
+// Fill the f32 K3's parameters. strides: 32 int64 in elements, four each
+// for q, k, v, dO, bias, dq, dk, dv; the bias strides are ignored when bias
+// is null, and dq's too. → false for shapes the kernel does not take.
 bool make_params(BwdParams* p, const void* q, const void* k, const void* v,
                  const float* bias, const void* g, const float* m,
-                 const float* l, const float* delta, void* dq, void* dk,
-                 void* dv, int dtype, int B, int H, int Tq, int Tk, int D,
+                 const float* l, const float* delta, void* dk, void* dv,
+                 int dtype, int B, int H, int Tq, int Tk, int D,
                  const int64_t* strides, int causal) {
-  if (B < 1 || H < 1 || Tq < 1 || Tk < 1 || D < 1 || D > 256 ||
-      (dtype != 0 && dtype != 1))
-    return false;
+  if (!valid_shape(dtype, B, H, Tq, Tk, D)) return false;
   p->q = q;
   p->k = k;
   p->v = v;
@@ -375,7 +272,6 @@ bool make_params(BwdParams* p, const void* q, const void* k, const void* v,
   p->m = m;
   p->l = l;
   p->delta = delta;
-  p->dq = dq;
   p->dk = dk;
   p->dv = dv;
   p->B = B;
@@ -389,7 +285,6 @@ bool make_params(BwdParams* p, const void* q, const void* k, const void* v,
     p->sv[i] = strides[8 + i];
     p->sg[i] = strides[12 + i];
     p->sb[i] = strides[16 + i];
-    p->sdq[i] = strides[20 + i];
     p->sdk[i] = strides[24 + i];
     p->sdv[i] = strides[28 + i];
   }
@@ -399,14 +294,13 @@ bool make_params(BwdParams* p, const void* q, const void* k, const void* v,
   p->vk = d4 && rows_of_4(k, p->sk, dtype);
   p->vv = d4 && rows_of_4(v, p->sv, dtype);
   p->vg = d4 && rows_of_4(g, p->sg, dtype);
-  p->vdq = dq != nullptr && d4 && rows_of_4(dq, p->sdq, dtype);
-  p->vdk = dk != nullptr && d4 && rows_of_4(dk, p->sdk, dtype);
-  p->vdv = dv != nullptr && d4 && rows_of_4(dv, p->sdv, dtype);
+  p->vdk = d4 && rows_of_4(dk, p->sdk, dtype);
+  p->vdv = d4 && rows_of_4(dv, p->sdv, dtype);
   p->s.D = D;
   p->s.dp = (D + 3) / 4 * 4;
   p->s.ld = p->s.dp + 4;
-  // both tile kinds own 4x4 output blocks (ceil(rows/4) * dp/4 of them),
-  // which must fit kAccTiles per thread
+  // a k tile owns 4x4 output blocks (ceil(rows/4) * dp/4 of them), which
+  // must fit kAccTiles per thread
   const int cap = D <= 64 ? 80 : 32;
   balanced_tiles(Tq, cap, &p->bq, &p->nq);
   balanced_tiles(Tk, cap, &p->bk, &p->nk);
@@ -427,21 +321,29 @@ int t2o_flash_bwd_dkv_bf16(const void* q, const void* k, const void* v,
                            const float* l, const float* delta, void* dk,
                            void* dv, int B, int H, int Tq, int Tk, int D,
                            const int64_t* strides, int causal, void* stream);
+int t2o_flash_bwd_dq_bf16(const void* q, const void* k, const void* v,
+                          const float* bias, const void* g, const float* m,
+                          const float* l, const float* delta, void* dq, int B,
+                          int H, int Tq, int Tk, int D, const int64_t* strides,
+                          int causal, void* stream);
+int t2o_flash_bwd_dq_f32(const void* q, const void* k, const void* v,
+                         const float* bias, const void* g, const float* m,
+                         const float* l, const float* delta, void* dq, int B,
+                         int H, int Tq, int Tk, int D, const int64_t* strides,
+                         int causal, void* stream);
 
 // K2: dq. dtype 0 = float32, 1 = bfloat16; q, k, v, dO and dq share it.
-// Returns a cudaError_t code (0 = launched).
+// Both run the tensor-core bodies of flash_bwd_dq_tc.cu. Returns a
+// cudaError_t code (0 = launched).
 int t2o_flash_bwd_dq(const void* q, const void* k, const void* v,
                      const float* bias, const void* g, const float* m,
                      const float* l, const float* delta, void* dq, int dtype,
                      int B, int H, int Tq, int Tk, int D,
                      const int64_t* strides, int causal, void* stream) {
-  BwdParams p;
-  if (!make_params(&p, q, k, v, bias, g, m, l, delta, dq, nullptr, nullptr,
-                   dtype, B, H, Tq, Tk, D, strides, causal))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(dtype == 0 ? launch_dq<float>(p, s)
-                          : launch_dq<__nv_bfloat16>(p, s));
+  if (!valid_shape(dtype, B, H, Tq, Tk, D)) return (int)cudaErrorInvalidValue;
+  return (dtype == 0 ? t2o_flash_bwd_dq_f32 : t2o_flash_bwd_dq_bf16)(
+      q, k, v, bias, g, m, l, delta, dq, B, H, Tq, Tk, D, strides, causal,
+      stream);
 }
 
 // K3: dk and dv, as K2.
@@ -451,8 +353,8 @@ int t2o_flash_bwd_dkv(const void* q, const void* k, const void* v,
                       int dtype, int B, int H, int Tq, int Tk, int D,
                       const int64_t* strides, int causal, void* stream) {
   BwdParams p;
-  if (!make_params(&p, q, k, v, bias, g, m, l, delta, nullptr, dk, dv, dtype,
-                   B, H, Tq, Tk, D, strides, causal))
+  if (!make_params(&p, q, k, v, bias, g, m, l, delta, dk, dv, dtype, B, H,
+                   Tq, Tk, D, strides, causal))
     return (int)cudaErrorInvalidValue;
   if (dtype == 1)
     return t2o_flash_bwd_dkv_bf16(q, k, v, bias, g, m, l, delta, dk, dv, B, H,

@@ -114,10 +114,10 @@ flash_bwd_dkv_tc_kernel(const DkvParams p) {
       p.bias == nullptr ? nullptr : p.bias + b * p.sb[0] + h * p.sb[1];
   const int64_t row_base = ((int64_t)b * p.H + h) * p.Tq;
 
-  stage_bf16(k_s, LD, p.k + b * p.sk[0] + h * p.sk[1] + (int64_t)k0 * p.sk[2],
+  stage_rows(k_s, LD, p.k + b * p.sk[0] + h * p.sk[1] + (int64_t)k0 * p.sk[2],
              p.sk[2], p.sk[3], kcols, kBK, p.D, DP, p.vk, tid, nthreads);
   if (!p.kv_same)
-    stage_bf16(v_s, LD,
+    stage_rows(v_s, LD,
                p.v + b * p.sv[0] + h * p.sv[1] + (int64_t)k0 * p.sv[2],
                p.sv[2], p.sv[3], kcols, kBK, p.D, DP, p.vv, tid, nthreads);
 
@@ -125,9 +125,9 @@ flash_bwd_dkv_tc_kernel(const DkvParams p) {
     const int q0 = j * kBQ;
     const int qv = min(kBQ, p.Tq - q0);
     bf16* qs = ring + (j % stages) * 2 * kBQ * LD;
-    stage_bf16(qs, LD, q + (int64_t)q0 * p.sq[2], p.sq[2], p.sq[3], qv, kBQ,
+    stage_rows(qs, LD, q + (int64_t)q0 * p.sq[2], p.sq[2], p.sq[3], qv, kBQ,
                p.D, DP, p.vq, tid, nthreads);
-    stage_bf16(qs + kBQ * LD, LD, gr + (int64_t)q0 * p.sg[2], p.sg[2],
+    stage_rows(qs + kBQ * LD, LD, gr + (int64_t)q0 * p.sg[2], p.sg[2],
                p.sg[3], qv, kBQ, p.D, DP, p.vg, tid, nthreads);
     float* st = stats + (j % stages) * 3 * kBQ;
     for (int i = tid; i < 3 * kBQ; i += nthreads) {
@@ -249,15 +249,15 @@ flash_bwd_dkv_tc_kernel(const DkvParams p) {
   bf16* blk = k_s + dh * DW;
   stage_frag(blk, LD, acc_k, g, t);
   __syncwarp();
-  store_block_bf16(p.dk + b * p.sdk[0] + h * p.sdk[1] + (int64_t)k0 * p.sdk[2],
-                   p.sdk[2], p.sdk[3], blk, LD, kcols, dh * DW, DW, p.D,
-                   p.vdk, lane);
+  store_block(p.dk + b * p.sdk[0] + h * p.sdk[1] + (int64_t)k0 * p.sdk[2],
+              p.sdk[2], p.sdk[3], blk, LD, kcols, dh * DW, DW, p.D, p.vdk,
+              lane);
   __syncwarp();
   stage_frag(blk, LD, acc_v, g, t);
   __syncwarp();
-  store_block_bf16(p.dv + b * p.sdv[0] + h * p.sdv[1] + (int64_t)k0 * p.sdv[2],
-                   p.sdv[2], p.sdv[3], blk, LD, kcols, dh * DW, DW, p.D,
-                   p.vdv, lane);
+  store_block(p.dv + b * p.sdv[0] + h * p.sdv[1] + (int64_t)k0 * p.sdv[2],
+              p.sdv[2], p.sdv[3], blk, LD, kcols, dh * DW, DW, p.D, p.vdv,
+              lane);
 }
 
 template <int DP>

@@ -123,14 +123,14 @@ flash_fwd_tc_kernel(const TcParams p) {
     const int k0 = j * kBK;
     const int kc = min(kBK, p.Tk - k0);
     bf16* ks = kv_s + (j & 1) * stage_elems;
-    stage_bf16(ks, LD, k + (int64_t)k0 * p.sk[2], p.sk[2], p.sk[3], kc, kBK,
+    stage_rows(ks, LD, k + (int64_t)k0 * p.sk[2], p.sk[2], p.sk[3], kc, kBK,
                p.D, DP, p.vk, tid, nthreads);
     if (!p.kv_same)
-      stage_bf16(ks + tile_elems, LD, v + (int64_t)k0 * p.sv[2], p.sv[2],
+      stage_rows(ks + tile_elems, LD, v + (int64_t)k0 * p.sv[2], p.sv[2],
                  p.sv[3], kc, kBK, p.D, DP, p.vv, tid, nthreads);
   };
 
-  stage_bf16(q_s, LD, q, p.sq[2], p.sq[3], rows, p.row_tiles * 16, p.D, DP,
+  stage_rows(q_s, LD, q, p.sq[2], p.sq[3], rows, p.row_tiles * 16, p.D, DP,
              p.vq, tid, nthreads);
   load_kv(0);
   cp_async_commit();
@@ -307,8 +307,8 @@ flash_fwd_tc_kernel(const TcParams p) {
   const int wrows = min(max(rows - 16 * rt, 0), 16);
   bf16* o = p.o + b * p.so[0] + h * p.so[1] +
             (int64_t)(q0 + 16 * rt) * p.so[2];
-  store_block_bf16(o, p.so[2], p.so[3], o_s, LD, wrows, dh * DW, DW, p.D,
-                   p.vo, lane);
+  store_block(o, p.so[2], p.so[3], o_s, LD, wrows, dh * DW, DW, p.D, p.vo,
+              lane);
   // K1 + residuals: the final row max and denominator. Where the max is a
   // computed logit, it is recomputed once in f64 from the bf16 inputs (the
   // products are exact, the sum all but exact) and rounded once, and l is

@@ -1,10 +1,11 @@
 """The operand rounding of the port's bf16 tensor-core kernels, held to
 JAX's bf16 ``flash_attention`` and its gradients on the CPU.
 
-The bf16 K1 (both launches) and K3 kernels on Hopper feed the tensor cores
-bf16 operands: K1 rounds the probabilities P to bf16 before P·V, and K3
-rounds P and dS to bf16 before dV = Pᵀ·dO and dK = dSᵀ·Q, all with f32
-accumulation; the plain versions in ``kernels/attention.py`` keep f32 P.
+The bf16 K1 (both launches), K2 and K3 kernels on Hopper feed the tensor
+cores bf16 operands: K1 rounds the probabilities P to bf16 before P·V, K2
+rounds dS to bf16 before dQ = dS·K, and K3 rounds P and dS to bf16 before
+dV = Pᵀ·dO and dK = dSᵀ·Q, all with f32 accumulation; the plain versions
+in ``kernels/attention.py`` keep f32 P and dS.
 The kernels run only on the card (``tests/test_torch_cuda.py``,
 ``chip_smoke.py``), so this file carries a plain model of that rounding
 (here, never in the package) and checks, before any chip time, that it
@@ -43,8 +44,8 @@ def tensor_core_forward(q, k, v, bias, causal):
 
 
 def tensor_core_backward(q, k, v, bias, causal, o, m, l, do):
-    """K2 (unchanged, f32 dS) and K3's bf16 rounding model (P and dS
-    rounded to bf16 before dV = Pᵀ dO and dK = dSᵀ Q) → bf16 (dq, dk,
+    """K2's and K3's bf16 rounding model (dS rounded to bf16 before
+    dQ = dS K, P and dS before dV = Pᵀ dO and dK = dSᵀ Q) → bf16 (dq, dk,
     dv)."""
     s, replaced = port._logits(q, k, bias, causal)
     p = torch.exp(s - m[..., None]) / l[..., None]
@@ -52,7 +53,7 @@ def tensor_core_backward(q, k, v, bias, causal, o, m, l, do):
     delta = (g * o.float()).sum(dim=-1)
     dp = torch.matmul(g, v.float().transpose(-1, -2))
     ds = torch.where(replaced, torch.zeros(()), p * (dp - delta[..., None]))
-    dq = torch.matmul(ds, k.float())
+    dq = torch.matmul(_bf16(ds), k.float())
     dk = torch.matmul(_bf16(ds).transpose(-1, -2), q.float())
     dv = torch.matmul(_bf16(p).transpose(-1, -2), g)
     return tuple(x.to(torch.bfloat16) for x in (dq, dk, dv))
@@ -129,3 +130,18 @@ def test_rounding_model_is_not_the_plain_version():
                                                     m, l, do)
     diff = (dv.float() - dv_r.float()).abs().max().item()
     assert 0.0 < diff <= GRAD_ATOL * max(dv_r.float().abs().max().item(), 1.0)
+
+
+def test_rounding_model_rounds_ds_in_dq():
+    """K2's side of the model rounds dS before dS·K: its dq differs from
+    the plain backward's f32-dS dq by bf16 rounding of dS, and no more."""
+    rng = np.random.default_rng(23)
+    q, k, v, do = (torch.from_numpy(
+        rng.standard_normal((2, 1, 16, 24)).astype(np.float32)).to(
+            torch.bfloat16) for _ in range(4))
+    o, m, l = tensor_core_forward(q, k, v, None, False)
+    dq, _, _ = tensor_core_backward(q, k, v, None, False, o, m, l, do)
+    dq_r, _, _ = port.flash_attention_bwd_reference(q, k, v, None, False, o,
+                                                    m, l, do)
+    diff = (dq.float() - dq_r.float()).abs().max().item()
+    assert 0.0 < diff <= GRAD_ATOL * max(dq_r.float().abs().max().item(), 1.0)

@@ -262,3 +262,42 @@ def test_flash_backward_shared_kv_and_strided_views(cuda_device):
         grads.append((qq.grad, kk.grad))
     for a, b in zip(*grads):
         torch.testing.assert_close(a, b, **GRAD_TOL[torch.float32])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,causal,mask,extra", [
+    ((16, 1, 4, 65, 256), False, None, "k_is_v"),      # agent, k once
+    ((2, 1, 268, 131, 256), False, None, "k_is_v"),    # mixer, k once
+    ((4, 3, 33, 70, 12), True, "per_head", None),      # D 12: scalar staging
+    ((8, 4, 65, 65, 64), True, "per_head", None),      # dP - Delta cancels
+    ((16, 1, 4, 65, 256), False, None, "negative"),    # pad-key trap, Tq 4
+    ((4, 2, 268, 131, 64), False, None, "negative"),   # pad-key trap, Tq 268
+    ((4, 2, 40, 40, 8), True, "all_masked_row", None),
+], ids=["agent_k_is_v", "mixer_k_is_v", "d12_causal", "causal_per_head",
+        "negative_agent", "negative_mixer", "all_masked_row"])
+def test_f32_dq_kernel_at_its_edges(cuda_device, shape, causal, mask,
+                                    extra):
+    """The f32 K2 (3xTF32 on the tensor cores) against the plain version
+    at the f32 gradient tolerances where its tiling, staging and
+    arithmetic have edges: Tq 4 and 268 and Tk 65 and 131, D 12, k and v
+    one tensor, causal with a per-head mask (rows with one real key, where
+    dP - Delta cancels), all-negative logits (a zero-filled pad key would
+    give exp(-m)/l > 1) and the all-masked row (dq exactly 0)."""
+    q, k, v, do, m = _qkv(cuda_device, shape, torch.float32, 8, mask)
+    if extra == "negative":
+        q, k = q.abs(), -k.abs()
+    if extra == "k_is_v":
+        v = k
+    bias = None if m is None else torch.where(m, 0.0, port.NEG_MASK_VALUE)
+    o, mm, ll = port._launch_res(q, k, v, bias, causal)
+    port.reset_launches()
+    dq, _, _ = port._launch_bwd(q, k, v, bias, causal, o, mm, ll, do)
+    torch.cuda.synchronize()
+    assert port.LAUNCHES["flash_bwd_dq"] == 1
+    o_r, m_r, l_r = port.flash_attention_fwd_reference(q, k, v, bias, causal)
+    want = port.flash_attention_bwd_reference(q, k, v, bias, causal, o_r,
+                                              m_r, l_r, do)[0]
+    assert dq.dtype == torch.float32 and dq.shape == want.shape
+    torch.testing.assert_close(dq, want, **GRAD_TOL[torch.float32])
+    if mask == "all_masked_row":
+        assert float(dq[:, :, 3].abs().max()) == 0.0

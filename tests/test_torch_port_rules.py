@@ -153,8 +153,9 @@ def test_kernel_sources_and_builder_target_sm90a():
     assert "sm_90a" in build and "compute_90a" in build
     for cu_name, op_name, kernels in (
             ("flash_fwd.cu", "flash_fwd_op.cpp", ("flash_fwd_kernel",)),
-            ("flash_bwd.cu", "flash_bwd_op.cpp",
-             ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"))):
+            ("flash_bwd.cu", "flash_bwd_op.cpp", ("flash_bwd_dkv_kernel",)),
+            ("flash_bwd_dq_tc.cu", "flash_bwd_op.cpp",
+             ("flash_bwd_dq_tc_kernel", "flash_bwd_dq_3xtf32_kernel"))):
         cu = open(os.path.join(csrc, cu_name)).read()
         op = open(os.path.join(csrc, op_name)).read()
         assert "sm_90a" in cu and "TORCH_LIBRARY" in op
@@ -165,19 +166,25 @@ def test_kernel_sources_and_builder_target_sm90a():
 
 
 def test_bf16_bodies_are_tensor_core_kernels():
-    """The bf16 K1 and K3 bodies are their own CUDA sources on mma.sync
-    (no library call computes their products), and the old CUDA-core
-    bodies are instantiated for float only: the bf16 dtype code of the
-    C entry points goes to the tensor-core files."""
+    """The bf16 K1 and K3 bodies and both K2 bodies are their own CUDA
+    sources on mma.sync (no library call computes their products; f32 K2
+    on tf32 mma, 3xTF32), the old CUDA-core K1 and K3 bodies are
+    instantiated for float only, and the old K2 body is gone: the C entry
+    points send bf16 (and K2's f32) to the tensor-core files."""
     csrc = os.path.join(PORT, "kernels", "csrc")
     read = lambda n: open(os.path.join(csrc, n)).read()
     mma = read("flash_mma.cuh")
     assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in mma
+    assert "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32" in mma
     assert "ldmatrix" in mma and "cp.async" in mma
     for name, kernel, entry in (
             ("flash_fwd_tc.cu", "flash_fwd_tc_kernel", "t2o_flash_fwd_bf16"),
             ("flash_bwd_tc.cu", "flash_bwd_dkv_tc_kernel",
-             "t2o_flash_bwd_dkv_bf16")):
+             "t2o_flash_bwd_dkv_bf16"),
+            ("flash_bwd_dq_tc.cu", "flash_bwd_dq_tc_kernel",
+             "t2o_flash_bwd_dq_bf16"),
+            ("flash_bwd_dq_tc.cu", "flash_bwd_dq_3xtf32_kernel",
+             "t2o_flash_bwd_dq_f32")):
         cu = read(name)
         assert "sm_90a" in cu and '#include "flash_mma.cuh"' in cu
         assert "__global__" in cu and kernel in cu and entry in cu
@@ -188,13 +195,15 @@ def test_bf16_bodies_are_tensor_core_kernels():
     assert "t2o_flash_fwd_bf16(" in fwd
     assert "launch_dkv<float>" in bwd and "launch_dkv<__nv_bfloat16>" \
         not in bwd and "t2o_flash_bwd_dkv_bf16(" in bwd
+    assert "flash_bwd_dq_kernel" not in bwd and "launch_dq" not in bwd
+    assert "t2o_flash_bwd_dq_f32" in bwd and "t2o_flash_bwd_dq_bf16" in bwd
 
 
 def test_builder_names_every_source_and_build_dir_is_ignored():
     from t2omca_tpu_torch.kernels import build
     listed = set(build.CUDA_SOURCES + build.HOST_SOURCES + build.HEADERS)
     assert {"flash_bwd.cu", "flash_bwd_op.cpp", "flash_fwd_tc.cu",
-            "flash_bwd_tc.cu", "flash_mma.cuh"} <= listed
+            "flash_bwd_tc.cu", "flash_bwd_dq_tc.cu", "flash_mma.cuh"} <= listed
     assert listed == set(os.listdir(build.CSRC))
     gitignore = open(os.path.join(REPO, ".gitignore")).read()
     assert "t2omca_tpu_torch/kernels/_build/" in gitignore
