@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Chip smoke of the PyTorch port (``t2omca_tpu_torch``) on one NVIDIA GPU.
 
-Drives the port's two main paths — greedy serving, and the QMIX
-learner's trainer step — at the north-star model widths through the
-hand-written flash-attention kernels, and holds every kernel of those
-paths against its plain PyTorch version. Phases, one line each (any
+Drives the port's main paths — greedy serving, the QMIX learner's
+trainer step, and the classic training loop (rollout, insert, train) —
+at the north-star model widths through the hand-written flash-attention
+kernels, and holds every kernel of those paths against its plain
+PyTorch version. Phases, one line each (any
 failed check ends the script with a non-zero exit):
 
 1. device    require CUDA; the card's name and power limit (nvidia-smi)
@@ -52,7 +53,19 @@ failed check ends the script with a non-zero exit):
              (query slice and dense; loss, grad_norm, gradients and the
              params after one step), and a profile of one bf16 step that
              must run the tensor-core K1, K2 and K3 and no bf16 old body
-8. summary   the kernels JSON line, the card line, the result line
+8. loop      three iterations of the classic training loop
+             (run.run_classic: rollout -> ring insert -> gated train) at
+             the north-star widths, bf16, pallas, PER, with
+             model.use_entity_tables=false; cuts printed (128 lanes, a
+             ring of 256). Checks threefry on CUDA against the CPU bit
+             for bit, each train iteration's exact kernel launches (a
+             rollout launches none), stored actions available, finite
+             obs/state/rewards, rates in [0, 1], t_env and episode, finite
+             loss and grad_norm, moving priorities; prints rollout p50,
+             env-steps/s, trainer step and iteration p50, peak memory,
+             launches and PRNG ops of a rollout, and a profiled rollout's
+             device busy/idle share and top device ops
+9. summary   the kernels JSON line, the card line, the result line
 
 Run from the repository root: ``python3 chip_smoke.py``. The last line
 is ``{"ok": true, "device": {...}}``; it is printed only when every
@@ -794,6 +807,7 @@ def phase_train(torch, att):
     import numpy as np
     from t2omca_tpu_torch.components.episode_buffer import \
         PrioritizedReplayBuffer
+    from t2omca_tpu_torch import prng
     from t2omca_tpu_torch.envs.registry import make_env
     from t2omca_tpu_torch.train.program import TrainState, build_train_iter
 
@@ -816,7 +830,7 @@ def phase_train(torch, att):
           f"bf16, kernels.attention=pallas, dense replay; ring cut from "
           f"2048 to {RING} episodes", flush=True)
 
-    def run(cfg, steps, g_sample, buffer, ring):
+    def run(cfg, steps, keys, buffer, ring):
         learner = build_learner(cfg, info)
         ls = learner.init_state(torch.Generator().manual_seed(SEED))
         ts = TrainState(learner=ls, buffer=ring, episode=RING)
@@ -828,7 +842,7 @@ def phase_train(torch, att):
             before = ts.buffer.priorities.clone()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            ts, info_i = train_iter(ts, 1000 * (i + 1), generator=g_sample)
+            ts, info_i = train_iter(ts, keys[i], 1000 * (i + 1))
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3)
             loss, gn = float(info_i["loss"]), float(info_i["grad_norm"])
@@ -843,11 +857,11 @@ def phase_train(torch, att):
         check(moved > 0.0, "params did not move")
         return ts, learner, times, infos, moved
 
-    g_sample = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    keys = prng.split(prng.PRNGKey(SEED + 12, "cuda"), TRAIN_STEPS)
     torch.cuda.reset_peak_memory_stats()
     att.reset_launches()                 # ---- the train path starts here
-    ts, learner, times, infos, moved = run(cfg, TRAIN_STEPS, g_sample,
-                                           buffer, ring)
+    ts, learner, times, infos, moved = run(cfg, TRAIN_STEPS, keys, buffer,
+                                           ring)
     launches = dict(att.LAUNCHES)        # ---- the train path ends here
     peak_bf16 = torch.cuda.max_memory_allocated() / 2 ** 30
     # per step: the target agent and mixer unrolls (T+1 steps each) and
@@ -884,7 +898,7 @@ def phase_train(torch, att):
             buf32.init(), make_episodes(torch, info, RING, t32, g,
                                         torch.bfloat16))
     torch.cuda.reset_peak_memory_stats()
-    times32 = run(cfg32, 3, g_sample, buf32, ring32)[2]
+    times32 = run(cfg32, 3, keys, buf32, ring32)[2]
     peak32 = torch.cuda.max_memory_allocated() / 2 ** 30
     p50_32 = statistics.median(times32)
     print(f"[train] f32 3 trainer steps at T={t32}"
@@ -895,7 +909,7 @@ def phase_train(torch, att):
 
     # f32 cross-check, full width, batch 2: pallas against xla
     batch, _, w = buffer.sample(
-        ring, 2, 1000, u=torch.tensor([0.25, 0.75], device="cuda"))
+        ring, None, 2, 1000, u=torch.tensor([0.25, 0.75], device="cuda"))
     for use_qslice in (True, False):
         outs = {attention: cross_check_step(torch, info, attention,
                                             use_qslice, batch, w)
@@ -987,18 +1001,19 @@ def compare_steps(torch, pallas, xla, lr: float, eps: float) -> str:
 def phase_profile_train(torch, buffer, ring, cfg, info):
     """Where one bf16 trainer step spends device time (torch.profiler)."""
     from torch.profiler import ProfilerActivity, profile
+    from t2omca_tpu_torch import prng
     from t2omca_tpu_torch.train.program import TrainState, build_train_iter
     learner = build_learner(cfg, info)
     ts = TrainState(learner=learner.init_state(
         torch.Generator().manual_seed(SEED)), buffer=ring, episode=RING)
     train_iter = build_train_iter(buffer, learner, cfg)
-    g = torch.Generator(device="cuda").manual_seed(SEED + 13)
-    ts, _ = train_iter(ts, 1000, generator=g)
+    k1, k2 = prng.split(prng.PRNGKey(SEED + 13, "cuda")).unbind(0)
+    ts, _ = train_iter(ts, k1, 1000)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        train_iter(ts, 2000, generator=g)
+        train_iter(ts, k2, 2000)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     rows = device_rows(prof)
@@ -1021,6 +1036,246 @@ def phase_profile_train(torch, buffer, ring, cfg, info):
     for ms, n, name in rows[:12]:
         print(f"[profile]   {ms:9.2f} ms {100 * ms / busy:5.1f}% x{n} "
               f"{name[:90]}", flush=True)
+
+
+#: the [loop] phase: config 3's widths with its own kill switch of the
+#: entity tables (which the port does not have yet), cut in lanes and
+#: ring so that a rollout (~1.4 GB of bf16 dense obs) and the ring (~2.9
+#: GB) fit beside the trainer step's peak
+LOOP_LANES = 128                    # batch_size_run, from 1024
+LOOP_RING = 256                     # replay.buffer_size, from 2048
+LOOP_ITERATIONS = 3
+#: the public samplers of the PRNG module, wrapped to count their ops
+PRNG_FUNCS = ("split", "fold_in", "random_bits", "uniform", "bernoulli",
+              "randint", "gumbel", "normal")
+
+
+def loop_cfg():
+    from t2omca_tpu_torch.config import from_dict
+    d = json.loads(json.dumps(NORTH_STAR))
+    d["batch_size_run"] = LOOP_LANES
+    d["model"].update(dtype="bfloat16", use_entity_tables=False)
+    d["kernels"] = {"attention": "pallas"}
+    d["replay"] = {"buffer_size": LOOP_RING, "store_dtype": "bfloat16",
+                   "prioritized": True}
+    return from_dict(d)
+
+
+def count_rollout_ops(torch, exp, ts) -> dict:
+    """Compute ops (view ops excluded) of one rollout, counted at the
+    dispatcher and attributed to the innermost of the PRNG's samplers,
+    the env's parts and the MAC's acting calls that issued them (the
+    rest: the runner): on the card each op is about one launch."""
+    import collections
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from t2omca_tpu_torch import prng
+    from t2omca_tpu_torch.controllers.basic_mac import BasicMAC
+    from t2omca_tpu_torch.envs.mec_offload import MultiAgvOffloadingEnv
+
+    counts, stack = collections.Counter(), ["runner"]
+
+    class Counter(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if not func.is_view:
+                counts[stack[-1]] += 1
+            return out
+
+    def wrap(fn, label):
+        def inner(*a, **kw):
+            stack.append(label)
+            try:
+                return fn(*a, **kw)
+            finally:
+                stack.pop()
+        return inner
+
+    targets = [(prng, n, "prng") for n in PRNG_FUNCS]
+    targets += [(MultiAgvOffloadingEnv, n, f"env.{n}") for n in (
+        "step", "get_obs", "get_state", "get_avail_actions", "_reward",
+        "_update_users", "reset")]
+    targets += [(BasicMAC, n, f"mac.{n}") for n in (
+        "select_actions", "exploration_draws")]
+    targets = [(obj, n, label) for obj, n, label in targets
+               if hasattr(obj, n)]
+    saved = [(obj, n, getattr(obj, n)) for obj, n, _ in targets]
+    try:
+        for obj, n, label in targets:
+            setattr(obj, n, wrap(getattr(obj, n), label))
+        with Counter():
+            exp.runner.run(ts.learner.params["agent"], ts.runner)
+        torch.cuda.synchronize()
+    finally:
+        for obj, n, fn in saved:
+            setattr(obj, n, fn)
+    return dict(counts)
+
+
+def check_threefry_cuda_equals_cpu(torch, exp, ts) -> int:
+    """The port's threefry on the card against the port's on the CPU, bit
+    for bit, at the rollout's key shapes: the runner key, the T step
+    keys, the T × B lane keys, and the draws a rollout makes from them
+    ((T, B, A) for the env, (T, B, A) and (T, B, A, n) for the
+    selector). → number of draws compared."""
+    from t2omca_tpu_torch import prng
+    b, a = exp.cfg.batch_size_run, exp.env.n_agents
+    n, t = exp.env.n_actions, exp.cfg.env_args.episode_limit
+    key = ts.runner.key
+    steps = prng.split(key, t)
+    lanes = prng.split(steps, b)
+    draws = [
+        (key, lambda k: prng.split(k, 3)),
+        (key, lambda k: prng.fold_in(k, 0x5CE7)),
+        (steps, lambda k: prng.split(k)),
+        (steps, lambda k: prng.uniform(k, (b, a))),
+        (steps, lambda k: prng.random_bits(k, (b, a, n))),
+        (lanes, lambda k: prng.split(k, 3)),
+        (lanes, lambda k: prng.fold_in(k, 7)),
+        (lanes, lambda k: prng.randint(k, (a,), 0, exp.env.n_mec)),
+        (lanes, lambda k: prng.uniform(k, (a,))),
+        (lanes, lambda k: prng.uniform(k, (a,), 0.0, 2 * 3.141592653589793)),
+        (lanes, lambda k: prng.uniform(k, (a,), 4000.0, 12000.0)),
+    ]
+    for k, f in draws:
+        got, want = f(k).cpu(), f(k.cpu())
+        check(torch.equal(got, want), "threefry on CUDA differs from the "
+                                      "CPU")
+    return len(draws)
+
+
+def phase_loop(torch, att):
+    """Three classic iterations (rollout → insert → gated train) at the
+    north-star widths through ``run.run_classic``."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    from t2omca_tpu_torch.run import Experiment, run_classic
+
+    cfg = loop_cfg()
+    exp = Experiment.build(cfg)
+    b, t = cfg.batch_size_run, cfg.env_args.episode_limit
+    depth = cfg.model.depth
+    info = exp.env.get_env_info()
+    print(f"[loop] north-star widths: {info['n_agents']} AGVs, "
+          f"{exp.env.n_mec} MECs, {info['n_actions']} actions, obs "
+          f"{info['obs_shape']}, T={t}, bf16, kernels.attention=pallas, "
+          f"PER, model.use_entity_tables=false (dense obs, query-slice "
+          f"acting); cuts: batch_size_run 1024 -> {b}, buffer_size 2048 -> "
+          f"{cfg.replay.buffer_size}", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    ts = exp.init_state(SEED)
+    n_draws = check_threefry_cuda_equals_cpu(torch, exp, ts)
+    print(f"[loop] threefry on CUDA = CPU bit for bit over {n_draws} draws "
+          f"at the rollout's key shapes", flush=True)
+
+    # per train iteration: the [train] phase's counts for one step
+    want = {"flash_fwd": (2 * (t + 1) + 1) * depth,
+            "flash_fwd_res": 2 * t * depth, "flash_bwd_dq": 2 * t * depth,
+            "flash_bwd_dkv": 2 * t * depth}
+    totals = dict.fromkeys(want, 0)
+    cursor, records, iter_s = None, [], []
+    for i in range(LOOP_ITERATIONS):
+        # what the insert alone would leave: the new slots at the stamp
+        stamp = ts.buffer.max_priority ** cfg.replay.per_alpha
+        inserted = ts.buffer.priorities.clone()
+        inserted[(ts.buffer.insert_pos + torch.arange(b, device="cuda"))
+                 % cfg.replay.buffer_size] = stamp
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        att.reset_launches()             # ---- the loop path starts here
+        ts, cursor, (rec,) = run_classic(exp, ts, 1, cursor, sync=True)
+        launches = dict(att.LAUNCHES)    # ---- and ends here
+        iter_s.append(time.perf_counter() - t0)
+        check(launches == want, f"iteration {i}: launches {launches} != "
+                                f"{want}")
+        for k in totals:
+            totals[k] += launches[k]
+        check(rec.info is not None, f"iteration {i} did not train")
+        loss, gn = float(rec.info["loss"]), float(rec.info["grad_norm"])
+        check(np.isfinite(loss) and np.isfinite(gn),
+              f"iteration {i}: loss {loss} grad_norm {gn}")
+        check(bool(rec.info["all_finite"]), f"iteration {i}: all_finite")
+        check(bool((ts.buffer.priorities != inserted).any()),
+              f"iteration {i}: no sampled priority changed")
+        rate = rec.stats.task_completion_rate
+        check(bool(((rate >= 0) & (rate <= 1)).all()),
+              f"iteration {i}: task_completion_rate outside [0, 1]")
+        check(bool(torch.isfinite(rec.stats.episode_return).all()),
+              f"iteration {i}: non-finite return")
+        records.append((rec, loss, gn))
+        print(f"[loop] iteration {i}: rollout+insert "
+              f"{rec.rollout_s * 1e3:.1f} ms, trainer step "
+              f"{rec.train_s * 1e3:.1f} ms, loss {loss:.4g}, grad_norm "
+              f"{gn:.4g}, launches {launches}", flush=True)
+    check(cursor.t_env == LOOP_ITERATIONS * b * t,
+          f"t_env {cursor.t_env} != {LOOP_ITERATIONS * b * t}")
+    check(cursor.episode == ts.episode == LOOP_ITERATIONS * b,
+          f"episode {cursor.episode} != {LOOP_ITERATIONS * b}")
+    st = ts.buffer.storage
+    n = ts.buffer.episodes_in_buffer
+    check(n == min(LOOP_ITERATIONS * b, cfg.replay.buffer_size),
+          f"ring holds {n} episodes")
+    taken = torch.gather(st.avail_actions[:n, :-1], -1,
+                         st.actions[:n].long().unsqueeze(-1))
+    check(bool(taken.all()), "a stored action was not available")
+    for name in ("obs", "state", "reward"):
+        x = getattr(st, name)[:n]
+        check(bool(torch.isfinite(x.float()).all()), f"non-finite {name}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    roll = [r.rollout_s * 1e3 for r, _, _ in records]
+    train = [r.train_s * 1e3 for r, _, _ in records]
+    p50_roll, p50_train = statistics.median(roll), statistics.median(train)
+    p50_iter = statistics.median(iter_s) * 1e3
+    print(f"[loop] {LOOP_ITERATIONS} iterations, each trained: t_env "
+          f"{cursor.t_env}, episode {cursor.episode}; loss/grad_norm "
+          f"{', '.join(f'{l:.4g}/{g:.4g}' for _, l, g in records)}; "
+          f"launches per train iteration {want} (all {LOOP_ITERATIONS} "
+          f"exact), per rollout 0", flush=True)
+    print(f"[loop] rollout+insert p50 {p50_roll:.1f} ms (each: "
+          f"{', '.join(f'{x:.1f}' for x in roll)}), "
+          f"{b * t / (p50_roll / 1e3):.0f} env-steps/s; trainer step p50 "
+          f"{p50_train:.1f} ms; iteration p50 {p50_iter:.1f} ms; peak "
+          f"memory {peak:.2f} GiB", flush=True)
+
+    # one more rollout alone: no kernel launch, its ops, its profile
+    att.reset_launches()
+    by_part = count_rollout_ops(torch, exp, ts)
+    check(sum(att.LAUNCHES.values()) == 0,
+          f"a rollout launched kernels: {att.LAUNCHES}")
+    ops, ops_prng = sum(by_part.values()), by_part.get("prng", 0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        exp.runner.run(ts.learner.params["agent"], ts.runner)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    rows = device_rows(prof)
+    busy = sum(r[0] for r in rows)
+    kernel_launches = sum(r[1] for r in rows)
+    check(busy > 0, "profiler saw no device time in the rollout")
+    rows.sort(reverse=True)
+    print(f"[loop] one rollout: {kernel_launches} device launches "
+          f"(profiler; {kernel_launches / t:.0f} a step), {ops} compute "
+          f"ops at the dispatcher, {ops_prng} ({100 * ops_prng / ops:.1f}%)"
+          f" of them in the threefry PRNG", flush=True)
+    print("[loop] ops of that rollout by part (total, a step): " + ", ".join(
+        f"{k} {v} ({v / t:.1f})" for k, v in sorted(
+            by_part.items(), key=lambda kv: -kv[1])), flush=True)
+    print(f"[profile] rollout: host {wall:.1f} ms (profiled), device busy "
+          f"{busy:.1f} ms ({100 * busy / wall:.1f}%), idle "
+          f"{100 * (1 - busy / wall):.1f}%", flush=True)
+    for ms, cnt, name in rows[:10]:
+        print(f"[profile]   {ms:9.2f} ms {100 * ms / busy:5.1f}% x{cnt} "
+              f"{name[:90]}", flush=True)
+    result = {"launches": totals, "rollout_p50_ms": p50_roll,
+              "train_p50_ms": p50_train, "iteration_p50_ms": p50_iter,
+              "env_steps_per_s": b * t / (p50_roll / 1e3),
+              "peak_gib": peak, "rollout_launches": kernel_launches,
+              "rollout_ops": ops, "rollout_prng_ops": ops_prng,
+              "rollout_ops_by_part": by_part,
+              "rollout_busy_share": busy / wall}
+    del exp, ts
+    torch.cuda.empty_cache()
+    return result
 
 
 def main() -> int:
@@ -1071,6 +1326,10 @@ def main() -> int:
     lap("train")
     phase_profile_train(torch, buffer, ring, cfg, info)
     lap("profile-train")
+    del buffer, ring
+    torch.cuda.empty_cache()
+    loop = phase_loop(torch, att)
+    lap("loop")
 
     def fwd_times(key):
         ms, plain, lib_ms, bound, by = times[key]
@@ -1087,9 +1346,11 @@ def main() -> int:
         "source": csrc + "flash_fwd.cu",
         "source_bf16": csrc + "flash_fwd_tc.cu",
         "replaces": "t2omca_tpu/kernels/attention.py:115 (pallas_call :392)",
-        "launches": launches["flash_fwd"] + train["launches"]["flash_fwd"],
+        "launches": (launches["flash_fwd"] + train["launches"]["flash_fwd"]
+                     + loop["launches"]["flash_fwd"]),
         "launches_by_path": {"serve": launches["flash_fwd"],
-                             "train": train["launches"]["flash_fwd"]},
+                             "train": train["launches"]["flash_fwd"],
+                             "loop": loop["launches"]["flash_fwd"]},
         "max_abs_err": errs[("serve", "float32")],
         **fwd_times(("serve", "float32")),
         "shape": [4096, 4, 65, 65, 64], "dtype": "float32",
@@ -1111,9 +1372,10 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": csrc + src, "source_f32": csrc + src32,
             "replaces": f"t2omca_tpu/kernels/attention.py{line}",
-            "launches": train["launches"][name],
+            "launches": train["launches"][name] + loop["launches"][name],
             "launches_by_path": {"serve": 0,
-                                 "train": train["launches"][name]},
+                                 "train": train["launches"][name],
+                                 "loop": loop["launches"][name]},
             "max_abs_err": errs_bwd[("agent", "bfloat16")][name],
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
@@ -1133,6 +1395,12 @@ def main() -> int:
     print(f"[summary] trainer step p50: bf16 {train['p50_bf16_ms']:.1f} ms, "
           f"f32 {train['p50_f32_ms']:.1f} ms (T="
           f"{train['f32_episode_limit']})", flush=True)
+    print(f"[summary] loop ({LOOP_LANES} lanes, T=150): rollout p50 "
+          f"{loop['rollout_p50_ms']:.1f} ms ({loop['env_steps_per_s']:.0f} "
+          f"env-steps/s), trainer step p50 {loop['train_p50_ms']:.1f} ms, "
+          f"{loop['rollout_launches']} launches a rollout, device busy "
+          f"{100 * loop['rollout_busy_share']:.1f}% of a rollout",
+          flush=True)
     print(f"[summary] total {time.perf_counter() - t_start:.1f} s; by phase: "
           + ", ".join(f"{k} {v:.1f} s" for k, v in phases.items()),
           flush=True)

@@ -4,6 +4,7 @@ A package of its own beside the JAX reference: it imports torch, numpy
 and the standard library, never JAX, flax or ``t2omca_tpu``. Entry
 points run on the CUDA card unless the caller passes ``device="cpu"``
 (``device.py``). The layout mirrors the JAX package; ``ROADMAP.md`` says
-which slices are ported (this one: greedy serving with the hand-written
-flash-attention forward kernel in ``kernels/``).
+which slices are ported (greedy serving, the trainer step with the
+hand-written flash-attention kernels in ``kernels/``, and the classic
+training loop: env, rollout, insert, train).
 """

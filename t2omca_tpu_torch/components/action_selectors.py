@@ -1,11 +1,14 @@
-"""Action selectors (port of ``t2omca_tpu/components/action_selectors.py``),
-greedy (test mode) only.
+"""Action selectors (port of ``t2omca_tpu/components/action_selectors.py``).
 
-Both selector families reduce to ``masked_argmax`` in test mode: epsilon
-is forced to 0 and NoisyNet exploration lives in the agent's q-head. The
-exploration draws (epsilon coin, uniform available action) need the
-JAX threefry stream ported bit-exactly and arrive with the training
-slice; until then ``select(test_mode=False)`` raises.
+* ``epsilon_greedy``: with probability ε a uniformly random available
+  action (the Gumbel trick), else the argmax over available actions;
+  test mode forces ε = 0.
+* ``noisy-new``: greedy in train and test mode; exploration lives in
+  the agent's noisy q-head.
+
+Draws come from the JAX key chain (``t2omca_tpu_torch.prng``): ``select``
+splits its key into ``k_coin, k_rand`` as the JAX selector does, so the
+same key gives the same coins and the same random actions.
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ from typing import Tuple
 
 import torch
 
+from .. import prng
 from .schedules import DecayThenFlatSchedule
 
 
@@ -25,10 +29,27 @@ def masked_argmax(q: torch.Tensor, avail: torch.Tensor) -> torch.Tensor:
     return torch.where(avail > 0, q, float("-inf")).argmax(dim=-1)
 
 
-def no_exploration():
-    raise NotImplementedError(
-        "exploration draws need the threefry PRNG port (training slice); "
-        "the port selects greedily only (test_mode=True)")
+def random_avail(key: torch.Tensor, avail: torch.Tensor) -> torch.Tensor:
+    """A uniform available action per row of ``avail (..., n)`` from one
+    ``(2,)`` key: the argmax of Gumbel noise over the available
+    actions."""
+    return _gumbel_argmax(prng.gumbel(key, avail.shape), avail)
+
+
+def _gumbel_argmax(g: torch.Tensor, avail: torch.Tensor) -> torch.Tensor:
+    return torch.where(avail > 0, g, float("-inf")).argmax(dim=-1)
+
+
+def exploration_draws(key: torch.Tensor, shape) -> Tuple[torch.Tensor,
+                                                          torch.Tensor]:
+    """The epsilon-greedy selector's draws from ``key (..., 2)`` for q of
+    ``shape`` ``(..., n_actions)``: ``k_coin, k_rand = split(key)``, the
+    coins ``uniform(k_coin, shape[:-1])`` and the Gumbel noise
+    ``gumbel(k_rand, shape)``. Leading key dimensions (steps) lead the
+    results."""
+    k_coin, k_rand = prng.split(key).unbind(-2)
+    return (prng.uniform(k_coin, tuple(shape[:-1])),
+            prng.gumbel(k_rand, tuple(shape)))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,12 +62,22 @@ class EpsilonGreedySelector:
             eps = eps * eps_scale
         return torch.zeros_like(eps) if test_mode else eps
 
-    def select(self, q: torch.Tensor, avail: torch.Tensor, t_env,
-               test_mode: bool = False, eps_scale=None
+    def select(self, key: torch.Tensor, q: torch.Tensor,
+               avail: torch.Tensor, t_env, test_mode: bool = False,
+               eps_scale=None, draws=None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
-        if not test_mode:
-            no_exploration()
-        return masked_argmax(q, avail), self.epsilon(t_env, True, eps_scale)
+        """``key (2,)``; q, avail ``(..., n_actions)`` → (actions
+        ``(...)``, epsilon). ``draws`` (``exploration_draws`` of ``key``)
+        replaces drawing here. ``t_env`` is a host int, so epsilon stays
+        on the host and the coin compares against it without a copy."""
+        eps = self.epsilon(t_env, test_mode, eps_scale)
+        greedy = masked_argmax(q, avail)
+        if test_mode:
+            return greedy, eps
+        coin, g = (exploration_draws(key, q.shape) if draws is None
+                   else draws)
+        return torch.where(coin < float(eps), _gumbel_argmax(g, avail),
+                           greedy), eps
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,11 +89,11 @@ class NoisySelector:
     def epsilon(self, t_env, test_mode: bool, eps_scale=None) -> torch.Tensor:
         return torch.zeros(())
 
-    def select(self, q: torch.Tensor, avail: torch.Tensor, t_env,
-               test_mode: bool = False, eps_scale=None
+    def select(self, key: torch.Tensor, q: torch.Tensor,
+               avail: torch.Tensor, t_env, test_mode: bool = False,
+               eps_scale=None, draws=None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
-        if not test_mode:
-            no_exploration()
+        del key, eps_scale, draws
         return masked_argmax(q, avail), torch.zeros(())
 
 

@@ -14,11 +14,10 @@ Differences from the JAX package, by design:
   JAX only avoids the copy by donating it. The small priority vector is
   replaced, not written in place. The ring cursor and fill count are
   host integers (the host decides every insert anyway).
-* Draws come from a ``torch.Generator``, or are handed in: the PER
-  ``sample`` takes ``u`` (one uniform per stratum) and the uniform
-  ``sample`` takes ``scores`` (one per slot), so a test can give both
-  packages the same numbers. The JAX package's threefry stream is not
-  reproduced.
+* ``sample`` draws from a key of the JAX key chain
+  (``t2omca_tpu_torch.prng``), as the JAX buffers do; ``u`` (PER: one
+  uniform per stratum) or ``scores`` (uniform: one per slot) may be
+  handed in instead, so a test can give both packages the same numbers.
 * Compact entity storage and ``insert_time_major`` are later slices
   (``ROADMAP.md`` Queue A).
 """
@@ -30,7 +29,9 @@ from typing import Optional, Tuple
 
 import torch
 
+from .. import prng
 from ..device import DeviceLike, resolve_device
+from ..xla_float import f32, fma, recip
 
 _STORE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -59,6 +60,40 @@ class EpisodeBatch:
     def map(self, fn) -> "EpisodeBatch":
         return EpisodeBatch(**{f.name: fn(getattr(self, f.name))
                                for f in dataclasses.fields(self)})
+
+
+@dataclasses.dataclass
+class TimeMajorEpisodes:
+    """A rollout's per-step outputs before episode-batch assembly: ``(T,
+    B, ...)`` stacks plus the ``(B, ...)`` bootstrap step."""
+
+    obs: torch.Tensor            # (T, B, A, obs) store dtype
+    state: torch.Tensor          # (T, B, state_dim) store dtype
+    avail_actions: torch.Tensor  # (T, B, A, n_actions) bool
+    actions: torch.Tensor        # (T, B, A) int32
+    reward: torch.Tensor         # (T, B) f32, the train-recorded reward
+    terminated: torch.Tensor     # (T, B) bool, env-terminal (Q7)
+    last_obs: torch.Tensor       # (B, A, obs)
+    last_state: torch.Tensor     # (B, state_dim)
+    last_avail: torch.Tensor     # (B, A, n_actions) bool
+
+    @property
+    def batch_size(self) -> int:
+        return self.actions.shape[1]
+
+    def to_batch(self) -> EpisodeBatch:
+        """The ``(B, T(+1), ...)`` episode batch."""
+        t, b = self.actions.shape[:2]
+        bt = lambda x: x.transpose(0, 1)
+        cat = lambda seq, last: torch.cat([bt(seq), last.unsqueeze(1)], 1)
+        return EpisodeBatch(
+            obs=cat(self.obs, self.last_obs),
+            state=cat(self.state, self.last_state),
+            avail_actions=cat(self.avail_actions, self.last_avail),
+            actions=bt(self.actions), reward=bt(self.reward),
+            terminated=bt(self.terminated),
+            filled=torch.ones(b, t, dtype=torch.bool,
+                              device=self.actions.device))
 
 
 @dataclasses.dataclass
@@ -162,18 +197,17 @@ class ReplayBuffer:
                 ) -> EpisodeBatch:
         return state.storage.map(lambda s: s.index_select(0, idx))
 
-    def sample(self, state: BufferState, batch_size: int, t_env=0,
-               generator: Optional[torch.Generator] = None,
+    def sample(self, state: BufferState, key: Optional[torch.Tensor],
+               batch_size: int, t_env=0,
                scores: Optional[torch.Tensor] = None
                ) -> Tuple[EpisodeBatch, torch.Tensor, torch.Tensor]:
         """→ (batch, idx, weights). Uniform without replacement (weights
-        1): the top ``batch_size`` of one random score per valid slot.
-        ``scores`` (``(capacity,)``) replaces the draw from
-        ``generator``."""
+        1): the top ``batch_size`` of one uniform score per valid slot,
+        drawn from ``key``; ``scores`` (``(capacity,)``) replaces the
+        draw."""
         del t_env
         if scores is None:
-            scores = torch.rand(self.capacity, generator=generator,
-                                device=self.device)
+            scores = prng.uniform(key, (self.capacity,))
         scores = scores.to(self.device)
         valid = torch.arange(self.capacity, device=self.device) \
             < state.episodes_in_buffer
@@ -209,26 +243,26 @@ class PrioritizedReplayBuffer(ReplayBuffer):
         p = torch.where(valid, state.priorities, 0.0)
         return p / torch.clamp(p.sum(), min=1e-12)
 
-    def sample(self, state: BufferState, batch_size: int, t_env=0,
-               generator: Optional[torch.Generator] = None,
-               u: Optional[torch.Tensor] = None
+    def sample(self, state: BufferState, key: Optional[torch.Tensor],
+               batch_size: int, t_env=0, u: Optional[torch.Tensor] = None
                ) -> Tuple[EpisodeBatch, torch.Tensor, torch.Tensor]:
-        """Stratified inverse-CDF: one uniform per equal-mass stratum.
-        ``u`` (``(batch_size,)`` in [0, 1)) replaces the draw from
-        ``generator``."""
+        """Stratified inverse-CDF: one uniform per equal-mass stratum,
+        drawn from ``key``; ``u`` (``(batch_size,)`` in [0, 1)) replaces
+        the draw. The float32 arithmetic is XLA's form of the JAX
+        sampler's (constant divisors as reciprocal multiplies, β as one
+        fused multiply-add)."""
         probs = self._probs(state)
         cdf = torch.cumsum(probs, dim=0)
         if u is None:
-            u = torch.rand(batch_size, generator=generator,
-                           device=self.device)
+            u = prng.uniform(key, (batch_size,))
         u = (torch.arange(batch_size, device=self.device)
-             + u.to(self.device)) / batch_size
+             + u.to(self.device)) * recip(batch_size)
         idx = torch.searchsorted(cdf, u * cdf[-1], side="left")
         idx = torch.clamp(idx, 0, self.capacity - 1)
-        beta = self.beta0 + (1.0 - self.beta0) * min(
-            max(float(t_env) / self.t_max, 0.0), 1.0)
+        frac = min(max(f32(f32(t_env) * recip(self.t_max)), 0.0), 1.0)
+        beta = f32(frac * f32(1.0 - self.beta0) + f32(self.beta0))   # fma
         n = float(max(state.episodes_in_buffer, 1))
-        w = (n * torch.clamp(probs[idx], min=1e-12)) ** (-beta)
+        w = (n * torch.clamp(probs[idx], min=1e-12)) ** (-float(beta))
         w = w / torch.clamp(w.max(), min=1e-12)
         return self._gather(state, idx), idx, w
 

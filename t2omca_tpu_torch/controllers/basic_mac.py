@@ -19,7 +19,10 @@ import torch
 from torch import nn
 from torch.func import functional_call
 
-from ..components.action_selectors import SELECTOR_REGISTRY, no_exploration
+from .. import prng
+from ..components.action_selectors import (SELECTOR_REGISTRY,
+                                           EpsilonGreedySelector,
+                                           exploration_draws)
 from ..components.schedules import DecayThenFlatSchedule
 from ..config import TrainConfig
 from ..device import DeviceLike, resolve_device
@@ -166,20 +169,41 @@ class BasicMAC:
                                 if x.dtype == torch.float32 else x)
 
     def select_actions(self, params, obs: torch.Tensor, avail: torch.Tensor,
-                       hidden: torch.Tensor, t_env=0, test_mode: bool = True
+                       hidden: torch.Tensor, key: torch.Tensor, t_env=0,
+                       test_mode: bool = False, draws=None
                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """→ (actions ``(B, A)`` int32, hidden', epsilon). Greedy only:
-        exploration (``test_mode=False``) raises until the training
-        slice ports the PRNG."""
-        if not test_mode:
-            no_exploration()
+        """→ (actions ``(B, A)`` int32, hidden', epsilon). ``key (2,)``
+        splits ``k_noise, k_sel`` as the JAX MAC does; the selector draws
+        from ``k_sel``, or takes ``draws`` (``exploration_draws``, drawn
+        ahead for a whole rollout). ``k_noise`` would seed the noisy
+        q-head, whose training noise is not ported (a noisy agent raises
+        outside test mode)."""
+        if self.agent.noisy and not test_mode:
+            raise NotImplementedError(
+                "NoisyNet training noise is not ported yet (ROADMAP.md "
+                "Queue A: NoisyNet); the noisy agent acts greedily in "
+                "test mode only")
         if self.use_qslice:
             q, hidden = self.forward_qslice(params, obs, hidden,
                                             acting=True)
         else:
             q, hidden = self.forward(params, obs, hidden, acting=True)
-        actions, eps = self.selector.select(q, avail, t_env, test_mode=True)
+        k_sel = None if draws is not None else prng.split(key)[1]
+        actions, eps = self.selector.select(k_sel, q, avail, t_env,
+                                            test_mode=test_mode,
+                                            draws=draws)
         return actions.to(torch.int32), hidden, eps
+
+    def exploration_draws(self, key: torch.Tensor, batch: int):
+        """The selector's draws for keys ``key (..., 2)`` (one a step) and
+        ``batch`` env lanes: ``k_noise, k_sel = split(key)``, then
+        ``exploration_draws(k_sel, (batch, A, n_actions))``; ``None``
+        for selectors that draw nothing."""
+        if not isinstance(self.selector, EpsilonGreedySelector):
+            return None
+        k_sel = prng.split(key).unbind(-2)[1]
+        return exploration_draws(k_sel, (batch, self.n_agents,
+                                         self.n_actions))
 
 
 def init_module_params(module: nn.Module, generator: torch.Generator,

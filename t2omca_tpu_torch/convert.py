@@ -1,5 +1,6 @@
 """Carry weights from flax param trees (agent, mixer, the learner's pair)
-to the port's state dicts.
+to the port's state dicts, and the JAX package's carried states (keys,
+env and runner states, replay buffers) to the port's dataclasses.
 
 Input: the JAX package's agent variables as nested dicts of numpy arrays
 (``{"params": {"feat_embedding": {"kernel", "bias"}, "transformer":
@@ -19,6 +20,7 @@ noisy head's ``w_mu``/``w_sigma`` (``(in, out)``) and ``b_mu``/
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Mapping
 
 import numpy as np
@@ -89,3 +91,73 @@ def _state_from_flax(variables: Mapping, device: torch.device,
 
     walk(tree, "")
     return out
+
+
+def tensor_from_jax(x, device: DeviceLike = None) -> torch.Tensor:
+    """One JAX array (or its numpy copy) → tensor: uint32 (PRNG keys)
+    becomes int64 holding the same values, bfloat16 stays bfloat16."""
+    arr = np.asarray(x)
+    dev = resolve_device(device)
+    if arr.dtype == np.uint32:
+        return torch.from_numpy(arr.astype(np.int64)).to(dev)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.astype(np.float32)).to(
+            dev, torch.bfloat16)
+    return torch.from_numpy(np.array(arr)).to(dev)
+
+
+def state_from_jax(cls, obj, device: DeviceLike = None):
+    """A JAX ``struct.dataclass`` state (``EnvState``, ``EnvParams``,
+    ``RunnerState``, ``BufferState``, ...) → the port dataclass ``cls``
+    with the same field names. Nested states convert recursively; the
+    port's host-side counters (``t_env``, the ring cursor and fill)
+    become Python ints; static fields (a ``gamma``) pass through."""
+    from .components.episode_buffer import EpisodeBatch
+    from .envs.mec_offload import EnvParams, EnvState
+    from .envs.normalization import NormState, RewardScaleState
+    nested = {"norm": NormState, "env_states": EnvState,
+              "rscale": RewardScaleState, "env_params": EnvParams,
+              "storage": EpisodeBatch}
+    host_ints = ("t_env", "insert_pos", "episodes_in_buffer")
+    dev = resolve_device(device)
+    kw = {}
+    for f in dataclasses.fields(cls):
+        v = getattr(obj, f.name)
+        if f.name in nested:
+            kw[f.name] = state_from_jax(nested[f.name], v, dev)
+        elif f.name in host_ints:
+            kw[f.name] = int(np.asarray(v))
+        elif isinstance(v, (int, float)):
+            kw[f.name] = v
+        else:
+            kw[f.name] = tensor_from_jax(v, dev)
+    return cls(**kw)
+
+
+def learner_state_from_jax(ls, device: DeviceLike = None):
+    """The JAX learner's ``LearnerState`` (params, target params, optax
+    state of ``clip_by_global_norm`` → adam or rmsprop, counters) → the
+    port's, so a port train step can start from a JAX one."""
+    from .learners.qmix_learner import LearnerState
+    dev = resolve_device(device)
+    tree = lambda t: learner_params_from_flax(t, dev)
+    stats = [s for s in _walk(ls.opt_state) if hasattr(s, "nu")]
+    if len(stats) != 1:
+        raise ValueError("expected one optax adam or rmsprop state")
+    (st,) = stats
+    opt = {"nu": tree(st.nu)}
+    if hasattr(st, "mu"):
+        opt.update(count=tensor_from_jax(st.count, dev), mu=tree(st.mu))
+    return LearnerState(
+        params=tree(ls.params), target_params=tree(ls.target_params),
+        opt_state=opt, train_steps=tensor_from_jax(ls.train_steps, dev),
+        last_target_update=tensor_from_jax(ls.last_target_update, dev))
+
+
+def _walk(node):
+    """The optax state objects nested in tuples (chain states)."""
+    if isinstance(node, tuple) and not hasattr(node, "_fields"):
+        for child in node:
+            yield from _walk(child)
+    else:
+        yield node

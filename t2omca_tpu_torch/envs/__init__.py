@@ -1,1 +1,2 @@
-"""Environment sizes and registry of the port (dynamics: training slice)."""
+"""Environment of the port: the MEC-offload env, its normalizer, critic,
+scenario distributions and registry."""

@@ -40,6 +40,7 @@ from ..controllers.basic_mac import (BasicMAC, Params, init_module_params,
                                      torch_dtype)
 from ..device import DeviceLike, resolve_device
 from ..models.mixer import TransformerMixer
+from ..ops.query_slice import entity_store_eligible
 
 Tree = Dict[str, Params]
 
@@ -166,7 +167,7 @@ class QMixLearner:
             raise _not_ported("training with noise or dropout keys "
                               "(action_selector noisy-new, model.dropout)",
                               "item 2 (the PRNG)")
-        if _compact_store(cfg):
+        if entity_store_eligible(cfg):
             raise _not_ported("compact entity storage "
                               "(replay.compact_entity_store)",
                               "item 5 (the entity tables); set "
@@ -416,18 +417,6 @@ class QMixLearner:
 
 def _or_zeros(g: Optional[torch.Tensor], p: torch.Tensor) -> torch.Tensor:
     return torch.zeros_like(p) if g is None else g
-
-
-def _compact_store(cfg: TrainConfig) -> bool:
-    """The JAX package's ``entity_store_eligible``: whether the config
-    stores compact entity observations."""
-    m, e = cfg.model, cfg.env_args
-    return (cfg.replay.compact_entity_store
-            and m.use_entity_tables and m.use_qslice
-            and cfg.agent == "transformer" and m.dropout == 0.0
-            and e.obs_entity_mode and e.fast_norm and m.n_entities_obs == 0
-            and e.state_entity_mode and not cfg.replay.buffer_cpu_only
-            and e.mec_num <= 128)
 
 
 LEARNER_REGISTRY = {"qmix_learner": QMixLearner}

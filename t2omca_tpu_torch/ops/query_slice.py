@@ -42,6 +42,26 @@ def agent_qslice_eligible(cfg) -> bool:
             and cfg.model.dropout == 0.0)
 
 
+def entity_tables_eligible(cfg) -> bool:
+    """Whether the JAX package acts through the entity tables (not
+    ported: the port's runner raises on it)."""
+    return (cfg.model.use_entity_tables
+            and agent_qslice_eligible(cfg)
+            and cfg.env_args.obs_entity_mode
+            and cfg.env_args.fast_norm
+            and cfg.model.n_entities_obs == 0)
+
+
+def entity_store_eligible(cfg) -> bool:
+    """Whether the JAX package stores compact entity observations (not
+    ported: the port's learner raises on it)."""
+    return (cfg.replay.compact_entity_store
+            and entity_tables_eligible(cfg)
+            and cfg.env_args.state_entity_mode
+            and not cfg.replay.buffer_cpu_only
+            and cfg.env_args.mec_num <= 128)
+
+
 def mixer_qslice_eligible(cfg) -> bool:
     """The mixer reduction needs the deterministic transformer mixer
     (only the last ``n_agents + 3`` output rows are read)."""

@@ -1,10 +1,8 @@
 """The trainer step: sample → train → priority feedback (port of
 ``_train_iter`` in ``t2omca_tpu/run.py:290-312``).
 
-The training counterpart of ``serve/program.py``. The rollout that fills
-the ring and the training loop around this step (``run.py``) are later
-slices (``ROADMAP.md`` Queue A items 6 and 7): for now the ring is
-filled by the caller, with ``ReplayBuffer.insert_episode_batch``.
+The training counterpart of ``serve/program.py``; the loop around it
+(rollout → insert → gated train) is ``t2omca_tpu_torch/run.py``.
 """
 
 from __future__ import annotations
@@ -14,7 +12,8 @@ from typing import Optional
 
 import torch
 
-from ..components.episode_buffer import BufferState, PrioritizedReplayBuffer
+from .. import prng
+from ..components.episode_buffer import BufferState
 from ..learners.qmix_learner import LearnerState
 
 
@@ -23,23 +22,22 @@ class TrainState:
     learner: LearnerState
     buffer: BufferState
     episode: int                  # episodes inserted so far (target sync)
+    runner: Optional[object] = None   # the loop's RunnerState
 
 
 def build_train_iter(buffer, learner, cfg):
-    """→ ``train_iter(ts, t_env, generator=None, draws=None) -> (ts',
-    info)``. ``draws`` replaces the sampler's random numbers (the PER
-    buffer's ``u``, the uniform buffer's ``scores``); otherwise they come
-    from ``generator``. A step whose loss or gradients are not finite
-    writes back the sampled episodes' existing priorities (``valid=``),
-    so NaN never enters the ring."""
-    draw_kw = "u" if isinstance(buffer, PrioritizedReplayBuffer) else "scores"
+    """→ ``train_iter(ts, key, t_env) -> (ts', info)``. ``key`` (a ``(2,)``
+    key of the driver's chain) splits into ``k_sample, k_learn`` as in
+    the JAX program; the sampler draws from ``k_sample``, and ``k_learn``
+    would seed noise or dropout, which the port's learner does not train
+    with yet. A step whose loss or gradients are not finite writes back
+    the sampled episodes' existing priorities (``valid=``), so NaN never
+    enters the ring."""
 
-    def train_iter(ts: TrainState, t_env,
-                   generator: Optional[torch.Generator] = None,
-                   draws: Optional[torch.Tensor] = None):
-        batch, idx, weights = buffer.sample(
-            ts.buffer, cfg.batch_size, t_env, generator=generator,
-            **{draw_kw: draws})
+    def train_iter(ts: TrainState, key: torch.Tensor, t_env):
+        k_sample, _k_learn = prng.split(key).unbind(-2)
+        batch, idx, weights = buffer.sample(ts.buffer, k_sample,
+                                            cfg.batch_size, t_env)
         learner_state, info = learner.train(ts.learner, batch, weights,
                                             t_env, ts.episode)
         buf = buffer.update_priorities(

@@ -301,3 +301,89 @@ def test_f32_dq_kernel_at_its_edges(cuda_device, shape, causal, mask,
     torch.testing.assert_close(dq, want, **GRAD_TOL[torch.float32])
     if mask == "all_masked_row":
         assert float(dq[:, :, 3].abs().max()) == 0.0
+
+
+# ---------------------------------------------------------------- the loop
+
+def _loop_cfg(**model):
+    from t2omca_tpu_torch.config import from_dict
+    return from_dict({
+        "batch_size_run": 4, "batch_size": 4, "epsilon_anneal_time": 100,
+        "env_args": {"agv_num": 4, "mec_num": 2, "num_channels": 2,
+                     "episode_limit": 12},
+        "model": dict({"emb": 16, "heads": 2, "depth": 1, "mixer_emb": 16,
+                       "mixer_heads": 2, "mixer_depth": 1,
+                       "use_entity_tables": False}, **model),
+        "replay": {"buffer_size": 8}, "kernels": {"attention": "pallas"}})
+
+
+@pytest.mark.cuda
+def test_threefry_on_cuda_equals_cpu_bit_for_bit(cuda_device):
+    """The integer hash and every sampler built on its bits: CUDA equals
+    the CPU (which the CPU tests hold against JAX)."""
+    from t2omca_tpu_torch import prng
+    for dev_keys in ((prng.PRNGKey(s, "cpu") for s in (0, 1, 2 ** 31 - 1)),
+                     (prng.split(prng.PRNGKey(5, "cpu"), 128),)):
+        for key in dev_keys:
+            kc = key.to(cuda_device)
+            for f in (lambda k: prng.split(k, 150),
+                      lambda k: prng.fold_in(k, 0x5CE7),
+                      lambda k: prng.random_bits(k, (64, 9)),
+                      lambda k: prng.uniform(k, (64,)),
+                      lambda k: prng.uniform(k, (64,), 4000.0, 12000.0),
+                      lambda k: prng.uniform(k, (64,), 0.0, 6.2831855),
+                      lambda k: prng.bernoulli(k, 0.5, (64,)),
+                      lambda k: prng.randint(k, (64,), 0, 8)):
+                assert torch.equal(f(kc).cpu(), f(key))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fast_norm", [False, True])
+def test_env_step_on_cuda_matches_cpu(cuda_device, fast_norm):
+    """One reset and one step from the same state, actions and keys:
+    discrete fields exact, floats at the CPU tests' rtol/atol 1e-5."""
+    import dataclasses
+    from t2omca_tpu_torch import prng
+    from t2omca_tpu_torch.config import EnvConfig
+    from t2omca_tpu_torch.envs.mec_offload import MultiAgvOffloadingEnv
+    cfg = EnvConfig(agv_num=16, mec_num=4, num_channels=4,
+                    fast_norm=fast_norm)
+    envs = {d: MultiAgvOffloadingEnv(cfg, device=d)
+            for d in ("cpu", cuda_device)}
+    keys = prng.split(prng.PRNGKey(0, "cpu"), 8)
+    out = {d: e.reset(keys.to(d)) for d, e in envs.items()}
+    acts = out["cpu"][3].float().argmax(-1).to(torch.int32)
+    skeys = prng.split(prng.PRNGKey(1, "cpu"), 8)
+    step = {d: envs[d].step(out[d][0], acts.to(d), skeys.to(d),
+                            envs[d].default_params(8)) for d in envs}
+
+    def same(a, b):
+        if dataclasses.is_dataclass(a):
+            for f in dataclasses.fields(a):
+                same(getattr(a, f.name), getattr(b, f.name))
+        elif a.dtype.is_floating_point:
+            torch.testing.assert_close(b.cpu(), a, rtol=1e-5, atol=1e-5)
+        else:
+            assert torch.equal(a, b.cpu())
+
+    for a, b in zip(step["cpu"], step[cuda_device]):
+        same(a, b)
+
+
+@pytest.mark.cuda
+def test_one_loop_iteration_on_cuda(cuda_device):
+    """Rollout → insert → train at small widths through the kernels:
+    finite loss, every stored action available."""
+    from t2omca_tpu_torch.kernels import attention as att
+    from t2omca_tpu_torch.run import Experiment, run_classic
+    exp = Experiment.build(_loop_cfg(), device=cuda_device)
+    ts = exp.init_state(0)
+    att.reset_launches()
+    ts, cursor, (rec,) = run_classic(exp, ts, 1)
+    assert rec.info is not None and bool(rec.info["all_finite"])
+    assert torch.isfinite(rec.info["loss"]).item()
+    assert att.LAUNCHES["flash_bwd_dkv"] > 0
+    st = ts.buffer.storage
+    taken = torch.gather(st.avail_actions[:4, :-1], -1,
+                         st.actions[:4].long().unsqueeze(-1))
+    assert bool(taken.all()) and cursor.t_env == 4 * 12

@@ -9,6 +9,7 @@
 """
 
 import ast
+import dataclasses
 import os
 
 import numpy as np
@@ -84,10 +85,17 @@ def test_entry_points_raise_without_cuda_unless_cpu_named(no_cuda):
     cfg = _cfg()
     info = make_env(cfg.env_args).get_env_info()
     tree = {"feat_embedding": {"bias": np.zeros(8)}}
+    from t2omca_tpu_torch import prng
+    from t2omca_tpu_torch.run import Experiment
     cpu_mac = BasicMAC.build(cfg, info, device="cpu")
     buf_kw = dict(capacity=4, episode_limit=3, n_agents=2, n_actions=3,
                   obs_dim=info["obs_shape"], state_dim=info["state_shape"])
+    cpu_key = prng.split(prng.PRNGKey(0, "cpu"), 2)
     for call in (lambda: resolve_device(),
+                 lambda: prng.PRNGKey(0),
+                 lambda: Experiment.build(cfg),
+                 lambda: make_env(cfg.env_args).default_params(2),
+                 lambda: make_env(cfg.env_args).reset(cpu_key),
                  lambda: resolve_device("cuda"),
                  lambda: BasicMAC.build(cfg, info),
                  lambda: agent_state_from_flax(tree),
@@ -109,6 +117,11 @@ def test_entry_points_raise_without_cuda_unless_cpu_named(no_cuda):
                for v in sub.values())
     assert ReplayBuffer(device="cpu", **buf_kw).init().priorities.device \
         .type == "cpu"
+    exp = Experiment.build(dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, use_entity_tables=False)), device="cpu")
+    ts = exp.init_state(0)
+    assert ts.runner.env_states.pos.device.type == "cpu"
+    assert ts.runner.key.device.type == "cpu"
     fe = ServeFrontend(cfg, params, (1, 2), device="cpu")
     actions, _ = fe.select(np.zeros((3, 2, info["obs_shape"]), np.float32),
                            np.ones((3, 2, info["n_actions"]), np.bool_))
@@ -130,21 +143,66 @@ def test_init_params_are_seeded_and_complete():
                            p3["feat_embedding.weight"])
 
 
-def test_exploration_is_not_ported_and_says_so():
+def test_exploration_draws_from_the_key_chain():
+    """Exploration is ported: the selector draws from the key it is
+    given (the same key, the same actions), test mode is greedy."""
+    from t2omca_tpu_torch import prng
     from t2omca_tpu_torch.controllers.basic_mac import BasicMAC
     from t2omca_tpu_torch.envs.registry import make_env
     cfg = _cfg()
     info = make_env(cfg.env_args).get_env_info()
     mac = BasicMAC.build(cfg, info, device="cpu")
     params = mac.init_params(torch.Generator().manual_seed(0))
-    obs = torch.zeros(1, 2, info["obs_shape"])
-    avail = torch.ones(1, 2, info["n_actions"], dtype=torch.bool)
-    acts, _, eps = mac.select_actions(params, obs, avail,
-                                      mac.init_hidden(1), test_mode=True)
-    assert acts.dtype == torch.int32 and float(eps) == 0.0
-    with pytest.raises(NotImplementedError, match="threefry"):
-        mac.select_actions(params, obs, avail, mac.init_hidden(1),
-                           test_mode=False)
+    obs = torch.randn(8, 2, info["obs_shape"],
+                      generator=torch.Generator().manual_seed(1))
+    avail = torch.ones(8, 2, info["n_actions"], dtype=torch.bool)
+    key = prng.PRNGKey(3, "cpu")
+    act = lambda k, test: mac.select_actions(params, obs, avail,
+                                             mac.init_hidden(8), k, 0,
+                                             test_mode=test)
+    (a1, _, e1), (a2, _, _) = act(key, False), act(key, False)
+    assert torch.equal(a1, a2) and float(e1) == 1.0
+    greedy, _, e0 = act(key, True)
+    assert float(e0) == 0.0 and not torch.equal(a1, greedy)
+    assert torch.equal(greedy, act(prng.PRNGKey(4, "cpu"), True)[0])
+
+
+NEW_MODULES = ("prng.py", "run.py", "xla_float.py",
+               os.path.join("runners", "parallel_runner.py"),
+               os.path.join("envs", "normalization.py"),
+               os.path.join("envs", "critic.py"),
+               os.path.join("envs", "graftworld.py"),
+               os.path.join("components", "transforms.py"))
+
+
+def test_import_scan_covers_the_loop_modules():
+    scanned = {os.path.relpath(f, PORT) for f in _port_files()}
+    assert set(NEW_MODULES) <= scanned
+
+
+def test_env_job_and_collision_path_has_no_matmul():
+    """The job compaction and the collision histogram are exact integer
+    work: ``envs/mec_offload.py`` calls no matmul or einsum (a TF32 or
+    bf16 product would round payload sizes) and uses no ``@``."""
+    path = os.path.join(PORT, "envs", "mec_offload.py")
+    with open(path) as f:
+        tree = ast.parse(f.read(), filename=path)
+    banned = {"matmul", "einsum", "mm", "bmm", "dot", "tensordot",
+              "linear", "addmm", "baddbmm", "mv", "inner", "outer"}
+    found = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Call):
+            fn = node.func
+            name = (fn.attr if isinstance(fn, ast.Attribute) else
+                    getattr(fn, "id", ""))
+            if name in banned:
+                found.append((node.lineno, name))
+        elif isinstance(node, ast.BinOp) and isinstance(node.op,
+                                                         ast.MatMult):
+            found.append((node.lineno, "@"))
+    assert found == []
+    src = open(path).read()
+    assert "scatter_add_" in src and "scatter_(" in src
 
 
 def test_kernel_sources_and_builder_target_sm90a():

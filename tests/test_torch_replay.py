@@ -2,13 +2,12 @@
 (``t2omca_tpu_torch.components.episode_buffer``, ``train.program``)
 against the JAX package. Mirrors ``tests/test_selectors_buffer.py:83-290``.
 
-The draws are injected, not bit-matched: the port's PER ``sample`` is
-handed ``u = jax.random.uniform(key, (batch,))``, the uniforms the JAX
-sampler draws from ``key``, and the uniform sampler the scores JAX draws
-from its key. With those the indices must be identical and the weights
-within 1e-6. The trainer step is held against the JAX composition
-``buffer.sample → learner.train → update_priorities`` for two
-iterations."""
+The samplers draw from keys of the port's threefry chain, bit for bit
+the JAX draws: from the same key the indices are identical and the
+weights within 1e-6. The injected draws (``u`` for PER, ``scores`` for
+the uniform buffer) stay as a second way in. The trainer step is held
+against the JAX composition ``split(key) → buffer.sample → learner.train
+→ update_priorities`` for two iterations."""
 
 import jax
 import jax.numpy as jnp
@@ -21,6 +20,7 @@ from t2omca_tpu.components.episode_buffer import \
 from t2omca_tpu.components.episode_buffer import ReplayBuffer as JaxRB
 from t2omca_tpu_torch.components.episode_buffer import (
     PrioritizedReplayBuffer, ReplayBuffer)
+from t2omca_tpu_torch.convert import tensor_from_jax
 from t2omca_tpu_torch.train.program import TrainState, build_train_iter
 
 from test_torch_learner import (BATCH, T, _params_close, build_pair,
@@ -121,11 +121,13 @@ def test_per_sample_matches_jax_with_injected_uniforms(t_env):
         key = jax.random.PRNGKey(seed)
         bjx, ij, wj = bj.sample(sj, key, 4, t_env)
         u = torch.tensor(np.asarray(jax.random.uniform(key, (4,))))
-        btx, it, wt = bt.sample(st, 4, t_env, u=u)
+        btx, it, wt = bt.sample(st, None, 4, t_env, u=u)
         np.testing.assert_array_equal(it.numpy(), np.asarray(ij))
         np.testing.assert_allclose(wt.numpy(), np.asarray(wj), rtol=0,
                                    atol=1e-6)
         np.testing.assert_array_equal(btx.obs.numpy(), np.asarray(bjx.obs))
+        _, ik, wk = bt.sample(st, tensor_from_jax(key, "cpu"), 4, t_env)
+        assert torch.equal(ik, it) and torch.equal(wk, wt)
 
 
 def test_uniform_sample_matches_jax_with_injected_scores():
@@ -136,13 +138,12 @@ def test_uniform_sample_matches_jax_with_injected_scores():
         key = jax.random.PRNGKey(seed)
         _, ij, wj = bj.sample(sj, key, 3)
         scores = torch.tensor(np.asarray(jax.random.uniform(key, (8,))))
-        _, it, wt = bt.sample(st, 3, scores=scores)
+        _, it, wt = bt.sample(st, None, 3, scores=scores)
         np.testing.assert_array_equal(it.numpy(), np.asarray(ij))
         assert len(set(it.tolist())) == 3 and int(it.max()) < 5
         np.testing.assert_array_equal(wt.numpy(), np.asarray(wj))
-    g1 = bt.sample(st, 3, generator=torch.Generator().manual_seed(0))[1]
-    g2 = bt.sample(st, 3, generator=torch.Generator().manual_seed(0))[1]
-    assert torch.equal(g1, g2)
+        ik = bt.sample(st, tensor_from_jax(key, "cpu"), 3)[1]
+        assert torch.equal(ik, it)
 
 
 def test_compact_storage_is_not_ported_and_says_so():
@@ -151,8 +152,8 @@ def test_compact_storage_is_not_ported_and_says_so():
 
 
 def test_train_iter_matches_jax_composition():
-    """Two trainer steps (sample → train → priority feedback) from the
-    same ring, params and uniforms: priorities, max_priority and params
+    """Two trainer steps (split → sample → train → priority feedback) from
+    the same ring, params and key: priorities, max_priority and params
     match the JAX composition."""
     d = config(**{"kernels.attention": "pallas", "replay.buffer_size": 6})
     jl, jls, tl, tls, info = build_pair(d)
@@ -171,12 +172,12 @@ def test_train_iter_matches_jax_composition():
     for it in range(2):
         key = jax.random.PRNGKey(10 + it)
         t_env = 100 * (it + 1)
-        batch, idx, w = bj.sample(sj, key, BATCH, t_env)
+        k_sample, _ = jax.random.split(key)
+        batch, idx, w = bj.sample(sj, k_sample, BATCH, t_env)
         jls, jinfo = jtrain(jls, batch, w, t_env, 5)
         sj = bj.update_priorities(sj, idx, jinfo["td_errors_abs"] + 1e-6,
                                   valid=jinfo["all_finite"])
-        u = torch.tensor(np.asarray(jax.random.uniform(key, (BATCH,))))
-        ts, tinfo = train_iter(ts, t_env, draws=u)
+        ts, tinfo = train_iter(ts, tensor_from_jax(key, "cpu"), t_env)
         np.testing.assert_allclose(ts.buffer.priorities.numpy(),
                                    np.asarray(sj.priorities), rtol=1e-5,
                                    atol=1e-6)
@@ -186,3 +187,47 @@ def test_train_iter_matches_jax_composition():
                                    float(jinfo["loss"]), rtol=1e-5)
     _params_close(ts.learner.params, jls.params, "train_iter params")
     assert int(ts.learner.train_steps) == 2
+
+
+@pytest.mark.parametrize("t_env", [0, 37, 500])
+@pytest.mark.parametrize("prioritized", [False, True])
+def test_keyed_sample_is_the_jax_sample(prioritized, t_env):
+    """Without injected draws: the same key gives the JAX buffer's
+    indices (both samplers, a ring that wrapped) and weights."""
+    kw = dict(alpha=0.6, beta0=0.4, t_max=300) if prioritized else {}
+    bt, bj = _pair(PrioritizedReplayBuffer if prioritized else ReplayBuffer,
+                   JaxPER if prioritized else JaxRB, cap=7, **kw)
+    st, sj = bt.init(), bj.init()
+    for seed, b in ((1, 4), (2, 5)):
+        st = bt.insert_episode_batch(st, to_port(_episodes(b, seed)))
+        sj = bj.insert_episode_batch(sj, to_jax(_episodes(b, seed)))
+    pr = np.random.default_rng(6).uniform(0.01, 3.0, 7).astype(np.float32)
+    st = bt.update_priorities(st, torch.arange(7), torch.from_numpy(pr))
+    sj = bj.update_priorities(sj, jnp.arange(7), jnp.asarray(pr))
+    for seed in range(5):
+        key = jax.random.PRNGKey(seed)
+        bjx, ij, wj = bj.sample(sj, key, 5, t_env)
+        btx, it, wt = bt.sample(st, tensor_from_jax(key, "cpu"), 5, t_env)
+        np.testing.assert_array_equal(it.numpy(), np.asarray(ij))
+        np.testing.assert_allclose(wt.numpy(), np.asarray(wj), rtol=0,
+                                   atol=1e-6)
+        np.testing.assert_array_equal(btx.reward.numpy(),
+                                      np.asarray(bjx.reward))
+
+
+def test_buffer_state_converts_from_jax():
+    """``convert.state_from_jax`` carries a JAX ring (storage, cursor,
+    fill, priorities) across: the same state as the port's own inserts."""
+    from t2omca_tpu_torch.components.episode_buffer import BufferState
+    from t2omca_tpu_torch.convert import state_from_jax
+    bt, bj = _pair(PrioritizedReplayBuffer, JaxPER, alpha=0.6, beta0=0.4,
+                   t_max=100)
+    st, sj = bt.init(), bj.init()
+    for seed, b in ((1, 3), (2, 4)):
+        st = bt.insert_episode_batch(st, to_port(_episodes(b, seed)))
+        sj = bj.insert_episode_batch(sj, to_jax(_episodes(b, seed)))
+    carried = state_from_jax(BufferState, jax.tree.map(np.asarray, sj),
+                             "cpu")
+    assert (carried.insert_pos, carried.episodes_in_buffer) == (2, 5)
+    _same_state(carried, sj)
+    _same_state(st, sj)
