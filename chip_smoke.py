@@ -11,18 +11,20 @@ failed check ends the script with a non-zero exit):
 1. device    require CUDA; the card's name and power limit (nvidia-smi)
 2. build     compile the kernels from the checkout's sources (nvcc);
              registers and spills of each kernel (ptxas) and its
-             tensor-core instructions (HMMA, cuobjdump): the bf16 K1 and
-             K3 bodies and both K2 bodies (bf16, f32 as 3xTF32) spill
-             nothing and run on the tensor cores, no bf16 instance of the
-             old CUDA-core K1 and K3 bodies exists, and no instance of the
-             old K2 body
+             tensor-core instructions (HMMA, DMMA; cuobjdump): every body
+             of K1, K3 and K2 at both dtypes (bf16 on m16n8k16; the f32
+             K2 and K3 as 3xTF32 on m16n8k8, the f32 K1 on the FP64
+             tensor cores, m16n8k4) spills nothing and runs on the tensor
+             cores, and no instance of the old CUDA-core K1, K2 and K3
+             bodies exists
 3. kernels   each kernel against its plain version at the main path's
              shapes and the odd / masked / causal / all-masked cases,
-             plus the bf16 tensor-core edges (Tq 4/65/268, Tk 65/131, D
-             8/12/64/256, the serve shape as strided (B, T, H, D) views,
-             k is v, causal per-head masks, all-negative logits); times
-             of kernel, plain version and the one-call library yardstick
-             (scaled_dot_product_attention, never on the path)
+             plus the tensor-core edges at bf16 and f32 (Tq 4/65/268, Tk
+             65/131, D 8/12/64/256, the serve shape as strided (B, T, H,
+             D) views, k is v, causal per-head masks, all-negative
+             logits); times of kernel, plain version and the one-call
+             library yardstick (scaled_dot_product_attention, never on
+             the path) at the serve shape in both dtypes
 4. serve     the serving front end at the north-star widths
              (configs/config3_tpu_northstar.yaml: 64 AGVs, 8 MECs,
              8 channels, emb 256, 4 heads, depth 2, standard heads) with
@@ -37,10 +39,9 @@ failed check ends the script with a non-zero exit):
              at the learner agent (2048, 1, 4, 65, 256) and mixer
              (32, 1, 268, 131, 256) shapes in f32 and bf16, the dense
              learner's heads, odd shapes, masks, causal, the all-masked
-             row, the bf16 edges of phase 3 and the f32 edges of the
-             3xTF32 K2 (k is v, all-negative logits, causal with a
-             per-head mask at D 12); times of each kernel at the two
-             learner shapes (and with k is v) beside its
+             row, and the bf16 and f32 edges of phase 3; times of each
+             kernel at the two learner shapes in both dtypes (and with k
+             is v) beside its
              bound, its plain version and its SDPA yardstick (forward for
              K1 and K1 + residuals; backward alone for K2 and K3, as the
              device time of its kernels in a profiler trace; never on the
@@ -52,7 +53,8 @@ failed check ends the script with a non-zero exit):
              and f32), the f32 pallas-vs-xla cross-check at batch 2
              (query slice and dense; loss, grad_norm, gradients and the
              params after one step), and a profile of one bf16 step that
-             must run the tensor-core K1, K2 and K3 and no bf16 old body
+             must run the tensor-core K1, K2 and K3 and no old CUDA-core
+             body
 8. loop      three iterations of the classic training loop
              (run.run_classic: rollout -> ring insert -> gated train) at
              the north-star widths, bf16, pallas, PER, with
@@ -94,10 +96,11 @@ REQUEST_SIZES = (1, 7, 64, 150)
 REPEATS = 5
 SEED = 0
 #: H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s and FLOP/s by
-#: operand type (float32 outside the tensor cores; bf16 and tf32 tensor
-#: cores)
+#: operand type (float32 outside the tensor cores; bf16, tf32 and float64
+#: tensor cores)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "tf32": 494.7e12}
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "tf32": 494.7e12,
+              "float64": 67e12}
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 #: backward kernels (and K1 + residuals' output) against their plain
 #: versions: f32 reassociation of D- and T-long sums; bf16 one rounding
@@ -190,37 +193,43 @@ def bound_ms(nbytes: float, flops: float, peak: str) -> tuple:
 def kernel_bounds(shape, dtype_name: str, kv_same: bool = False) -> dict:
     """Bounds of K1, K1 + residuals, K2 and K3 on these inputs: each
     input read once, each output written once (m, l, Δ are f32 rows),
-    against 4, 4, 6 and 8 x B·H·Tq·Tk·D FLOPs at the operand type's
-    peak. The f32 K2 runs on the tensor cores as 3xTF32: three tf32
-    products for each f32 one, at the tf32 peak. ``kv_same``: k and v
-    are one tensor (the query-slice call), read once."""
+    against 4, 4, 6 and 8 x B·H·Tq·Tk·D FLOPs. bf16 runs them at the
+    bf16 tensor-core peak. At f32, K1 (both launches) runs its products
+    on the FP64 tensor cores (one f64 product for each f32 one, at the
+    f64 tensor-core peak) and K2 and K3 as 3xTF32 (three tf32 products
+    for each f32 one: 18 and 24 x B·H·Tq·Tk·D, at the tf32 peak).
+    ``kv_same``: k and v are one tensor (the query-slice call), read
+    once."""
     b, h, tq, tk, d = shape
     it = 4 if dtype_name == "float32" else 2
     bh, mn = b * h, b * h * tq * tk * d
     qd, kd, row = bh * tq * d * it, bh * tk * d * it, bh * tq * 4
     kv = kd if kv_same else 2 * kd
-    dq_ops, dq_peak = ((18 * mn, "tf32") if dtype_name == "float32"
-                       else (6 * mn, dtype_name))
+    f32 = dtype_name == "float32"
+    ops = 3 * mn if f32 else mn   # 3xTF32: three tf32 products an f32 one
+    peak = "tf32" if f32 else dtype_name
+    fwd_peak = "float64" if f32 else dtype_name
     return {
-        "flash_fwd": bound_ms(2 * qd + kv, 4 * mn, dtype_name),
-        "flash_fwd_res": bound_ms(2 * qd + kv + 2 * row, 4 * mn,
-                                  dtype_name),
-        "flash_bwd_dq": bound_ms(3 * qd + kv + 3 * row, dq_ops, dq_peak),
-        "flash_bwd_dkv": bound_ms(2 * qd + kv + 2 * kd + 3 * row, 8 * mn,
-                                  dtype_name),
+        "flash_fwd": bound_ms(2 * qd + kv, 4 * mn, fwd_peak),
+        "flash_fwd_res": bound_ms(2 * qd + kv + 2 * row, 4 * mn, fwd_peak),
+        "flash_bwd_dq": bound_ms(3 * qd + kv + 3 * row, 6 * ops, peak),
+        "flash_bwd_dkv": bound_ms(2 * qd + kv + 2 * kd + 3 * row, 8 * ops,
+                                  peak),
     }
 
 
-#: the tensor-core bodies: K1 (both launches), K3 and K2 at bf16, and K2
-#: at f32 (3xTF32); the bf16 trainer step runs the first three
+#: the tensor-core bodies: K1 (both launches), K3 and K2 at bf16, and the
+#: same three at f32 (K1 on the FP64 tensor cores, K3 and K2 as 3xTF32);
+#: the bf16 trainer step runs the first three
 TC_KERNELS = ("flash_fwd_tc_kernel", "flash_bwd_dkv_tc_kernel",
-              "flash_bwd_dq_tc_kernel", "flash_bwd_dq_3xtf32_kernel")
+              "flash_bwd_dq_tc_kernel", "flash_fwd_dmma_kernel",
+              "flash_bwd_dkv_3xtf32_kernel", "flash_bwd_dq_3xtf32_kernel")
 BF16_TC_KERNELS = ("flash_fwd_tc_kernel", "flash_bwd_dkv_tc_kernel",
                    "flash_bwd_dq_tc_kernel")
-#: the CUDA-core bodies: those that must exist for float only, and the old
-#: K2, which must exist at no dtype
-OLD_BODIES = ("flash_fwd_kernel", "flash_bwd_dkv_kernel")
-GONE_BODIES = ("flash_bwd_dq_kernel",)
+#: the CUDA-core bodies of the first slices (K1, K3, K2), which must exist
+#: at no dtype
+GONE_BODIES = ("flash_fwd_kernel", "flash_bwd_dkv_kernel",
+               "flash_bwd_dq_kernel")
 
 
 def kernel_label(mangled: str) -> str:
@@ -238,10 +247,10 @@ def kernel_label(mangled: str) -> str:
 
 def phase_build_report(lib: str, build) -> dict:
     """ptxas registers and spills of every kernel (from the build log),
-    and the tensor-core instructions (HMMA) in each kernel's SASS
-    (cuobjdump). Fails if a tensor-core kernel spills or has no HMMA, if a
-    bf16 instance of an old CUDA-core body was built, or any instance of
-    the old K2. → {kernel: HMMA count}."""
+    and the tensor-core instructions in each kernel's SASS (cuobjdump):
+    HMMA (bf16 and tf32 mma) and DMMA (f64 mma). Fails if a tensor-core
+    kernel spills or has neither, or if any instance of an old CUDA-core
+    body was built. → {kernel: HMMA + DMMA count}."""
     import re
     with open(os.path.join(os.path.dirname(lib), "build.log")) as f:
         log = f.read()
@@ -262,32 +271,34 @@ def phase_build_report(lib: str, build) -> dict:
     sass = subprocess.run([cuobjdump, "--dump-sass", lib],
                           capture_output=True, text=True, check=True,
                           timeout=300).stdout
-    fn, hmma = None, {}
+    fn, hmma, dmma = None, {}, {}
     for ln in sass.splitlines():
         m = re.search(r"Function : (\S+)", ln)
         if m:
             fn = m.group(1)
-            hmma[fn] = 0
+            hmma[fn] = dmma[fn] = 0
         elif fn is not None and "HMMA" in ln:
             hmma[fn] += 1
+        elif fn is not None and "DMMA" in ln:
+            dmma[fn] += 1
     for name in sorted(set(usage) | set(hmma)):
         u = usage.get(name, {})
         st, ld = u.get("spill", (0, 0))
         label = kernel_label(name)
+        mma = hmma.get(name, 0) + dmma.get(name, 0)
         print(f"[build] {label}: {u.get('regs')} registers, spill "
-              f"{st}/{ld} bytes, HMMA {hmma.get(name, 0)}", flush=True)
+              f"{st}/{ld} bytes, HMMA {hmma.get(name, 0)}, DMMA "
+              f"{dmma.get(name, 0)}", flush=True)
         if any(k in name for k in TC_KERNELS):
             check(st == 0 and ld == 0, f"{label} spills {st}/{ld} bytes")
-            check(hmma.get(name, 0) > 0, f"{label} has no HMMA in its SASS")
-        for old in OLD_BODIES:
-            check(not (old + "I13__nv_bfloat16") in name,
-                  f"a bf16 instance of {old} was built: {name}")
+            check(mma > 0, f"{label} has no HMMA or DMMA in its SASS")
         for gone in GONE_BODIES:
             check(f"{len(gone)}{gone}I" not in name,
                   f"an instance of the old {gone} was built: {name}")
-    check(all(any(k in n and hmma[n] > 0 for n in hmma) for k in TC_KERNELS),
+    check(all(any(k in n and hmma[n] + dmma[n] > 0 for n in hmma)
+              for k in TC_KERNELS),
           "a tensor-core kernel is missing from the library")
-    return {kernel_label(n): count for n, count in hmma.items()
+    return {kernel_label(n): hmma[n] + dmma[n] for n in hmma
             if any(k in n for k in TC_KERNELS)}
 
 
@@ -341,15 +352,22 @@ BF16_EDGES = [
     ("negative_logits_d64", (64, 2, 65, 131, 64), "bfloat16", None, False,
      "negative"),
 ]
-#: f32 cases at the 3xTF32 K2's edges ([kernels-bwd]): k is v at both
-#: learner shapes, the pad-key trap of all-negative logits at Tq 4 and 65,
-#: and causal with a per-head mask at D 12 (scalar staging)
+#: f32 cases at the f32 tensor-core bodies' edges, shared by [kernels] and
+#: [kernels-bwd]: k is v at both learner shapes (staged once), the serve
+#: shape as strided (B, T, H, D) views, the pad-key trap of all-negative
+#: logits at Tq 4, 65 and 268 (D 256 and 64), and causal with a per-head
+#: mask at D 12 (scalar staging); with the cases of each phase they cover
+#: Tq 4/65/268, Tk 65/131 and D 8/12/64/256
 F32_EDGES = [
     ("agent_k_is_v", AGENT_SHAPE, "float32", None, False, "kv"),
     ("mixer_k_is_v", MIXER_SHAPE, "float32", None, False, "kv"),
+    ("serve_strided", (4096, 4, 65, 65, 64), "float32", None, False,
+     "strided"),
     ("negative_logits_agent", (256, 1, 4, 65, 256), "float32", None, False,
      "negative"),
     ("negative_logits_d64", (64, 2, 65, 131, 64), "float32", None, False,
+     "negative"),
+    ("negative_logits_mixer", (4, 1, 268, 131, 256), "float32", None, False,
      "negative"),
     ("causal_per_head_d12", (4, 3, 33, 70, 12), "float32", "per_head", True,
      None),
@@ -378,7 +396,9 @@ def phase_kernels(torch, att):
          "all_masked_row", True, None),
         ("agent", AGENT_SHAPE, "bfloat16", None, False, None),
         ("mixer", MIXER_SHAPE, "bfloat16", None, False, None),
-    ] + BF16_EDGES
+        ("agent", AGENT_SHAPE, "float32", None, False, None),
+        ("mixer", MIXER_SHAPE, "float32", None, False, None),
+    ] + BF16_EDGES + F32_EDGES
     errs = {}
     inputs = {}
     for name, (b, h, tq, tk, d), dt, mask, causal, extra in cases:
@@ -1021,9 +1041,6 @@ def phase_profile_train(torch, buffer, ring, cfg, info):
     for k in BF16_TC_KERNELS:
         check(any(k in n for n in names),
               f"the bf16 trainer step ran no {k}")
-    for old in OLD_BODIES:
-        check(not any(f"{old}<__nv_bfloat16>" in n for n in names),
-              f"the bf16 trainer step ran a bf16 {old}")
     for gone in GONE_BODIES:
         check(not any(f"{gone}<" in n for n in names),
               f"the bf16 trainer step ran the old {gone}")
@@ -1339,12 +1356,19 @@ def main() -> int:
     def learner_times(name):
         return [times_bwd[key] for key in times_bwd if key[0] == name]
 
+    def f32_times(name):
+        """The f32 body's times at the learner shapes, beside bf16's in
+        ``learner_shapes``: {tag: {ms, plain_ms, bound_ms, ...}}."""
+        return {key[1]: times_bwd[key] for key in times_bwd
+                if key[0] == name and key[2] == "float32"}
+
     csrc = "t2omca_tpu_torch/kernels/csrc/"
     kernels = [{
         "name": "flash_fwd",
         "route": "cuda",
-        "source": csrc + "flash_fwd.cu",
+        "source": csrc + "flash_fwd_dmma.cu",
         "source_bf16": csrc + "flash_fwd_tc.cu",
+        "entry": csrc + "flash_fwd.cu",
         "replaces": "t2omca_tpu/kernels/attention.py:115 (pallas_call :392)",
         "launches": (launches["flash_fwd"] + train["launches"]["flash_fwd"]
                      + loop["launches"]["flash_fwd"]),
@@ -1357,14 +1381,16 @@ def main() -> int:
         "serve_bfloat16": dict(fwd_times(("serve", "bfloat16")),
                                max_abs_err=errs[("serve", "bfloat16")]),
         "serve_strided_bfloat16": fwd_times(("serve_strided", "bfloat16")),
+        "serve_strided_float32": fwd_times(("serve_strided", "float32")),
+        "float32": f32_times("flash_fwd"),
         "learner_shapes": learner_times("flash_fwd"),
     }]
     sources = {
-        "flash_fwd_res": ("flash_fwd_tc.cu", "flash_fwd.cu",
+        "flash_fwd_res": ("flash_fwd_tc.cu", "flash_fwd_dmma.cu",
                           ":115 (pallas_call :383)"),
         "flash_bwd_dq": ("flash_bwd_dq_tc.cu", "flash_bwd_dq_tc.cu",
                          ":210 (pallas_call :437)"),
-        "flash_bwd_dkv": ("flash_bwd_tc.cu", "flash_bwd.cu",
+        "flash_bwd_dkv": ("flash_bwd_tc.cu", "flash_bwd_dkv_3xtf32.cu",
                           ":253 (pallas_call :464)")}
     for name, (src, src32, line) in sources.items():
         head = times_bwd[(name, "agent", "bfloat16")]
@@ -1382,15 +1408,18 @@ def main() -> int:
             "library_ms": head["library_ms"],
             "shape": head["shape"], "dtype": "bfloat16",
             "max_abs_err_f32": errs_bwd[("agent", "float32")][name],
+            "float32": f32_times(name),
             "learner_shapes": learner_times(name),
         })
-    tc_of = {"flash_fwd": ("flash_fwd_tc_kernel",),
-             "flash_fwd_res": ("flash_fwd_tc_kernel",),
-             "flash_bwd_dkv": ("flash_bwd_dkv_tc_kernel",),
+    tc_of = {"flash_fwd": ("flash_fwd_tc_kernel", "flash_fwd_dmma_kernel"),
+             "flash_fwd_res": ("flash_fwd_tc_kernel",
+                               "flash_fwd_dmma_kernel"),
+             "flash_bwd_dkv": ("flash_bwd_dkv_tc_kernel",
+                               "flash_bwd_dkv_3xtf32_kernel"),
              "flash_bwd_dq": ("flash_bwd_dq_tc_kernel",
                               "flash_bwd_dq_3xtf32_kernel")}
     for k in kernels:
-        k["hmma_in_sass"] = {n: c for n, c in hmma.items()
+        k["mma_in_sass"] = {n: c for n, c in hmma.items()
                              if n.startswith(tc_of[k["name"]])}
     print(f"[summary] trainer step p50: bf16 {train['p50_bf16_ms']:.1f} ms, "
           f"f32 {train['p50_f32_ms']:.1f} ms (T="

@@ -5,6 +5,7 @@ turns (parent, change, change, parent), inside one chip call, to compare
 two versions on one card:
 
     python3 scripts/torch_kernel_ab.py --repo DIR [--label NAME]
+        [--train-steps N] [--train-only]
 
 ``--repo`` is the root of the checkout whose ``t2omca_tpu_torch`` is
 timed (its kernels build there at first use). Prints one JSON line: the
@@ -13,14 +14,20 @@ label, the card and its power limit, the bf16 bucket-64 dispatch p50
 widths of ``configs/config3_tpu_northstar.yaml``, use_qslice=false,
 kernels.attention=pallas, random weights from seed 0) and CUDA-event
 times of K1 (serve, learner agent and mixer shapes), K1 + residuals, K2
-and K3 (agent and mixer) at bf16, with k and v one tensor at the learner
-shapes as the query-slice call passes them; K2 at f32 too (agent and
-mixer, k is v and not), and SDPA's backward alone (``torch.autograd.grad``
-after one ``scaled_dot_product_attention`` forward, never on the path) at
-the learner shapes in both dtypes as the yardstick of the same run: the
+and K3 (agent and mixer) at bf16 and f32, with k and v one tensor at the
+learner shapes as the query-slice call passes them and apart, and
+SDPA's backward alone (``torch.autograd.grad`` after one
+``scaled_dot_product_attention`` forward, never on the path) at the
+learner shapes in both dtypes as the yardstick of the same run: the
 device time of its kernels from a torch.profiler trace, since the host's
 trip through the autograd engine takes longer than those kernels.
-Needs one NVIDIA GPU.
+With ``--train-steps N`` it also times N f32 trainer steps as
+``chip_smoke.py``'s ``[train]`` runs them (north-star widths, batch 32,
+T = 50, kernels.attention=pallas, dense replay, the checkout's own
+``chip_smoke.py`` helpers): their p50 on the host clock, and the device
+busy time of one more step from a torch.profiler trace, which the host's
+share of the step does not blur; ``--train-only`` skips the dispatch and
+kernel times. Needs one NVIDIA GPU.
 """
 
 from __future__ import annotations
@@ -112,8 +119,6 @@ def kernel_times(torch, att) -> dict:
     for dt in (torch.bfloat16, torch.float32):
         sfx = "" if dt == torch.bfloat16 else " f32"
         for name, (b, h, tq, tk, d) in SHAPES.items():
-            if dt == torch.float32 and name == "serve":
-                continue
             q, k = ((torch.randn(b, h, t, d, device=dev, generator=g)
                      * d ** -0.25).to(dt) for t in (tq, tk))
             v = torch.randn(b, h, tk, d, device=dev, generator=g).to(dt)
@@ -121,7 +126,7 @@ def kernel_times(torch, att) -> dict:
             if name == "serve":     # the serve path's (B, T, H, D) views
                 q, k, v = (x.transpose(1, 2).contiguous().transpose(1, 2)
                            for x in (q, k, v))
-                out["flash_fwd serve"] = cuda_ms(
+                out[f"flash_fwd serve{sfx}"] = cuda_ms(
                     torch, lambda: att._launch(q, k, v, None, False))
                 continue
             qr, kr, vr = (x.clone().requires_grad_() for x in (q, k, v))
@@ -137,8 +142,6 @@ def kernel_times(torch, att) -> dict:
                 out[f"flash_bwd_dq {tag}"] = cuda_ms(
                     torch, lambda: att._launch_bwd_dq(q, k, vv, None, False,
                                                       do, m, l, delta))
-                if dt == torch.float32:
-                    continue
                 out[f"flash_fwd {tag}"] = cuda_ms(
                     torch, lambda: att._launch(q, k, vv, None, False))
                 out[f"flash_fwd_res {tag}"] = cuda_ms(
@@ -149,10 +152,61 @@ def kernel_times(torch, att) -> dict:
     return out
 
 
+def f32_train_step(torch, steps: int) -> dict:
+    """p50 host ms of ``steps`` f32 trainer steps after one warm-up step,
+    and the device busy ms of one more, profiled."""
+    import chip_smoke as cs
+    from torch.profiler import ProfilerActivity, profile
+    from t2omca_tpu_torch import prng
+    from t2omca_tpu_torch.components.episode_buffer import \
+        PrioritizedReplayBuffer
+    from t2omca_tpu_torch.envs.registry import make_env
+    from t2omca_tpu_torch.train.program import TrainState, build_train_iter
+    t = 50
+    cfg = cs.train_cfg("float32", episode_limit=t)
+    info = make_env(cfg.env_args).get_env_info()
+    buffer = PrioritizedReplayBuffer(
+        capacity=cs.RING, episode_limit=t, n_agents=info["n_agents"],
+        n_actions=info["n_actions"], obs_dim=info["obs_shape"],
+        state_dim=info["state_shape"], store_dtype="bfloat16",
+        alpha=cfg.replay.per_alpha, beta0=cfg.replay.per_beta,
+        t_max=cfg.t_max)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    ring = buffer.insert_episode_batch(
+        buffer.init(), cs.make_episodes(torch, info, cs.RING, t, g,
+                                        torch.bfloat16))
+    learner = cs.build_learner(cfg, info)
+    ts = TrainState(learner=learner.init_state(
+        torch.Generator().manual_seed(SEED)), buffer=ring, episode=cs.RING)
+    train_iter = build_train_iter(buffer, learner, cfg)
+    keys = prng.split(prng.PRNGKey(SEED + 12, "cuda"), steps + 2)
+    times = []
+    for i in range(steps + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ts, _ = train_iter(ts, keys[i], 1000 * (i + 1))
+        torch.cuda.synchronize()
+        if i:
+            times.append((time.perf_counter() - t0) * 1e3)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        train_iter(ts, keys[steps + 1], 1000 * (steps + 2))
+        torch.cuda.synchronize()
+    busy = 0.0
+    for e in prof.key_averages():
+        if str(e.device_type).endswith("CUDA"):
+            us = getattr(e, "self_device_time_total", None)
+            busy += e.self_cuda_time_total if us is None else us
+    return {"train_f32_T50_p50_ms": statistics.median(times),
+            "train_f32_T50_ms": times,
+            "train_f32_T50_device_busy_ms": busy / 1e3}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--repo", required=True)
     ap.add_argument("--label", default=None)
+    ap.add_argument("--train-steps", type=int, default=0)
+    ap.add_argument("--train-only", action="store_true")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -165,9 +219,12 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60).stdout.strip()
-    result = {"label": args.label or args.repo, "card": smi,
-              "dispatch_bf16_b64_p50_ms": dispatch_p50(torch)}
-    result.update(kernel_times(torch, att))
+    result = {"label": args.label or args.repo, "card": smi}
+    if not args.train_only:
+        result["dispatch_bf16_b64_p50_ms"] = dispatch_p50(torch)
+        result.update(kernel_times(torch, att))
+    if args.train_steps:
+        result.update(f32_train_step(torch, args.train_steps))
     print(json.dumps(result), flush=True)
     return 0
 

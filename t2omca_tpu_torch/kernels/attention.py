@@ -24,24 +24,29 @@ Four kernels, all CUDA C++ for ``sm_90a`` built at first use by
 * K2 ``flash_bwd_dq`` and K3 ``flash_bwd_dkv``: the gradients,
   recomputing P from ``(q, k, m, l)``.
 
-f32 K1 and K3 run CUDA-core bodies (``csrc/flash_fwd.cu``,
-``csrc/flash_bwd.cu``). The bf16 bodies of K1 (both launches,
-``csrc/flash_fwd_tc.cu``), K3 (``csrc/flash_bwd_tc.cu``) and K2
-(``csrc/flash_bwd_dq_tc.cu``) run their products on Hopper's tensor
-cores (``mma.sync`` with bf16 operands and f32 accumulation), because at
-every main-path shape the function is bound by bytes but f32 products on
-the CUDA cores cost as much as the whole byte time. Their one new
-rounding, stated here once: they round P (K1, K3) and dS (K2, K3) to
-bf16 before the products with V, K, dO and Q, where the plain versions
-below keep f32 P and dS; the statistics ``m``, ``l`` and every
-accumulator stay f32, and the card's tolerances are unchanged
-(``chip_smoke.py``, ``tests/test_torch_cuda.py``;
+Every body runs its products on Hopper's tensor cores, because at every
+main-path shape the function is bound by bytes but f32 products on the
+CUDA cores cost as much as the whole byte time. The bf16 bodies of K1
+(both launches, ``csrc/flash_fwd_tc.cu``), K3 (``csrc/flash_bwd_tc.cu``)
+and K2 (``csrc/flash_bwd_dq_tc.cu``) use ``mma.sync`` with bf16 operands
+and f32 accumulation. Their one new rounding, stated here once: they
+round P (K1, K3) and dS (K2, K3) to bf16 before the products with V, K,
+dO and Q, where the plain versions below keep f32 P and dS; the
+statistics ``m``, ``l`` and every accumulator stay f32, and the card's
+tolerances are unchanged (``chip_smoke.py``, ``tests/test_torch_cuda.py``;
 ``tests/test_torch_attention_bf16_rounding.py`` holds a plain model of
-that rounding against JAX on the CPU). The f32 K2 (same file) runs on
-the tensor cores too, as 3×TF32: each f32 operand is split into two tf32
-terms and each product sums three tf32 products in f32, within the f32
-tolerances (``tests/test_torch_attention_tf32_model.py`` holds a plain
-model of that arithmetic against JAX on the CPU).
+that rounding against JAX on the CPU). The f32 bodies of K3
+(``csrc/flash_bwd_dkv_3xtf32.cu``) and K2 (``csrc/flash_bwd_dq_tc.cu``)
+run as 3×TF32: each f32 operand is split into two tf32 terms and each
+product sums three tf32 products in f32, within the f32 tolerances. The
+f32 K1 (``csrc/flash_fwd_dmma.cu``, both launches) runs on the FP64
+tensor cores: exact products, f64 sums and an f64 softmax, so its output
+is the exact one rounded once to f32 (PERF.md, section 6, says why the
+forward needs that and 3×TF32 does not give it).
+``tests/test_torch_attention_tf32_model.py`` holds plain models of both
+arithmetics against JAX on the CPU. The C entry points
+(``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``) validate the arguments
+and pick the body by dtype.
 
 ``flash_attention`` dispatches on autograd and the device and on nothing
 else. Under grad mode with an input that requires grad it goes through

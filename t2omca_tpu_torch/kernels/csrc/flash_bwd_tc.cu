@@ -2,10 +2,11 @@
 //
 // Replaces, for bf16 inputs, the TPU kernel `_flash_attention_bwd_dkv_kernel`
 // (t2omca_tpu/kernels/attention.py:253, launched at :464), K3. The f32 K3
-// stays the CUDA-core body of flash_bwd.cu, which calls this file for bf16;
-// K2 (dq) is unchanged there. Per (b, h) and key tile, looping over the
-// query tiles, it recomputes with the forward's semantics (replacement
-// mask, causal -1e9, P from the residuals m and l of K1 + residuals):
+// is the 3xTF32 body of flash_bwd_dkv_3xtf32.cu; t2o_flash_bwd_dkv
+// (flash_bwd.cu) validates the arguments and calls this file for bf16.
+// Per (b, h) and key tile, looping over the query tiles, it recomputes
+// with the forward's semantics (replacement mask, causal -1e9, P from the
+// residuals m and l of K1 + residuals):
 //
 //   S^T = K Q^T,  P^T = exp(S^T - m) / l,  dP^T = V dO^T,
 //   dS^T = P^T o (dP^T - Delta), zeroed where the forward replaced the logit

@@ -4,10 +4,11 @@
 // (t2omca_tpu/kernels/attention.py:115) in both of its launches: K1 at
 // :392 (the serve path and the learner's target unrolls) and K1 +
 // residuals at :383 (the learner's online unrolls; also writes each row's
-// final running max m and denominator l). The f32 forward stays the
-// CUDA-core body of flash_fwd.cu, which calls this file for bf16. The
-// function and its semantics are those of flash_fwd.cu's header: a nonzero
-// bias REPLACES the logit, causal columns take -1e9, the running max starts
+// final running max m and denominator l). The f32 forward is the FP64
+// tensor-core body of flash_fwd_dmma.cu; t2o_flash_fwd (flash_fwd.cu)
+// validates the arguments and calls this file for bf16. The function and
+// its semantics are those of flash_fwd.cu's header: a nonzero bias
+// REPLACES the logit, causal columns take -1e9, the running max starts
 // at -1e30 and key-tail padding never enters a row (an all-masked row is
 // the uniform mean of the real values, m = -1e9, l = Tk).
 //

@@ -1,7 +1,9 @@
 // Hopper tensor-core building blocks of the flash kernels (flash_fwd_tc.cu,
-// flash_bwd_tc.cu, flash_bwd_dq_tc.cu): warp-level mma.sync m16n8k16 with
-// bf16 operands and f32 accumulation, mma.sync m16n8k8 with tf32 operands
-// for the f32 bodies (3xTF32: each f32 operand split into two tf32 terms),
+// flash_fwd_dmma.cu, flash_bwd_tc.cu, flash_bwd_dkv_3xtf32.cu,
+// flash_bwd_dq_tc.cu): warp-level mma.sync m16n8k16 with bf16 operands and
+// f32 accumulation, mma.sync m16n8k8 with tf32 operands for the f32
+// backward bodies (3xTF32: each f32 operand split into two tf32 terms),
+// mma.sync m16n8k4 with f64 operands and accumulation for the f32 forward,
 // ldmatrix fragment loads from shared memory, cp.async 16-byte copies into
 // shared memory, and the staging of strided (T, D) slabs of bf16 or f32
 // rows into shared memory and of accumulator blocks back out.
@@ -73,6 +75,20 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
       "{%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a b on the FP64 tensor cores (f64 in, f64 accumulate), one k4 step
+// of mma.sync m16n8k4 (sm_90): A (16 x 4) a0 (g, t) and a1 (g+8, t); B
+// (4 x 8) b (k t, n g); C as m16n8k16 (c0, c1 row g, columns 2t, 2t+1;
+// c2, c3 row g+8). f32 operands convert to f64 exactly, so the products
+// are exact and the sums carry 53 bits.
+__device__ __forceinline__ void mma_f64(double (&c)[4], double a0, double a1,
+                                        double b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k4.row.col.f64.f64.f64.f64 "
+      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+      : "+d"(c[0]), "+d"(c[1]), "+d"(c[2]), "+d"(c[3])
+      : "d"(a0), "d"(a1), "d"(b));
 }
 
 // f32 -> tf32 bits, rounded to nearest with ties away from zero: the bits

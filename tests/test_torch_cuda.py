@@ -153,7 +153,7 @@ def test_flash_backward_kernels_match_plain(cuda_device, dtype, shape,
     assert port.LAUNCHES == {"flash_fwd": 0, "flash_fwd_res": 1,
                              "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
     o_r, m_r, l_r = port.flash_attention_fwd_reference(q, k, v, bias, causal)
-    torch.testing.assert_close(mm, m_r, rtol=1e-5, atol=0.0)
+    _assert_row_max_close(mm, m_r, q, k, v, bias, causal)
     torch.testing.assert_close(ll, l_r, rtol=1e-5, atol=0.0)
     torch.testing.assert_close(o, o_r, **TOL[dtype])
     ref = port.flash_attention_bwd_reference(q, k, v, bias, causal, o_r,
@@ -173,7 +173,8 @@ def _assert_row_max_close(mm, m_r, q, k, v, bias, causal):
     fails, within 1e-5 relative of the exact row max (the plain version
     in f64). A row whose max is near 0 puts two f32 summation orders
     more than 1e-5 apart, and the plain f32 value itself that far from
-    exact; the bf16 K1 + residuals writes the correctly rounded max."""
+    exact; K1 + residuals writes the correctly rounded max at both
+    dtypes."""
     rel = lambda a, b: (a.double() - b.double()).abs() / b.double().abs()
     off = rel(mm, m_r) > 1e-5
     if bool(off.any()):
@@ -266,40 +267,64 @@ def test_flash_backward_shared_kv_and_strided_views(cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,causal,mask,extra", [
+    ((16, 1, 4, 65, 256), False, None, None),          # agent, Tq 4
+    ((2, 1, 268, 131, 256), False, None, None),        # mixer, Tq 268
     ((16, 1, 4, 65, 256), False, None, "k_is_v"),      # agent, k once
     ((2, 1, 268, 131, 256), False, None, "k_is_v"),    # mixer, k once
+    ((64, 4, 65, 65, 64), False, None, "strided"),     # serve views, Tq 65
     ((4, 3, 33, 70, 12), True, "per_head", None),      # D 12: scalar staging
     ((8, 4, 65, 65, 64), True, "per_head", None),      # dP - Delta cancels
     ((16, 1, 4, 65, 256), False, None, "negative"),    # pad-key trap, Tq 4
     ((4, 2, 268, 131, 64), False, None, "negative"),   # pad-key trap, Tq 268
     ((4, 2, 40, 40, 8), True, "all_masked_row", None),
-], ids=["agent_k_is_v", "mixer_k_is_v", "d12_causal", "causal_per_head",
-        "negative_agent", "negative_mixer", "all_masked_row"])
-def test_f32_dq_kernel_at_its_edges(cuda_device, shape, causal, mask,
-                                    extra):
-    """The f32 K2 (3xTF32 on the tensor cores) against the plain version
-    at the f32 gradient tolerances where its tiling, staging and
-    arithmetic have edges: Tq 4 and 268 and Tk 65 and 131, D 12, k and v
-    one tensor, causal with a per-head mask (rows with one real key, where
-    dP - Delta cancels), all-negative logits (a zero-filled pad key would
-    give exp(-m)/l > 1) and the all-masked row (dq exactly 0)."""
+], ids=["agent", "mixer", "agent_k_is_v", "mixer_k_is_v", "serve_strided",
+        "d12_causal", "causal_per_head", "negative_agent", "negative_mixer",
+        "all_masked_row"])
+def test_f32_kernels_at_their_edges(cuda_device, shape, causal, mask, extra):
+    """The f32 K1 and K1 + residuals (FP64 tensor cores), K2 and K3
+    (3xTF32 on the tensor cores) against the plain versions at the f32
+    tolerances where their tiling, staging and arithmetic have edges: Tq
+    4, 65 and 268 and Tk 65 and 131 (no multiple of 16), D 8, 12, 64 and
+    256, k and v one tensor (staged once), the serve path's strided (B, T,
+    H, D) views, causal with a per-head mask (rows with one real key,
+    where dP - Delta cancels), all-negative logits (a zero-filled pad key
+    would win the row max and give exp(-m)/l > 1) and the all-masked row
+    (uniform output, m = -1e9, l = Tk, dq exactly 0). One launch of each
+    kernel."""
     q, k, v, do, m = _qkv(cuda_device, shape, torch.float32, 8, mask)
     if extra == "negative":
         q, k = q.abs(), -k.abs()
     if extra == "k_is_v":
         v = k
+    if extra == "strided":
+        q, k, v = (x.transpose(1, 2).contiguous().transpose(1, 2)
+                   for x in (q, k, v))
     bias = None if m is None else torch.where(m, 0.0, port.NEG_MASK_VALUE)
-    o, mm, ll = port._launch_res(q, k, v, bias, causal)
     port.reset_launches()
-    dq, _, _ = port._launch_bwd(q, k, v, bias, causal, o, mm, ll, do)
+    out = port._launch(q, k, v, bias, causal)
+    o, mm, ll = port._launch_res(q, k, v, bias, causal)
+    dq, dk, dv = port._launch_bwd(q, k, v, bias, causal, o, mm, ll, do)
     torch.cuda.synchronize()
-    assert port.LAUNCHES["flash_bwd_dq"] == 1
+    assert port.LAUNCHES == {"flash_fwd": 1, "flash_fwd_res": 1,
+                             "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
     o_r, m_r, l_r = port.flash_attention_fwd_reference(q, k, v, bias, causal)
+    assert out.stride() == q.stride() and o.stride() == q.stride()
+    torch.testing.assert_close(out, o_r, **TOL[torch.float32])
+    torch.testing.assert_close(o, o_r, **TOL[torch.float32])
+    _assert_row_max_close(mm, m_r, q, k, v, bias, causal)
+    torch.testing.assert_close(ll, l_r, rtol=1e-5, atol=0.0)
+    if extra == "negative":
+        assert bool((mm < 0).all())
     want = port.flash_attention_bwd_reference(q, k, v, bias, causal, o_r,
-                                              m_r, l_r, do)[0]
-    assert dq.dtype == torch.float32 and dq.shape == want.shape
-    torch.testing.assert_close(dq, want, **GRAD_TOL[torch.float32])
+                                              m_r, l_r, do)
+    for got, ref in zip((dq, dk, dv), want):
+        assert got.dtype == torch.float32 and got.shape == ref.shape
+        torch.testing.assert_close(got, ref, **GRAD_TOL[torch.float32])
     if mask == "all_masked_row":
+        torch.testing.assert_close(out[:, :, 3], v.mean(dim=2),
+                                   **TOL[torch.float32])
+        assert bool((mm[:, :, 3] == port.NEG_MASK_VALUE).all())
+        assert bool((ll[:, :, 3] == shape[3]).all())
         assert float(dq[:, :, 3].abs().max()) == 0.0
 
 

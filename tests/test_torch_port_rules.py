@@ -206,12 +206,21 @@ def test_env_job_and_collision_path_has_no_matmul():
 
 
 def test_kernel_sources_and_builder_target_sm90a():
+    """The builder targets sm_90a; every kernel body is its own CUDA source
+    bound by a small op file, and computes its own products (no library
+    GEMM); the C entry files flash_fwd.cu and flash_bwd.cu hold no kernel
+    and say so."""
     csrc = os.path.join(PORT, "kernels", "csrc")
     build = open(os.path.join(PORT, "kernels", "build.py")).read()
     assert "sm_90a" in build and "compute_90a" in build
     for cu_name, op_name, kernels in (
-            ("flash_fwd.cu", "flash_fwd_op.cpp", ("flash_fwd_kernel",)),
-            ("flash_bwd.cu", "flash_bwd_op.cpp", ("flash_bwd_dkv_kernel",)),
+            ("flash_fwd_tc.cu", "flash_fwd_op.cpp", ("flash_fwd_tc_kernel",)),
+            ("flash_fwd_dmma.cu", "flash_fwd_op.cpp",
+             ("flash_fwd_dmma_kernel",)),
+            ("flash_bwd_tc.cu", "flash_bwd_op.cpp",
+             ("flash_bwd_dkv_tc_kernel",)),
+            ("flash_bwd_dkv_3xtf32.cu", "flash_bwd_op.cpp",
+             ("flash_bwd_dkv_3xtf32_kernel",)),
             ("flash_bwd_dq_tc.cu", "flash_bwd_op.cpp",
              ("flash_bwd_dq_tc_kernel", "flash_bwd_dq_3xtf32_kernel"))):
         cu = open(os.path.join(csrc, cu_name)).read()
@@ -221,47 +230,70 @@ def test_kernel_sources_and_builder_target_sm90a():
         # the kernels compute their own products: no library GEMM inside
         for lib in ("cublas", "cudnn", "torch::", "at::matmul"):
             assert lib not in cu.lower()
+    for entry in ("flash_fwd.cu", "flash_bwd.cu"):
+        cu = open(os.path.join(csrc, entry)).read()
+        assert "sm_90a" in cu and "__global__" not in cu
+        assert "entry point" in cu.split("\n\n")[0]
 
 
 def test_bf16_bodies_are_tensor_core_kernels():
-    """The bf16 K1 and K3 bodies and both K2 bodies are their own CUDA
-    sources on mma.sync (no library call computes their products; f32 K2
-    on tf32 mma, 3xTF32), the old CUDA-core K1 and K3 bodies are
-    instantiated for float only, and the old K2 body is gone: the C entry
-    points send bf16 (and K2's f32) to the tensor-core files."""
+    """Every body of every kernel, at both dtypes, is a tensor-core kernel:
+    bf16 on mma.sync m16n8k16; at f32, K2 and K3 as 3xTF32 on mma.sync
+    m16n8k8 and K1 on the FP64 tensor cores (mma.sync m16n8k4 f64), all
+    from flash_mma.cuh (no library call computes their products). The
+    CUDA-core bodies (the K1 and K3 of the first slices, the old K2) and
+    the helpers only they used are gone, and the C entry points send f32
+    to the f32 tensor-core bodies and bf16 to the m16n8k16 ones."""
+    import re
     csrc = os.path.join(PORT, "kernels", "csrc")
     read = lambda n: open(os.path.join(csrc, n)).read()
     mma = read("flash_mma.cuh")
     assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in mma
     assert "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32" in mma
+    assert "mma.sync.aligned.m16n8k4.row.col.f64.f64.f64.f64" in mma
     assert "ldmatrix" in mma and "cp.async" in mma
-    for name, kernel, entry in (
-            ("flash_fwd_tc.cu", "flash_fwd_tc_kernel", "t2o_flash_fwd_bf16"),
+    for name, kernel, entry, product in (
+            ("flash_fwd_tc.cu", "flash_fwd_tc_kernel", "t2o_flash_fwd_bf16",
+             "mma_bf16("),
+            ("flash_fwd_dmma.cu", "flash_fwd_dmma_kernel",
+             "t2o_flash_fwd_f32", "mma_f64("),
             ("flash_bwd_tc.cu", "flash_bwd_dkv_tc_kernel",
-             "t2o_flash_bwd_dkv_bf16"),
+             "t2o_flash_bwd_dkv_bf16", "mma_bf16("),
+            ("flash_bwd_dkv_3xtf32.cu", "flash_bwd_dkv_3xtf32_kernel",
+             "t2o_flash_bwd_dkv_f32", "mma_3xtf32("),
             ("flash_bwd_dq_tc.cu", "flash_bwd_dq_tc_kernel",
-             "t2o_flash_bwd_dq_bf16"),
+             "t2o_flash_bwd_dq_bf16", "mma_bf16("),
             ("flash_bwd_dq_tc.cu", "flash_bwd_dq_3xtf32_kernel",
-             "t2o_flash_bwd_dq_f32")):
+             "t2o_flash_bwd_dq_f32", "mma_3xtf32(")):
         cu = read(name)
         assert "sm_90a" in cu and '#include "flash_mma.cuh"' in cu
         assert "__global__" in cu and kernel in cu and entry in cu
+        assert product in cu
         for lib in ("cublas", "cudnn", "torch::", "at::matmul", "wmma"):
             assert lib not in cu.lower()
-    fwd, bwd = read("flash_fwd.cu"), read("flash_bwd.cu")
-    assert "launch<float>" in fwd and "__nv_bfloat16>(p" not in fwd
-    assert "t2o_flash_fwd_bf16(" in fwd
-    assert "launch_dkv<float>" in bwd and "launch_dkv<__nv_bfloat16>" \
-        not in bwd and "t2o_flash_bwd_dkv_bf16(" in bwd
-    assert "flash_bwd_dq_kernel" not in bwd and "launch_dq" not in bwd
-    assert "t2o_flash_bwd_dq_f32" in bwd and "t2o_flash_bwd_dq_bf16" in bwd
+    sources = {n: read(n) for n in os.listdir(csrc)}
+    for gone in ("flash_fwd_kernel", "flash_bwd_dkv_kernel",
+                 "flash_bwd_dq_kernel", "launch_dkv", "launch_dq"):
+        assert not any(re.search(rf"\b{gone}\b", src)
+                       for src in sources.values()), gone
+    common = sources["flash_common.cuh"]
+    for helper in ("dot4", "fma4", "kAccTiles", "struct Slab", "stage(",
+                   "write4"):
+        assert helper not in common, helper
+    fwd, bwd = sources["flash_fwd.cu"], sources["flash_bwd.cu"]
+    assert "dtype == 0 ? t2o_flash_fwd_f32 : t2o_flash_fwd_bf16" in fwd
+    assert "dtype == 0 ? t2o_flash_bwd_dq_f32 : t2o_flash_bwd_dq_bf16" in bwd
+    assert ("dtype == 0 ? t2o_flash_bwd_dkv_f32 : t2o_flash_bwd_dkv_bf16"
+            in bwd)
 
 
 def test_builder_names_every_source_and_build_dir_is_ignored():
     from t2omca_tpu_torch.kernels import build
     listed = set(build.CUDA_SOURCES + build.HOST_SOURCES + build.HEADERS)
     assert {"flash_bwd.cu", "flash_bwd_op.cpp", "flash_fwd_tc.cu",
-            "flash_bwd_tc.cu", "flash_bwd_dq_tc.cu", "flash_mma.cuh"} <= listed
+            "flash_fwd_dmma.cu", "flash_bwd_tc.cu",
+            "flash_bwd_dkv_3xtf32.cu", "flash_bwd_dq_tc.cu",
+            "flash_mma.cuh"} <= listed
     assert listed == set(os.listdir(build.CSRC))
     gitignore = open(os.path.join(REPO, ".gitignore")).read()
     assert "t2omca_tpu_torch/kernels/_build/" in gitignore
