@@ -2,7 +2,8 @@
 """Chip smoke of the PyTorch port (``t2omca_tpu_torch``) on one NVIDIA GPU.
 
 Drives the port's main paths — greedy serving, the QMIX learner's
-trainer step, and the classic training loop (rollout, insert, train) —
+trainer step, and the classic training loop (rollout, insert, train) on
+the default stack, on its kill switch and with NoisyNet's noise —
 at the north-star model widths through the hand-written flash-attention
 kernels, and holds every kernel of those paths against its plain
 PyTorch version. Phases, one line each (any
@@ -55,19 +56,34 @@ failed check ends the script with a non-zero exit):
              params after one step), and a profile of one bf16 step that
              must run the tensor-core K1, K2 and K3 and no old CUDA-core
              body
-8. loop      three iterations of the classic training loop
-             (run.run_classic: rollout -> ring insert -> gated train) at
-             the north-star widths, bf16, pallas, PER, with
-             model.use_entity_tables=false; cuts printed (128 lanes, a
-             ring of 256). Checks threefry on CUDA against the CPU bit
-             for bit, each train iteration's exact kernel launches (a
+8. entity    the entity-table forward at the north-star widths (8
+             lanes, 3 env steps, random weights): compact_obs rebuilds the
+             env's dense obs (rtol 1e-5, atol 1e-6), and the entity
+             forward equals the query-slice forward on that obs (f32 rtol
+             2e-4, atol 2e-5; bf16 within 32 bf16 ULPs); one bf16 acting
+             forward at 1024 lanes each way, timed
+9. loop      config 3's own loop, uncut: three iterations of the classic
+             training loop (run.run_classic: rollout -> ring insert ->
+             gated train) at 1024 lanes and a ring of 2048 (it wraps in
+             the third), bf16, pallas, PER, on the default stack
+             (entity-table acting, compact storage). Checks each train
+             iteration's exact kernel launches (the mixer's alone: a
              rollout launches none), stored actions available, finite
-             obs/state/rewards, rates in [0, 1], t_env and episode, finite
-             loss and grad_norm, moving priorities; prints rollout p50,
+             compact leaves with MEC ids in [0, 8), finite state and
+             rewards, rates in [0, 1], t_env and episode, finite loss and
+             grad_norm, moving priorities; prints rollout p50,
              env-steps/s, trainer step and iteration p50, peak memory,
-             launches and PRNG ops of a rollout, and a profiled rollout's
-             device busy/idle share and top device ops
-9. summary   the kernels JSON line, the card line, the result line
+             launches and PRNG ops of a rollout by part, and a profiled
+             rollout's device busy/idle share and top device ops
+   loop-dense  the kill switch model.use_entity_tables=false (dense obs,
+             query-slice acting, the agent's unrolls through the kernels)
+             at 128 lanes and a ring of 256: threefry on CUDA against the
+             CPU bit for bit, three iterations with their exact launches
+   loop-noisy  one iteration with action_selector noisy-new on the
+             default stack at 128 lanes: [loop]'s launches, the noisy q
+             differs from the mu q, and the sigma params' gradients are
+             finite and not all zero
+10. summary  the kernels JSON line, the card line, the result line
 
 Run from the repository root: ``python3 chip_smoke.py``. The last line
 is ``{"ok": true, "device": {...}}``; it is printed only when every
@@ -1055,27 +1071,153 @@ def phase_profile_train(torch, buffer, ring, cfg, info):
               f"{name[:90]}", flush=True)
 
 
-#: the [loop] phase: config 3's widths with its own kill switch of the
-#: entity tables (which the port does not have yet), cut in lanes and
-#: ring so that a rollout (~1.4 GB of bf16 dense obs) and the ring (~2.9
-#: GB) fit beside the trainer step's peak
-LOOP_LANES = 128                    # batch_size_run, from 1024
-LOOP_RING = 256                     # replay.buffer_size, from 2048
-LOOP_ITERATIONS = 3
+#: the loop phases, at config 3's widths (bf16, kernels.attention=pallas
+#: as the port's kernels are on that switch, PER with bf16 storage):
+#: [loop] on the default stack (entity-table acting, compact storage) at
+#: config 3's own 1024 lanes and 2048-episode ring, uncut; [loop-dense]
+#: with the config's kill switch model.use_entity_tables=false, which
+#: stores dense bf16 obs (11.1 MB a lane-episode) and so is cut to 128
+#: lanes and a ring of 256; [loop-noisy] one iteration of NoisyNet's
+#: q-head noise (action_selector noisy-new) on the default stack at 128
+#: lanes
+LOOP_LANES = 1024                   # batch_size_run, config 3's own
+LOOP_RING = 2048                    # replay.buffer_size, config 3's own
+LOOP_ITERATIONS = 3                 # 3072 episodes: the ring wraps
+DENSE_LANES = 128                   # [loop-dense]: 1024 -> 128
+DENSE_RING = 256                    # [loop-dense]: 2048 -> 256
+NOISY_LANES = 128                   # [loop-noisy]: 1024 -> 128
 #: the public samplers of the PRNG module, wrapped to count their ops
 PRNG_FUNCS = ("split", "fold_in", "random_bits", "uniform", "bernoulli",
               "randint", "gumbel", "normal")
 
 
-def loop_cfg():
+def loop_cfg(lanes: int = LOOP_LANES, ring: int = LOOP_RING,
+             entity_tables: bool = True, selector: str = "epsilon_greedy",
+             dtype: str = "bfloat16"):
     from t2omca_tpu_torch.config import from_dict
     d = json.loads(json.dumps(NORTH_STAR))
-    d["batch_size_run"] = LOOP_LANES
-    d["model"].update(dtype="bfloat16", use_entity_tables=False)
+    d["batch_size_run"] = lanes
+    d["action_selector"] = selector
+    d["model"].update(dtype=dtype, use_entity_tables=entity_tables)
     d["kernels"] = {"attention": "pallas"}
-    d["replay"] = {"buffer_size": LOOP_RING, "store_dtype": "bfloat16",
+    d["replay"] = {"buffer_size": ring, "store_dtype": "bfloat16",
                    "prioritized": True}
     return from_dict(d)
+
+
+def loop_launches(cfg) -> dict:
+    """Kernel launches of one train iteration. The mixer's unrolls run
+    the flash kernels: the target unroll K1 (T+1)·depth, the online one
+    K1 + residuals, K2 and K3 T·depth. Under compact storage the agent's
+    unrolls go through the entity tables and launch nothing; with dense
+    obs they add the [train] phase's agent-shape launches: K1 (T+1)·depth
+    for the target unroll and depth for the online bootstrap step, K1 +
+    residuals, K2, K3 T·depth."""
+    from t2omca_tpu_torch.ops.query_slice import entity_store_eligible
+    t, depth = cfg.env_args.episode_limit, cfg.model.depth
+    check(cfg.model.mixer_depth == depth, "agent and mixer depth differ")
+    if entity_store_eligible(cfg):
+        return {"flash_fwd": (t + 1) * depth, "flash_fwd_res": t * depth,
+                "flash_bwd_dq": t * depth, "flash_bwd_dkv": t * depth}
+    return {"flash_fwd": (2 * (t + 1) + 1) * depth,
+            "flash_fwd_res": 2 * t * depth, "flash_bwd_dq": 2 * t * depth,
+            "flash_bwd_dkv": 2 * t * depth}
+
+
+def assert_close_bf16_ulp(torch, actual, desired, max_ulp: int = 32
+                          ) -> float:
+    """bf16 agreement per element in bf16 ULPs, the ULP floored at the
+    tensor's RMS (tests/test_entity_tables.py's bound) → worst ULPs."""
+    a = actual.to(torch.bfloat16).double()
+    d = desired.to(torch.bfloat16).double()
+    scale = torch.maximum(torch.maximum(a.abs(), d.abs()),
+                          d.pow(2).mean().sqrt())
+    ulp = torch.exp2(torch.floor(torch.log2(scale)) - 7.0)
+    worst = float(((a - d).abs() / ulp).max())
+    check(worst <= max_ulp, f"bf16 agreement {worst:.1f} ULPs > {max_ulp}")
+    return worst
+
+
+def phase_entity(torch):
+    """The entity-table forward at the north-star widths against the
+    query-slice forward on the env's dense obs; one acting forward at
+    1024 lanes each way."""
+    from t2omca_tpu_torch import prng
+    from t2omca_tpu_torch.run import Experiment
+    lanes, steps = 8, 3
+    out = {}
+    for dt in ("float32", "bfloat16"):
+        cfg = loop_cfg(lanes=lanes, ring=64, dtype=dt)
+        exp = Experiment.build(cfg)
+        env, mac = exp.env, exp.mac
+        check(mac.use_entity_tables, "the default stack does not act "
+                                     "through the entity tables")
+        params = mac.init_params(torch.Generator().manual_seed(SEED))
+        g = torch.Generator(device="cuda").manual_seed(SEED + 21)
+        keys = prng.split(prng.PRNGKey(SEED + 22, "cuda"), lanes)
+        state, (dense, compact), _, avail = env.reset(keys,
+                                                      obs_form="both")
+        ep = env.default_params(lanes)
+        worst_obs = 0.0
+        for i in range(steps + 1):
+            rows, same_mec, mean, std = compact
+            b, a, f = rows.shape[0], env.n_agents, env.obs_entity_feats
+            rows9 = torch.cat([rows, rows.new_zeros(b, a, 1)], dim=-1)
+            raw = torch.where(same_mec[..., None], rows9[:, None], 0.0)
+            diag = torch.arange(a, device="cuda")
+            raw[:, diag, diag, f - 1] = 1.0
+            rebuilt = ((raw - mean[:, None]) / (std + 1e-8)[:, None]
+                       ).reshape(b, a, a * f)
+            torch.testing.assert_close(rebuilt, dense, rtol=1e-5,
+                                       atol=1e-6)
+            worst_obs = max(worst_obs, float((rebuilt - dense).abs().max()))
+            if i == steps:
+                break
+            acts = torch.where(avail > 0, torch.rand(
+                avail.shape, device="cuda", generator=g), -1.0).argmax(-1)
+            state, _, _, _, (dense, compact), _, avail = env.step(
+                state, acts, prng.split(prng.PRNGKey(SEED + 30 + i, "cuda"),
+                                        lanes), ep, obs_form="both")
+        hidden = torch.randn(lanes, env.n_agents, cfg.model.emb,
+                             device="cuda", generator=g)
+        q_obs, h_obs = mac.forward_qslice(params, dense, hidden)
+        q_ent, h_ent = mac.forward_entity(params, compact, hidden)
+        if dt == "float32":
+            torch.testing.assert_close(q_ent, q_obs, rtol=2e-4, atol=2e-5)
+            torch.testing.assert_close(h_ent, h_obs, rtol=2e-4, atol=2e-5)
+            err = max(float((q_ent - q_obs).abs().max()),
+                      float((h_ent - h_obs).abs().max()))
+            what = f"max abs err {err:.2e} (rtol 2e-4, atol 2e-5)"
+        else:
+            worst = max(assert_close_bf16_ulp(torch, q_ent, q_obs),
+                        assert_close_bf16_ulp(torch, h_ent, h_obs))
+            what = f"worst {worst:.1f} bf16 ULPs (bound 32)"
+        print(f"[entity] {dt}: {lanes} lanes, {env.n_agents} AGVs, "
+              f"{env.n_mec} MECs, {steps} env steps: compact_obs rebuilds "
+              f"the dense obs (max abs err {worst_obs:.2e}, rtol 1e-5 / atol "
+              f"1e-6); entity forward = query-slice forward on the dense "
+              f"obs, q and h {what}", flush=True)
+        del exp, mac, env
+    # one acting forward at 1024 lanes each way (bf16, folded params)
+    cfg = loop_cfg(lanes=LOOP_LANES, ring=64)
+    exp = Experiment.build(cfg)
+    env, mac = exp.env, exp.mac
+    params = mac.prepare_acting_params(
+        mac.init_params(torch.Generator().manual_seed(SEED)))
+    keys = prng.split(prng.PRNGKey(SEED + 23, "cuda"), LOOP_LANES)
+    state, (dense, compact), _, _ = env.reset(keys, obs_form="both")
+    hidden = mac.init_hidden(LOOP_LANES)
+    ms_ent = cuda_ms(lambda: mac.forward_entity(params, compact, hidden,
+                                                acting=True))
+    ms_obs = cuda_ms(lambda: mac.forward_qslice(params, dense, hidden,
+                                                acting=True))
+    print(f"[entity] one bf16 acting forward at {LOOP_LANES} lanes (CUDA "
+          f"events, 20 calls after 3 warm-up): entity tables {ms_ent:.3f} "
+          f"ms, query slice on the dense obs {ms_obs:.3f} ms", flush=True)
+    out.update(entity_ms=ms_ent, qslice_ms=ms_obs)
+    del exp, mac, env, dense, compact
+    torch.cuda.empty_cache()
+    return out
 
 
 def count_rollout_ops(torch, exp, ts) -> dict:
@@ -1160,37 +1302,18 @@ def check_threefry_cuda_equals_cpu(torch, exp, ts) -> int:
     return len(draws)
 
 
-def phase_loop(torch, att):
-    """Three classic iterations (rollout → insert → gated train) at the
-    north-star widths through ``run.run_classic``."""
+def run_loop(torch, att, exp, ts, tag: str, iterations: int):
+    """``iterations`` classic iterations (rollout → insert → gated train)
+    through ``run.run_classic``, each with its exact kernel launches and
+    its checks → (ts', records, launch totals, result dict)."""
     import numpy as np
-    from torch.profiler import ProfilerActivity, profile
-    from t2omca_tpu_torch.run import Experiment, run_classic
-
-    cfg = loop_cfg()
-    exp = Experiment.build(cfg)
+    from t2omca_tpu_torch.run import run_classic
+    cfg = exp.cfg
     b, t = cfg.batch_size_run, cfg.env_args.episode_limit
-    depth = cfg.model.depth
-    info = exp.env.get_env_info()
-    print(f"[loop] north-star widths: {info['n_agents']} AGVs, "
-          f"{exp.env.n_mec} MECs, {info['n_actions']} actions, obs "
-          f"{info['obs_shape']}, T={t}, bf16, kernels.attention=pallas, "
-          f"PER, model.use_entity_tables=false (dense obs, query-slice "
-          f"acting); cuts: batch_size_run 1024 -> {b}, buffer_size 2048 -> "
-          f"{cfg.replay.buffer_size}", flush=True)
-    torch.cuda.reset_peak_memory_stats()
-    ts = exp.init_state(SEED)
-    n_draws = check_threefry_cuda_equals_cpu(torch, exp, ts)
-    print(f"[loop] threefry on CUDA = CPU bit for bit over {n_draws} draws "
-          f"at the rollout's key shapes", flush=True)
-
-    # per train iteration: the [train] phase's counts for one step
-    want = {"flash_fwd": (2 * (t + 1) + 1) * depth,
-            "flash_fwd_res": 2 * t * depth, "flash_bwd_dq": 2 * t * depth,
-            "flash_bwd_dkv": 2 * t * depth}
+    want = loop_launches(cfg)
     totals = dict.fromkeys(want, 0)
     cursor, records, iter_s = None, [], []
-    for i in range(LOOP_ITERATIONS):
+    for i in range(iterations):
         # what the insert alone would leave: the new slots at the stamp
         stamp = ts.buffer.max_priority ** cfg.replay.per_alpha
         inserted = ts.buffer.priorities.clone()
@@ -1202,62 +1325,93 @@ def phase_loop(torch, att):
         ts, cursor, (rec,) = run_classic(exp, ts, 1, cursor, sync=True)
         launches = dict(att.LAUNCHES)    # ---- and ends here
         iter_s.append(time.perf_counter() - t0)
-        check(launches == want, f"iteration {i}: launches {launches} != "
-                                f"{want}")
+        check(launches == want, f"{tag} iteration {i}: launches {launches} "
+                                f"!= {want}")
         for k in totals:
             totals[k] += launches[k]
-        check(rec.info is not None, f"iteration {i} did not train")
+        check(rec.info is not None, f"{tag} iteration {i} did not train")
         loss, gn = float(rec.info["loss"]), float(rec.info["grad_norm"])
         check(np.isfinite(loss) and np.isfinite(gn),
-              f"iteration {i}: loss {loss} grad_norm {gn}")
-        check(bool(rec.info["all_finite"]), f"iteration {i}: all_finite")
+              f"{tag} iteration {i}: loss {loss} grad_norm {gn}")
+        check(bool(rec.info["all_finite"]), f"{tag} iteration {i}: "
+                                            f"all_finite")
         check(bool((ts.buffer.priorities != inserted).any()),
-              f"iteration {i}: no sampled priority changed")
+              f"{tag} iteration {i}: no sampled priority changed")
         rate = rec.stats.task_completion_rate
         check(bool(((rate >= 0) & (rate <= 1)).all()),
-              f"iteration {i}: task_completion_rate outside [0, 1]")
+              f"{tag} iteration {i}: task_completion_rate outside [0, 1]")
         check(bool(torch.isfinite(rec.stats.episode_return).all()),
-              f"iteration {i}: non-finite return")
+              f"{tag} iteration {i}: non-finite return")
         records.append((rec, loss, gn))
-        print(f"[loop] iteration {i}: rollout+insert "
+        print(f"[{tag}] iteration {i}: rollout+insert "
               f"{rec.rollout_s * 1e3:.1f} ms, trainer step "
               f"{rec.train_s * 1e3:.1f} ms, loss {loss:.4g}, grad_norm "
               f"{gn:.4g}, launches {launches}", flush=True)
-    check(cursor.t_env == LOOP_ITERATIONS * b * t,
-          f"t_env {cursor.t_env} != {LOOP_ITERATIONS * b * t}")
-    check(cursor.episode == ts.episode == LOOP_ITERATIONS * b,
-          f"episode {cursor.episode} != {LOOP_ITERATIONS * b}")
+    check(cursor.t_env == iterations * b * t,
+          f"{tag}: t_env {cursor.t_env} != {iterations * b * t}")
+    check(cursor.episode == ts.episode == iterations * b,
+          f"{tag}: episode {cursor.episode} != {iterations * b}")
     st = ts.buffer.storage
     n = ts.buffer.episodes_in_buffer
-    check(n == min(LOOP_ITERATIONS * b, cfg.replay.buffer_size),
-          f"ring holds {n} episodes")
+    check(n == min(iterations * b, cfg.replay.buffer_size),
+          f"{tag}: ring holds {n} episodes")
     taken = torch.gather(st.avail_actions[:n, :-1], -1,
                          st.actions[:n].long().unsqueeze(-1))
-    check(bool(taken.all()), "a stored action was not available")
-    for name in ("obs", "state", "reward"):
+    check(bool(taken.all()), f"{tag}: a stored action was not available")
+    for name in ("state", "reward"):
         x = getattr(st, name)[:n]
-        check(bool(torch.isfinite(x.float()).all()), f"non-finite {name}")
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        check(bool(torch.isfinite(x.float()).all()),
+              f"{tag}: non-finite {name}")
     roll = [r.rollout_s * 1e3 for r, _, _ in records]
     train = [r.train_s * 1e3 for r, _, _ in records]
     p50_roll, p50_train = statistics.median(roll), statistics.median(train)
     p50_iter = statistics.median(iter_s) * 1e3
-    print(f"[loop] {LOOP_ITERATIONS} iterations, each trained: t_env "
-          f"{cursor.t_env}, episode {cursor.episode}; loss/grad_norm "
+    print(f"[{tag}] {iterations} iterations, each trained: t_env "
+          f"{cursor.t_env}, episode {cursor.episode}, ring {n} of "
+          f"{cfg.replay.buffer_size}; loss/grad_norm "
           f"{', '.join(f'{l:.4g}/{g:.4g}' for _, l, g in records)}; "
-          f"launches per train iteration {want} (all {LOOP_ITERATIONS} "
-          f"exact), per rollout 0", flush=True)
-    print(f"[loop] rollout+insert p50 {p50_roll:.1f} ms (each: "
-          f"{', '.join(f'{x:.1f}' for x in roll)}), "
-          f"{b * t / (p50_roll / 1e3):.0f} env-steps/s; trainer step p50 "
-          f"{p50_train:.1f} ms; iteration p50 {p50_iter:.1f} ms; peak "
-          f"memory {peak:.2f} GiB", flush=True)
+          f"launches per train iteration {want} (all {iterations} exact), "
+          f"per rollout 0", flush=True)
+    result = {"launches": totals, "rollout_p50_ms": p50_roll,
+              "train_p50_ms": p50_train, "iteration_p50_ms": p50_iter,
+              "env_steps_per_s": b * t / (p50_roll / 1e3)}
+    return ts, records, result
 
-    # one more rollout alone: no kernel launch, its ops, its profile
+
+def check_stored_obs(torch, ts, env, tag: str) -> str:
+    """The ring's obs: compact leaves finite with MEC ids in [0, n_mec)
+    (config 3 pads no agent), or finite dense obs."""
+    from t2omca_tpu_torch.components.episode_buffer import CompactEntityObs
+    n = ts.buffer.episodes_in_buffer
+    obs = ts.buffer.storage.obs
+    if not isinstance(obs, CompactEntityObs):
+        check(bool(torch.isfinite(obs[:n].float()).all()),
+              f"{tag}: non-finite obs")
+        return f"dense {tuple(obs.shape[-2:])} {obs.dtype}"
+    for name in ("rows", "mean", "std"):
+        x = getattr(obs, name)[:n]
+        check(x.dtype == torch.float32, f"{tag}: compact {name} {x.dtype}")
+        check(bool(torch.isfinite(x).all()), f"{tag}: non-finite {name}")
+    mec = obs.mec_index[:n]
+    check(mec.dtype == torch.int8, f"{tag}: mec_index {mec.dtype}")
+    check(bool(((mec >= 0) & (mec < env.n_mec)).all()),
+          f"{tag}: mec_index outside [0, {env.n_mec})")
+    nbytes = sum(getattr(obs, f).element_size() * getattr(obs, f).numel()
+                 for f in ("rows", "mec_index", "mean", "std"))
+    return (f"compact (rows f32, mec_index int8 in [0, {env.n_mec}), mean "
+            f"and std f32), {nbytes / obs.rows.shape[0] / 2 ** 20:.2f} MiB "
+            f"an episode")
+
+
+def profile_rollout(torch, att, exp, ts, tag: str) -> dict:
+    """One more rollout alone: no kernel launch, its ops by part at the
+    dispatcher, and its device time under the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    t = exp.cfg.env_args.episode_limit
     att.reset_launches()
     by_part = count_rollout_ops(torch, exp, ts)
     check(sum(att.LAUNCHES.values()) == 0,
-          f"a rollout launched kernels: {att.LAUNCHES}")
+          f"{tag}: a rollout launched kernels: {att.LAUNCHES}")
     ops, ops_prng = sum(by_part.values()), by_part.get("prng", 0)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -1268,29 +1422,159 @@ def phase_loop(torch, att):
     rows = device_rows(prof)
     busy = sum(r[0] for r in rows)
     kernel_launches = sum(r[1] for r in rows)
-    check(busy > 0, "profiler saw no device time in the rollout")
+    check(busy > 0, f"{tag}: profiler saw no device time in the rollout")
     rows.sort(reverse=True)
-    print(f"[loop] one rollout: {kernel_launches} device launches "
+    print(f"[{tag}] one rollout: {kernel_launches} device launches "
           f"(profiler; {kernel_launches / t:.0f} a step), {ops} compute "
           f"ops at the dispatcher, {ops_prng} ({100 * ops_prng / ops:.1f}%)"
           f" of them in the threefry PRNG", flush=True)
-    print("[loop] ops of that rollout by part (total, a step): " + ", ".join(
+    print(f"[{tag}] ops of that rollout by part (total, a step): " + ", ".join(
         f"{k} {v} ({v / t:.1f})" for k, v in sorted(
             by_part.items(), key=lambda kv: -kv[1])), flush=True)
-    print(f"[profile] rollout: host {wall:.1f} ms (profiled), device busy "
-          f"{busy:.1f} ms ({100 * busy / wall:.1f}%), idle "
+    print(f"[profile] {tag} rollout: host {wall:.1f} ms (profiled), device "
+          f"busy {busy:.1f} ms ({100 * busy / wall:.1f}%), idle "
           f"{100 * (1 - busy / wall):.1f}%", flush=True)
     for ms, cnt, name in rows[:10]:
         print(f"[profile]   {ms:9.2f} ms {100 * ms / busy:5.1f}% x{cnt} "
               f"{name[:90]}", flush=True)
-    result = {"launches": totals, "rollout_p50_ms": p50_roll,
-              "train_p50_ms": p50_train, "iteration_p50_ms": p50_iter,
-              "env_steps_per_s": b * t / (p50_roll / 1e3),
-              "peak_gib": peak, "rollout_launches": kernel_launches,
-              "rollout_ops": ops, "rollout_prng_ops": ops_prng,
-              "rollout_ops_by_part": by_part,
-              "rollout_busy_share": busy / wall}
+    return {"rollout_launches": kernel_launches, "rollout_ops": ops,
+            "rollout_prng_ops": ops_prng, "rollout_ops_by_part": by_part,
+            "rollout_busy_share": busy / wall}
+
+
+def phase_loop(torch, att):
+    """Config 3's own loop on the default stack: 1024 lanes, a ring of
+    2048, three classic iterations through ``run.run_classic``."""
+    from t2omca_tpu_torch import prng
+    from t2omca_tpu_torch.run import Experiment
+    cfg = loop_cfg()
+    exp = Experiment.build(cfg)
+    check(exp.mac.use_entity_tables and exp.buffer.compact_obs
+          and exp.runner.obs_form == "compact",
+          "config 3's loop is not on the default stack")
+    b, t = cfg.batch_size_run, cfg.env_args.episode_limit
+    info = exp.env.get_env_info()
+    print(f"[loop] config 3 uncut: {b} lanes, ring of "
+          f"{cfg.replay.buffer_size}, {info['n_agents']} AGVs, "
+          f"{exp.env.n_mec} MECs, {info['n_actions']} actions, T={t}, bf16, "
+          f"kernels.attention=pallas, PER; the default stack: entity-table "
+          f"acting, compact storage, the dense obs never built", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    ts = exp.init_state(SEED)
+    ts, records, result = run_loop(torch, att, exp, ts, "loop",
+                                   LOOP_ITERATIONS)
+    stored = check_stored_obs(torch, ts, exp.env, "loop")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"[loop] stored obs: {stored}", flush=True)
+    print(f"[loop] rollout+insert p50 {result['rollout_p50_ms']:.1f} ms "
+          f"(each: {', '.join(f'{r.rollout_s * 1e3:.1f}' for r, _, _ in records)}"
+          f"), {result['env_steps_per_s']:.0f} env-steps/s; trainer step "
+          f"p50 {result['train_p50_ms']:.1f} ms; iteration p50 "
+          f"{result['iteration_p50_ms']:.1f} ms; peak memory {peak:.2f} GiB",
+          flush=True)
+    # where the peak is: a rollout alone, then a trainer step alone
+    torch.cuda.reset_peak_memory_stats()
+    result.update(peak_gib=peak, **profile_rollout(torch, att, exp, ts,
+                                                  "loop"))
+    peak_roll = torch.cuda.max_memory_allocated() / 2 ** 30
+    train_iter = exp.programs()[2]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated() / 2 ** 30
+    ts, _ = train_iter(ts, prng.PRNGKey(SEED + 24, "cuda"), b * t)
+    torch.cuda.synchronize()
+    peak_train = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"[loop] memory: {base:.2f} GiB held between stages (params, "
+          f"optimizer state, the ring of {cfg.replay.buffer_size}); peak "
+          f"{peak_roll:.2f} GiB over a rollout alone, {peak_train:.2f} GiB "
+          f"over a trainer step alone", flush=True)
+    result.update(peak_rollout_gib=peak_roll, peak_train_gib=peak_train,
+                  held_gib=base)
     del exp, ts
+    torch.cuda.empty_cache()
+    return result
+
+
+def phase_loop_dense(torch, att):
+    """The kill switch model.use_entity_tables=false: query-slice acting
+    on the dense obs, dense storage, the agent's unrolls through the
+    kernels; 128 lanes and a ring of 256."""
+    from t2omca_tpu_torch.run import Experiment
+    cfg = loop_cfg(DENSE_LANES, DENSE_RING, entity_tables=False)
+    exp = Experiment.build(cfg)
+    check(not exp.mac.use_entity_tables and not exp.buffer.compact_obs,
+          "the kill switch left the entity tables on")
+    print(f"[loop-dense] model.use_entity_tables=false (dense obs, "
+          f"query-slice acting); cuts: batch_size_run 1024 -> "
+          f"{cfg.batch_size_run}, buffer_size 2048 -> "
+          f"{cfg.replay.buffer_size} (dense bf16 obs are 11.1 MB a "
+          f"lane-episode)", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    ts = exp.init_state(SEED)
+    n_draws = check_threefry_cuda_equals_cpu(torch, exp, ts)
+    print(f"[loop-dense] threefry on CUDA = CPU bit for bit over {n_draws} "
+          f"draws at the rollout's key shapes", flush=True)
+    ts, _, result = run_loop(torch, att, exp, ts, "loop-dense",
+                             LOOP_ITERATIONS)
+    check_stored_obs(torch, ts, exp.env, "loop-dense")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"[loop-dense] rollout+insert p50 {result['rollout_p50_ms']:.1f} "
+          f"ms, {result['env_steps_per_s']:.0f} env-steps/s; trainer step "
+          f"p50 {result['train_p50_ms']:.1f} ms; iteration p50 "
+          f"{result['iteration_p50_ms']:.1f} ms; peak memory {peak:.2f} GiB",
+          flush=True)
+    result["peak_gib"] = peak
+    del exp, ts
+    torch.cuda.empty_cache()
+    return result
+
+
+def phase_loop_noisy(torch, att):
+    """One classic iteration of NoisyNet's q-head noise on the default
+    stack: the noisy q differs from the mu q, and the sigma params get
+    finite, non-zero gradients."""
+    from t2omca_tpu_torch import prng
+    from t2omca_tpu_torch.run import Experiment
+    cfg = loop_cfg(NOISY_LANES, DENSE_RING, selector="noisy-new")
+    exp = Experiment.build(cfg)
+    check(exp.learner.needs_rngs and exp.buffer.compact_obs,
+          "the noisy loop is not on the default stack")
+    ts = exp.init_state(SEED)
+    ts, _, result = run_loop(torch, att, exp, ts, "loop-noisy", 1)
+    check_stored_obs(torch, ts, exp.env, "loop-noisy")
+    # the noisy q against the mu q on the same inputs
+    mac, env = exp.mac, exp.env
+    params = mac.prepare_acting_params(ts.learner.params["agent"])
+    compact = env.compact_obs(ts.runner.env_states, ts.runner.env_params)
+    hidden = mac.init_hidden(cfg.batch_size_run)
+    key = prng.PRNGKey(SEED + 41, "cuda")
+    q_mu, _ = mac.forward_entity(params, compact, hidden, acting=True)
+    q_noisy, _ = mac.forward_entity(params, compact, hidden, key=key,
+                                    deterministic=False, acting=True)
+    dq = float((q_noisy - q_mu).abs().max())
+    check(dq > 0.0, "the noisy q equals the mu q")
+    # the sigma gradients of one loss on a sampled batch
+    k_sample, k_learn = prng.split(prng.PRNGKey(SEED + 42, "cuda")).unbind(0)
+    batch, _, w = exp.buffer.sample(ts.buffer, k_sample, cfg.batch_size,
+                                    1000)
+    lrn = exp.learner
+    p = {m: {k: v.detach().requires_grad_() for k, v in sub.items()}
+         for m, sub in ts.learner.params.items()}
+    loss, _ = lrn._loss(p, ts.learner.target_params, batch, w, k_learn)
+    names = sorted(k for k in p["agent"] if "sigma" in k)
+    check(len(names) == 2, f"sigma params {names}")
+    grads = torch.autograd.grad(loss, [p["agent"][k] for k in names])
+    norms = {k: float(g.norm()) for k, g in zip(names, grads)}
+    check(all(bool(torch.isfinite(g).all()) for g in grads),
+          "a sigma gradient is not finite")
+    check(any(v > 0.0 for v in norms.values()), "every sigma gradient is 0")
+    print(f"[loop-noisy] action_selector noisy-new, {cfg.batch_size_run} "
+          f"lanes, ring {cfg.replay.buffer_size}: launches as [loop]'s "
+          f"{loop_launches(cfg)}; noisy q - mu q max |d| {dq:.3e}; sigma "
+          f"gradient norms " + ", ".join(f"{k} {v:.3e}"
+                                          for k, v in norms.items()),
+          flush=True)
+    del exp, ts, batch, p, grads
     torch.cuda.empty_cache()
     return result
 
@@ -1345,8 +1629,15 @@ def main() -> int:
     lap("profile-train")
     del buffer, ring
     torch.cuda.empty_cache()
+    entity = phase_entity(torch)
+    lap("entity")
     loop = phase_loop(torch, att)
     lap("loop")
+    dense = phase_loop_dense(torch, att)
+    lap("loop-dense")
+    noisy = phase_loop_noisy(torch, att)
+    lap("loop-noisy")
+    loops = {"loop": loop, "loop_dense": dense, "loop_noisy": noisy}
 
     def fwd_times(key):
         ms, plain, lib_ms, bound, by = times[key]
@@ -1371,10 +1662,12 @@ def main() -> int:
         "entry": csrc + "flash_fwd.cu",
         "replaces": "t2omca_tpu/kernels/attention.py:115 (pallas_call :392)",
         "launches": (launches["flash_fwd"] + train["launches"]["flash_fwd"]
-                     + loop["launches"]["flash_fwd"]),
+                     + sum(r["launches"]["flash_fwd"]
+                           for r in loops.values())),
         "launches_by_path": {"serve": launches["flash_fwd"],
                              "train": train["launches"]["flash_fwd"],
-                             "loop": loop["launches"]["flash_fwd"]},
+                             **{k: r["launches"]["flash_fwd"]
+                                for k, r in loops.items()}},
         "max_abs_err": errs[("serve", "float32")],
         **fwd_times(("serve", "float32")),
         "shape": [4096, 4, 65, 65, 64], "dtype": "float32",
@@ -1398,10 +1691,12 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": csrc + src, "source_f32": csrc + src32,
             "replaces": f"t2omca_tpu/kernels/attention.py{line}",
-            "launches": train["launches"][name] + loop["launches"][name],
+            "launches": (train["launches"][name]
+                         + sum(r["launches"][name] for r in loops.values())),
             "launches_by_path": {"serve": 0,
                                  "train": train["launches"][name],
-                                 "loop": loop["launches"][name]},
+                                 **{k: r["launches"][name]
+                                    for k, r in loops.items()}},
             "max_abs_err": errs_bwd[("agent", "bfloat16")][name],
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
@@ -1424,12 +1719,19 @@ def main() -> int:
     print(f"[summary] trainer step p50: bf16 {train['p50_bf16_ms']:.1f} ms, "
           f"f32 {train['p50_f32_ms']:.1f} ms (T="
           f"{train['f32_episode_limit']})", flush=True)
-    print(f"[summary] loop ({LOOP_LANES} lanes, T=150): rollout p50 "
-          f"{loop['rollout_p50_ms']:.1f} ms ({loop['env_steps_per_s']:.0f} "
-          f"env-steps/s), trainer step p50 {loop['train_p50_ms']:.1f} ms, "
-          f"{loop['rollout_launches']} launches a rollout, device busy "
-          f"{100 * loop['rollout_busy_share']:.1f}% of a rollout",
-          flush=True)
+    print(f"[summary] loop (default stack, {LOOP_LANES} lanes, ring "
+          f"{LOOP_RING}, T=150): rollout p50 {loop['rollout_p50_ms']:.1f} ms "
+          f"({loop['env_steps_per_s']:.0f} env-steps/s), trainer step p50 "
+          f"{loop['train_p50_ms']:.1f} ms, iteration p50 "
+          f"{loop['iteration_p50_ms']:.1f} ms, peak {loop['peak_gib']:.2f} "
+          f"GiB, {loop['rollout_launches']} launches a rollout, device busy "
+          f"{100 * loop['rollout_busy_share']:.1f}% of a rollout; "
+          f"loop-dense ({DENSE_LANES} lanes): rollout p50 "
+          f"{dense['rollout_p50_ms']:.1f} ms ({dense['env_steps_per_s']:.0f} "
+          f"env-steps/s), trainer step p50 {dense['train_p50_ms']:.1f} ms; "
+          f"acting forward at {LOOP_LANES} lanes: entity tables "
+          f"{entity['entity_ms']:.3f} ms, query slice {entity['qslice_ms']:.3f}"
+          f" ms", flush=True)
     print(f"[summary] total {time.perf_counter() - t_start:.1f} s; by phase: "
           + ", ".join(f"{k} {v:.1f} s" for k, v in phases.items()),
           flush=True)

@@ -6,10 +6,13 @@ inside one chip call, to compare two versions on one card:
     python3 scripts/torch_rollout_ab.py --repo DIR [--label NAME]
 
 ``--repo`` is the root of the checkout whose ``t2omca_tpu_torch`` and
-``chip_smoke.py`` are used. The configuration is ``chip_smoke.py``'s
-``[loop]`` one (the north-star widths of
-``configs/config3_tpu_northstar.yaml`` with 128 lanes, T = 150, bf16,
-``model.use_entity_tables: false``), the runner state and params from
+``chip_smoke.py`` are used. The configuration is that checkout's
+``chip_smoke.loop_cfg()`` (here config 3's ``[loop]``: the north-star
+widths of ``configs/config3_tpu_northstar.yaml`` at its own 1024 lanes,
+T = 150, bf16, the default stack of entity tables and compact storage;
+checkouts before the entity tables used 128 lanes with
+``model.use_entity_tables: false``, so compare checkouts that share
+it), the runner state and params from
 ``Experiment.init_state(0)``. Times four chained training rollouts
 (``ParallelRunner.run``, host clock ending in
 ``torch.cuda.synchronize()``); the first warms up. Prints one JSON

@@ -1,5 +1,5 @@
 """Episode batch and replay buffers on the device (port of
-``t2omca_tpu/components/episode_buffer.py``, dense storage).
+``t2omca_tpu/components/episode_buffer.py``).
 
 Scheme: ``state (T+1, S)``, per-agent ``obs (T+1, A, O)``,
 ``avail_actions (T+1, A, n_actions)`` bool, ``actions (T, A)`` int32,
@@ -18,8 +18,15 @@ Differences from the JAX package, by design:
   (``t2omca_tpu_torch.prng``), as the JAX buffers do; ``u`` (PER: one
   uniform per stratum) or ``scores`` (uniform: one per slot) may be
   handed in instead, so a test can give both packages the same numbers.
-* Compact entity storage and ``insert_time_major`` are later slices
-  (``ROADMAP.md`` Queue A).
+* ``insert_time_major`` (the fused superstep's insert) is a later
+  slice (``ROADMAP.md`` Queue A item 8).
+
+Compact entity storage (``compact_obs=True``) keeps ``obs`` as a
+``CompactEntityObs``: the entity feature rows, the serving MEC's index as
+int8 and the normalizer's mean and std, always f32 whatever the
+``store_dtype`` (raw features of O(1e4), which the learner normalizes
+again). At config 3's widths that is 1.0 MB an episode against 11.1 MB
+of dense bf16 obs.
 """
 
 from __future__ import annotations
@@ -37,10 +44,37 @@ _STORE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 @dataclasses.dataclass
+class CompactEntityObs:
+    """The factored entity observation as episode storage (leaves share
+    their leading dimensions with the episode's ``obs`` slot)."""
+
+    rows: torch.Tensor        # (..., A, F-1) f32 raw entity feature rows
+    mec_index: torch.Tensor   # (..., A) int8: visibility is same-MEC
+    mean: torch.Tensor        # (..., A, F) f32 per-position Welford mean
+    std: torch.Tensor         # (..., A, F) f32
+
+    def map(self, fn, *others: "CompactEntityObs") -> "CompactEntityObs":
+        """``fn`` over each leaf (and the same leaf of ``others``)."""
+        return CompactEntityObs(**{
+            f.name: fn(getattr(self, f.name),
+                       *(getattr(o, f.name) for o in others))
+            for f in dataclasses.fields(self)})
+
+
+def obs_map(fn, obs, *others):
+    """``fn`` over an ``obs`` slot: each leaf of a ``CompactEntityObs``,
+    or the dense tensor itself."""
+    if isinstance(obs, CompactEntityObs):
+        return obs.map(fn, *others)
+    return fn(obs, *others)
+
+
+@dataclasses.dataclass
 class EpisodeBatch:
     """One (batch of) episode(s): tensors shaped ``(B, T(+1), ...)``."""
 
-    obs: torch.Tensor            # (B, T+1, A, obs_dim) store dtype
+    obs: object                  # (B, T+1, A, obs_dim) store dtype, or a
+                                 # CompactEntityObs (compact storage)
     state: torch.Tensor          # (B, T+1, state_dim) store dtype
     avail_actions: torch.Tensor  # (B, T+1, A, n_actions) bool
     actions: torch.Tensor        # (B, T, A) int32
@@ -51,14 +85,15 @@ class EpisodeBatch:
 
     @property
     def batch_size(self) -> int:
-        return self.obs.shape[0]
+        return self.actions.shape[0]
 
     @property
     def max_seq_length(self) -> int:
         return self.actions.shape[1]
 
     def map(self, fn) -> "EpisodeBatch":
-        return EpisodeBatch(**{f.name: fn(getattr(self, f.name))
+        """``fn`` over every tensor, the compact obs leaves included."""
+        return EpisodeBatch(**{f.name: obs_map(fn, getattr(self, f.name))
                                for f in dataclasses.fields(self)})
 
 
@@ -67,13 +102,13 @@ class TimeMajorEpisodes:
     """A rollout's per-step outputs before episode-batch assembly: ``(T,
     B, ...)`` stacks plus the ``(B, ...)`` bootstrap step."""
 
-    obs: torch.Tensor            # (T, B, A, obs) store dtype
+    obs: object                  # (T, B, A, obs) store dtype, or compact
     state: torch.Tensor          # (T, B, state_dim) store dtype
     avail_actions: torch.Tensor  # (T, B, A, n_actions) bool
     actions: torch.Tensor        # (T, B, A) int32
     reward: torch.Tensor         # (T, B) f32, the train-recorded reward
     terminated: torch.Tensor     # (T, B) bool, env-terminal (Q7)
-    last_obs: torch.Tensor       # (B, A, obs)
+    last_obs: object             # (B, A, obs), or compact
     last_state: torch.Tensor     # (B, state_dim)
     last_avail: torch.Tensor     # (B, A, n_actions) bool
 
@@ -87,7 +122,7 @@ class TimeMajorEpisodes:
         bt = lambda x: x.transpose(0, 1)
         cat = lambda seq, last: torch.cat([bt(seq), last.unsqueeze(1)], 1)
         return EpisodeBatch(
-            obs=cat(self.obs, self.last_obs),
+            obs=obs_map(cat, self.obs, self.last_obs),
             state=cat(self.state, self.last_state),
             avail_actions=cat(self.avail_actions, self.last_avail),
             actions=bt(self.actions), reward=bt(self.reward),
@@ -128,11 +163,6 @@ class ReplayBuffer:
         if self.capacity < 1:
             raise ValueError(f"buffer capacity must be >= 1, got "
                              f"{self.capacity}")
-        if self.compact_obs:
-            raise NotImplementedError(
-                "compact entity storage is not ported yet (ROADMAP.md "
-                "Queue A item 5: the entity tables); set "
-                "replay.compact_entity_store=false")
         if self.store_dtype not in _STORE_DTYPES:
             raise ValueError(f"store_dtype must be one of "
                              f"{sorted(_STORE_DTYPES)}, got "
@@ -142,8 +172,18 @@ class ReplayBuffer:
     def init(self) -> BufferState:
         c, t, a = self.capacity, self.episode_limit, self.n_agents
         sd, dev = _STORE_DTYPES[self.store_dtype], self.device
+        if self.compact_obs:
+            f = self.obs_dim // a          # entity feats (entity-mode layout)
+            z = lambda *shape, dtype=torch.float32: torch.zeros(
+                (c, t + 1, a) + shape, dtype=dtype, device=dev)
+            obs = CompactEntityObs(rows=z(f - 1),
+                                   mec_index=z(dtype=torch.int8),
+                                   mean=z(f), std=z(f))
+        else:
+            obs = torch.zeros(c, t + 1, a, self.obs_dim, dtype=sd,
+                              device=dev)
         storage = EpisodeBatch(
-            obs=torch.zeros(c, t + 1, a, self.obs_dim, dtype=sd, device=dev),
+            obs=obs,
             state=torch.zeros(c, t + 1, self.state_dim, dtype=sd,
                               device=dev),
             avail_actions=torch.zeros(c, t + 1, a, self.n_actions,
@@ -178,10 +218,11 @@ class ReplayBuffer:
         the storage is written in place (see the module docstring)."""
         b = batch.batch_size
         idx = self._ring_slots(state, b)
+        put = lambda dst, src: dst.index_copy_(
+            0, idx, src.to(device=dst.device, dtype=dst.dtype))
         for f in dataclasses.fields(EpisodeBatch):
-            dst = getattr(state.storage, f.name)
-            dst.index_copy_(0, idx, getattr(batch, f.name).to(
-                device=dst.device, dtype=dst.dtype))
+            obs_map(put, getattr(state.storage, f.name),
+                    getattr(batch, f.name))
         stamp = self._insert_priority(state).expand(b)
         return dataclasses.replace(
             state,

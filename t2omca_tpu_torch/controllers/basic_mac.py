@@ -53,6 +53,9 @@ class BasicMAC:
     emb: int
     device: torch.device
     use_qslice: bool = False    # exact token-0-only forward (ops/query_slice)
+    # acting through the entity tables (ops/query_slice,
+    # agent_forward_qslice_entity) when the runner hands ``compact`` in
+    use_entity_tables: bool = False
     use_orthogonal: bool = False
     # acting-path compute dtype (model.act_dtype); None = the agent's
     act_dtype: Optional[torch.dtype] = None
@@ -89,10 +92,12 @@ class BasicMAC:
         schedule = DecayThenFlatSchedule(
             cfg.epsilon_start, cfg.epsilon_finish, cfg.epsilon_anneal_time)
         selector = SELECTOR_REGISTRY[cfg.action_selector](schedule)
-        from ..ops.query_slice import agent_qslice_eligible
+        from ..ops.query_slice import (agent_qslice_eligible,
+                                       entity_tables_eligible)
         return cls(agent=agent, selector=selector, n_agents=n_agents,
                    n_actions=env_info["n_actions"], emb=cfg.model.emb,
                    device=device, use_qslice=agent_qslice_eligible(cfg),
+                   use_entity_tables=entity_tables_eligible(cfg),
                    use_orthogonal=cfg.model.use_orthogonal,
                    act_dtype=act_dtype, act_agent=act_agent)
 
@@ -128,11 +133,23 @@ class BasicMAC:
                   else self.agent)
         return functional_call(module, params, (obs, hidden), strict=True)
 
+    def _noise_key(self, key: Optional[torch.Tensor],
+                   deterministic: bool) -> Optional[torch.Tensor]:
+        """The q-head's noise key on the query-slice and entity paths:
+        only a noisy agent outside deterministic mode draws noise (the
+        dense module's eval-mode mu path otherwise)."""
+        if key is None or deterministic or not self.agent.noisy:
+            return None
+        return key
+
     def forward_qslice(self, params, obs: torch.Tensor,
-                       hidden: torch.Tensor, acting: bool = False,
+                       hidden: torch.Tensor,
+                       key: Optional[torch.Tensor] = None,
+                       deterministic: bool = True, acting: bool = False,
                        attn_impl: Optional[str] = None
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Token-0-only forward over the same params (raw or folded).
+        ``key`` seeds a noisy q-head when ``deterministic`` is False.
         ``attn_impl=None`` keeps the plain attention path, as the JAX
         MAC does for acting and serving."""
         from ..ops.query_slice import agent_forward_qslice
@@ -142,7 +159,25 @@ class BasicMAC:
             feat_dim=a.feat_dim, emb=a.emb, heads=a.heads, depth=a.depth,
             n_actions=a.n_actions, standard_heads=a.standard_heads,
             dtype=self._acting_dtype if acting else a.dtype,
+            noise_key=self._noise_key(key, deterministic),
             attn_impl=attn_impl or "xla")
+
+    def forward_entity(self, params, compact, hidden: torch.Tensor,
+                       key: Optional[torch.Tensor] = None,
+                       deterministic: bool = True, acting: bool = False
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Entity-table forward: ``compact`` is the env's ``(rows,
+        same_mec, mean, std)`` over the lanes. It launches no flash
+        kernel (plain tensor code, as in JAX)."""
+        from ..ops.query_slice import agent_forward_qslice_entity
+        rows, same_mec, mean, std = compact
+        a = self.agent
+        return agent_forward_qslice_entity(
+            params, rows, same_mec, mean, std, hidden, emb=a.emb,
+            heads=a.heads, depth=a.depth, n_actions=a.n_actions,
+            standard_heads=a.standard_heads,
+            dtype=self._acting_dtype if acting else a.dtype,
+            noise_key=self._noise_key(key, deterministic))
 
     def prepare_acting_params(self, params: Params, dtype=None):
         """Fold the query-slice products once (qslice MACs), and pre-cast
@@ -168,27 +203,39 @@ class BasicMAC:
         return map_float_leaves(tree, lambda x: x.to(ad)
                                 if x.dtype == torch.float32 else x)
 
-    def select_actions(self, params, obs: torch.Tensor, avail: torch.Tensor,
-                       hidden: torch.Tensor, key: torch.Tensor, t_env=0,
-                       test_mode: bool = False, draws=None
+    def select_actions(self, params, obs: Optional[torch.Tensor],
+                       avail: torch.Tensor, hidden: torch.Tensor,
+                       key: torch.Tensor, t_env=0, test_mode: bool = False,
+                       draws=None, compact=None
                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """→ (actions ``(B, A)`` int32, hidden', epsilon). ``key (2,)``
-        splits ``k_noise, k_sel`` as the JAX MAC does; the selector draws
-        from ``k_sel``, or takes ``draws`` (``exploration_draws``, drawn
-        ahead for a whole rollout). ``k_noise`` would seed the noisy
-        q-head, whose training noise is not ported (a noisy agent raises
-        outside test mode)."""
-        if self.agent.noisy and not test_mode:
-            raise NotImplementedError(
-                "NoisyNet training noise is not ported yet (ROADMAP.md "
-                "Queue A: NoisyNet); the noisy agent acts greedily in "
-                "test mode only")
-        if self.use_qslice:
-            q, hidden = self.forward_qslice(params, obs, hidden,
+        splits ``k_noise, k_sel`` as the JAX MAC does: a noisy q-head
+        draws from ``k_noise`` outside test mode, the selector from
+        ``k_sel``, or takes ``draws`` (``exploration_draws``, drawn ahead
+        for a whole rollout). ``compact`` (the env's compact obs) takes
+        the entity-table forward when the MAC was built eligible; ``obs``
+        may then be None. The dense agent's training noise is not ported
+        (it raises)."""
+        needs_noise = self.agent.noisy and not test_mode
+        k_noise, k_sel = (prng.split(key).unbind(0)
+                          if needs_noise or draws is None else (None, None))
+        if self.use_entity_tables and compact is not None:
+            q, hidden = self.forward_entity(params, compact, hidden,
+                                            key=k_noise,
+                                            deterministic=test_mode,
                                             acting=True)
+        elif self.use_qslice:
+            q, hidden = self.forward_qslice(params, obs, hidden,
+                                            key=k_noise,
+                                            deterministic=test_mode,
+                                            acting=True)
+        elif needs_noise:
+            raise NotImplementedError(
+                "the dense agent's NoisyNet training noise (flax's make_rng "
+                "stream) is not ported yet (ROADMAP.md Queue A item 2); "
+                "the query-slice and entity-table paths have it")
         else:
             q, hidden = self.forward(params, obs, hidden, acting=True)
-        k_sel = None if draws is not None else prng.split(key)[1]
         actions, eps = self.selector.select(k_sel, q, avail, t_env,
                                             test_mode=test_mode,
                                             draws=draws)

@@ -112,7 +112,7 @@ def state_from_jax(cls, obj, device: DeviceLike = None):
     with the same field names. Nested states convert recursively; the
     port's host-side counters (``t_env``, the ring cursor and fill)
     become Python ints; static fields (a ``gamma``) pass through."""
-    from .components.episode_buffer import EpisodeBatch
+    from .components.episode_buffer import CompactEntityObs, EpisodeBatch
     from .envs.mec_offload import EnvParams, EnvState
     from .envs.normalization import NormState, RewardScaleState
     nested = {"norm": NormState, "env_states": EnvState,
@@ -125,6 +125,8 @@ def state_from_jax(cls, obj, device: DeviceLike = None):
         v = getattr(obj, f.name)
         if f.name in nested:
             kw[f.name] = state_from_jax(nested[f.name], v, dev)
+        elif hasattr(v, "mec_index") and hasattr(v, "rows"):
+            kw[f.name] = state_from_jax(CompactEntityObs, v, dev)
         elif f.name in host_ints:
             kw[f.name] = int(np.asarray(v))
         elif isinstance(v, (int, float)):

@@ -28,14 +28,22 @@ and a delay rounded to 0.01 ms can then land on the other side of a
 rounding boundary; ``tests/test_torch_env.py`` states how far that
 reaches.
 
-Not ported here: ``compact_obs`` (the entity-table acting path, a later
-slice) raises.
+``compact_obs`` gives the factored form of the entity observation that
+the entity-table acting path reads and compact storage keeps. ``reset``
+and ``step`` take ``obs_form``: ``"dense"`` returns the normalized
+``(B, A, obs_dim)`` obs, ``"compact"`` the ``compact_obs`` tuple without
+ever building the dense obs (XLA drops it from the JAX rollout as dead
+code when nothing reads it; eager torch has no such pass), ``"both"``
+the pair. The normalizer's update is the same in every form.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Dict, Tuple
+
+#: what ``reset``/``step``/``get_obs`` return as the observation
+OBS_FORMS = ("dense", "compact", "both")
 
 import numpy as np
 import torch
@@ -363,20 +371,34 @@ class MultiAgvOffloadingEnv:
         return torch.cat([ent, eye], dim=-1).flatten(-2)
 
     def get_obs(self, state: EnvState, params: EnvParams,
-                update_norm: bool = True) -> Tuple[EnvState, torch.Tensor]:
+                update_norm: bool = True, obs_form: str = "dense"
+                ) -> Tuple[EnvState, object]:
         """Normalized per-agent observations ``(B, A, obs_dim)``. Default:
         the Welford state updates agent by agent, each agent normalized
         with the statistics after its own update (Q4/Q5); ``fast_norm``
         merges all agents at once (from the factored entity form in
-        entity mode, as the JAX package does)."""
+        entity mode, as the JAX package does). ``obs_form`` (see the
+        module docstring) picks dense, compact or both; the compact form
+        reuses this call's feature rows and mask."""
+        if obs_form not in OBS_FORMS:
+            raise ValueError(f"obs_form must be one of {OBS_FORMS}, got "
+                             f"{obs_form!r}")
         if self.cfg.fast_norm and self.cfg.obs_entity_mode:
             rows, same_mec = self._entity_parts(state, params)
             norm = select_update(
                 state.norm,
                 welford_update_batch_factored(state.norm, rows, same_mec),
                 update_norm)
-            obs = apply_norm(norm, self._entity_obs(rows, same_mec))
-            return dataclasses.replace(state, norm=norm), obs
+            state = dataclasses.replace(state, norm=norm)
+            dense = (None if obs_form == "compact" else
+                     apply_norm(norm, self._entity_obs(rows, same_mec)))
+            if obs_form == "dense":
+                return state, dense
+            compact = (rows, same_mec) + self._compact_stats(state)
+            return state, (compact if obs_form == "compact"
+                           else (dense, compact))
+        if obs_form != "dense":
+            self._require_compact()
         raw = self._raw_obs(state, params)
         if self.cfg.fast_norm:
             norm, obs = normalize_batch(state.norm, raw, update=update_norm)
@@ -387,11 +409,35 @@ class MultiAgvOffloadingEnv:
             rows.append(y)
         return dataclasses.replace(state, norm=norm), torch.stack(rows, -2)
 
-    def compact_obs(self, state: EnvState, params: EnvParams):
-        raise NotImplementedError(
-            "compact_obs feeds the entity-table acting path and compact "
-            "storage, which are not ported yet (ROADMAP.md Queue A: the "
-            "entity tables); set model.use_entity_tables=false")
+    def _require_compact(self) -> None:
+        if not (self.cfg.obs_entity_mode and self.cfg.fast_norm):
+            raise ValueError(
+                "the compact entity observation needs obs_entity_mode and "
+                "fast_norm (the sequential normalizer gives each observer "
+                "its own statistics)")
+
+    def _compact_stats(self, state: EnvState
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The shared normalizer's mean and std per entity position,
+        ``(B, A, F)`` each."""
+        shape = state.norm.mean.shape[:-1] + (self.n_agents,
+                                              self.obs_entity_feats)
+        return (state.norm.mean.reshape(shape),
+                state.norm.std.reshape(shape))
+
+    def compact_obs(self, state: EnvState, params: EnvParams
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                               torch.Tensor]:
+        """Factored entity observation of a post-``get_obs`` state (its
+        normalizer already updated): ``(rows (B, A, 8), same_mec (B, A, A)
+        bool, mean (B, A, 9), std (B, A, 9))``. Every observer is
+        normalized by the same per-position statistics, so these
+        reconstruct the dense obs exactly; padded agents' unique negative
+        ``mec_index`` makes each visible only to itself. Needs
+        ``obs_entity_mode`` and ``fast_norm``."""
+        self._require_compact()
+        rows, same_mec = self._entity_parts(state, params)
+        return (rows, same_mec) + self._compact_stats(state)
 
     def get_state(self, state: EnvState, params: EnvParams) -> torch.Tensor:
         """(B, state_dim): all ACK one-hots ++ all agent_inf rows
@@ -556,11 +602,12 @@ class MultiAgvOffloadingEnv:
     # ---- API
 
     def reset(self, key: torch.Tensor, norm: NormState = None,
-              params: EnvParams = None
-              ) -> Tuple[EnvState, torch.Tensor, torch.Tensor, torch.Tensor]:
+              params: EnvParams = None, obs_form: str = "dense"
+              ) -> Tuple[EnvState, object, torch.Tensor, torch.Tensor]:
         """Keys ``(B, 2)`` → (state, obs, global_state, avail): fresh
         positions, empty queues, one ``generate_job`` call; ``norm``
-        carries each lane's normalizer across episodes (None = fresh)."""
+        carries each lane's normalizer across episodes (None = fresh);
+        ``obs`` in ``obs_form``."""
         b, a, j = key.shape[0], self.n_agents, self.max_jobs
         params = self.default_params(b) if params is None else params
         dev = key.device
@@ -580,7 +627,7 @@ class MultiAgvOffloadingEnv:
             norm=(NormState.create(self.obs_dim, (b,), dev) if norm is None
                   else norm))
         state = self._generate_jobs(state, draws, params)
-        state, obs = self.get_obs(state, params)
+        state, obs = self.get_obs(state, params, obs_form=obs_form)
         return (state, obs, self.get_state(state, params),
                 self.get_avail_actions(state, params))
 
@@ -590,13 +637,14 @@ class MultiAgvOffloadingEnv:
 
     def step(self, state: EnvState, actions: torch.Tensor,
              key: torch.Tensor, params: EnvParams, update_norm: bool = True,
-             draws: StepDraws = None
+             draws: StepDraws = None, obs_form: str = "dense"
              ) -> Tuple[EnvState, torch.Tensor, torch.Tensor, StepInfo,
-                        torch.Tensor, torch.Tensor, torch.Tensor]:
+                        object, torch.Tensor, torch.Tensor]:
         """→ (state', reward, terminated, info, obs', global_state',
-        avail'), each with the leading lane dimension. The step's random
-        numbers come from the lane keys ``key (B, 2)``, or are handed in
-        already drawn from them (``draws``, see ``draw_step``)."""
+        avail'), each with the leading lane dimension; ``obs'`` in
+        ``obs_form``. The step's random numbers come from the lane keys
+        ``key (B, 2)``, or are handed in already drawn from them
+        (``draws``, see ``draw_step``)."""
         if draws is None:
             draws = self.draw_step(key)
         a, m, c = self.n_agents, self.n_mec, self.n_actions
@@ -646,7 +694,8 @@ class MultiAgvOffloadingEnv:
             task_completion_delay=state.remain_delay.sum(dim=-1)
             / torch.clamp(ts, min=1).float(),
             deadline_miss_rate=(tn - ts - queued).float() / tn1)
-        state, obs = self.get_obs(state, params, update_norm=update_norm)
+        state, obs = self.get_obs(state, params, update_norm=update_norm,
+                                  obs_form=obs_form)
         return (state, reward, terminated, info, obs,
                 self.get_state(state, params),
                 self.get_avail_actions(state, params))

@@ -20,10 +20,20 @@ and run through ``functional_call``. The optimizer is functional too
 formulas), so the non-finite guard selects old or new params AND
 optimizer state elementwise on the device, with no host sync.
 
+Compact entity storage (``CompactEntityObs`` episodes) unrolls the agent
+through the entity-table forward, rebuilding the same-MEC mask from the
+stored int8 MEC index; that unroll launches no flash kernel, and the
+mixer reads the state alone. A noisy q-head (``action_selector:
+noisy-new``) trains with noise from ``k_learn``: ``k_ag, k_tag, k_mx,
+k_tmx = split(key, 4)``, one key a step from ``split(k_ag, T + 1)`` (and
+``k_tag``), as in JAX; the learner draws every step's q-head weights
+before its unroll, the same numbers the JAX scan draws step by step.
+
 Not ported (each raises ``NotImplementedError`` naming the ROADMAP
-item): noisy or dropout training keys, compact entity storage, the
-padding mask of scenario distributions that can pad, ``obs.sight``, the
-population ``spec``, ``model.remat`` and the ``qmix_ff``/``vdn`` mixers.
+item): dropout, the dense agent's noise (``noisy-new`` with
+``use_qslice: false``), the padding mask of scenario distributions that
+can pad, ``obs.sight``, the population ``spec``, ``model.remat`` and
+the ``qmix_ff``/``vdn`` mixers.
 """
 
 from __future__ import annotations
@@ -34,13 +44,15 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch.func import functional_call
 
-from ..components.episode_buffer import EpisodeBatch
+from .. import prng
+from ..components.episode_buffer import CompactEntityObs, EpisodeBatch
 from ..config import TrainConfig
 from ..controllers.basic_mac import (BasicMAC, Params, init_module_params,
                                      torch_dtype)
 from ..device import DeviceLike, resolve_device
 from ..models.mixer import TransformerMixer
-from ..ops.query_slice import entity_store_eligible
+from ..models.noisy import noisy_weights
+from ..ops.query_slice import agent_qslice_eligible
 
 Tree = Dict[str, Params]
 
@@ -163,15 +175,14 @@ class QMixLearner:
         device = resolve_device(device)
         if cfg.mixer != "transformer":
             raise _not_ported(f"mixer '{cfg.mixer}'", "item 10")
-        if cfg.action_selector == "noisy-new" or cfg.model.dropout > 0.0:
-            raise _not_ported("training with noise or dropout keys "
-                              "(action_selector noisy-new, model.dropout)",
-                              "item 2 (the PRNG)")
-        if entity_store_eligible(cfg):
-            raise _not_ported("compact entity storage "
-                              "(replay.compact_entity_store)",
-                              "item 5 (the entity tables); set "
-                              "replay.compact_entity_store=false")
+        if cfg.model.dropout > 0.0:
+            raise _not_ported("training with dropout (model.dropout)",
+                              "item 2")
+        if (cfg.action_selector == "noisy-new"
+                and not agent_qslice_eligible(cfg)):
+            raise _not_ported("the dense agent's NoisyNet training noise "
+                              "(action_selector noisy-new with "
+                              "model.use_qslice=false)", "item 2")
         if scenario_can_pad(cfg.env_args, env_info["n_agents"]):
             raise _not_ported("the mixer padding mask of a scenario that "
                               "can pad", "item 11")
@@ -242,7 +253,6 @@ class QMixLearner:
 
     @property
     def _agent_qslice(self) -> bool:
-        from ..ops.query_slice import agent_qslice_eligible
         return agent_qslice_eligible(self.cfg)
 
     @property
@@ -250,15 +260,28 @@ class QMixLearner:
         from ..ops.query_slice import mixer_qslice_eligible
         return mixer_qslice_eligible(self.cfg)
 
-    def _unroll_agent(self, agent_params: Params, obs_tm: torch.Tensor,
-                      n_grad: Optional[int] = None
+    @property
+    def needs_rngs(self) -> bool:
+        """Training draws noise: a noisy q-head's sigma params get their
+        gradient only through noise drawn in the loss unroll."""
+        return (self.cfg.action_selector == "noisy-new"
+                or self.cfg.model.dropout > 0.0)
+
+    def _unroll_agent(self, agent_params: Params,
+                      obs_tm: Optional[torch.Tensor],
+                      key: Optional[torch.Tensor] = None,
+                      compact_tm=None, n_grad: Optional[int] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
         """obs_tm ``(T1, B, A, O)`` → (q ``(T1, B, A, n_actions)``,
-        hiddens ``(T1, B, A, emb)``), carrying the hidden token. Steps
-        from ``n_grad`` on run without autograd: the online unroll's
-        bootstrap step feeds only the detached double-Q argmax, and JAX
-        prunes its backward the same way (torch would otherwise run it
-        with zero cotangents)."""
+        hiddens ``(T1, B, A, emb)``), carrying the hidden token. With
+        ``compact_tm`` (time-major ``(rows, same_mec, mean, std)``) the
+        entity-table forward runs instead and ``obs_tm`` may be None.
+        ``key`` (noisy q-head) gives step ``t`` the key ``split(key,
+        T1)[t]``; every step's noisy weights are drawn before the loop.
+        Steps from ``n_grad`` on run without autograd: the online
+        unroll's bootstrap step feeds only the detached double-Q argmax,
+        and JAX prunes its backward the same way (torch would otherwise
+        run it with zero cotangents)."""
         if self._agent_qslice:
             from ..ops.query_slice import fold_agent_params
             a = self.mac.agent
@@ -266,26 +289,42 @@ class QMixLearner:
             agent_params = fold_agent_params(
                 agent_params, emb=a.emb, heads=a.heads, depth=a.depth,
                 standard_heads=a.standard_heads, dtype=a.dtype)
-            fwd = lambda p, o, h: self.mac.forward_qslice(
-                p, o, h, attn_impl=self.cfg.kernels.attention)
+            if compact_tm is not None:
+                fwd = self.mac.forward_entity
+            else:
+                fwd = lambda p, o, h: self.mac.forward_qslice(
+                    p, o, h, attn_impl=self.cfg.kernels.attention)
         else:
             fwd = self.mac.forward
-        h = self.mac.init_hidden(obs_tm.shape[1])
+        xs = (list(zip(*compact_tm)) if compact_tm is not None
+              else list(obs_tm))
+        step_params = [agent_params] * len(xs)
+        if key is not None:
+            qb = agent_params["qb"]
+            w, b = noisy_weights(qb["weight_mu"], qb["weight_sigma"],
+                                 qb["bias_mu"], qb["bias_sigma"],
+                                 prng.split(key, len(xs)))
+            step_params = [dict(agent_params, qb={"weight": w[t],
+                                                  "bias": b[t]})
+                           for t in range(len(xs))]
+        h = self.mac.init_hidden(len(xs[0][0]) if compact_tm is not None
+                                 else obs_tm.shape[1])
         grad = torch.is_grad_enabled()
         qs, hs = [], []
-        for t, obs_t in enumerate(obs_tm):
+        for t, x_t in enumerate(xs):
             with torch.set_grad_enabled(grad and (n_grad is None
                                                   or t < n_grad)):
-                q, h = fwd(agent_params, obs_t, h)
+                q, h = fwd(step_params[t], x_t, h)
             qs.append(q)
             hs.append(h)
         return torch.stack(qs), torch.stack(hs)
 
     def _unroll_mixer(self, mixer_params: Params, q_tm: torch.Tensor,
                       hid_tm: torch.Tensor, state_tm: torch.Tensor,
-                      obs_tm: torch.Tensor) -> torch.Tensor:
+                      obs_tm: Optional[torch.Tensor]) -> torch.Tensor:
         """q_tm ``(T, B, A)`` → ``q_tot (T, B)``, carrying the 3 hyper
-        tokens across time."""
+        tokens across time. ``obs_tm`` is None under compact storage
+        (the mixer reads the state alone)."""
         if self._mixer_qslice:
             from ..ops.query_slice import make_mixer_qslice
             fold, mix = make_mixer_qslice(self.mixer)
@@ -294,6 +333,8 @@ class QMixLearner:
             mix = lambda p, *xs: functional_call(self.mixer, p, xs,
                                                  strict=True)
         hyper = self.mixer.initial_hyper(q_tm.shape[1], device=self.device)
+        if obs_tm is None:
+            obs_tm = [None] * len(q_tm)
         q_tots = []
         for qv, h, s, o in zip(q_tm, hid_tm, state_tm, obs_tm):
             q_tot, hyper = mix(mixer_params, qv[:, None, :], h, hyper, s, o)
@@ -303,12 +344,24 @@ class QMixLearner:
     # ------------------------------------------------------------- loss
 
     def _loss(self, params: Tree, target_params: Tree, batch: EpisodeBatch,
-              weights: torch.Tensor
+              weights: torch.Tensor, key: Optional[torch.Tensor] = None
               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         cfg = self.cfg
         tm = lambda x: x.transpose(0, 1)
-        # obs/state may be stored bf16: the loss math lifts them to f32
-        obs = tm(batch.obs).float()
+        # obs/state may be stored bf16: the loss math lifts them to f32.
+        # Compact storage unrolls through the entity tables, with the
+        # same-MEC mask rebuilt from the stored MEC index (padded agents'
+        # unique sentinels keep them visible to themselves alone)
+        if isinstance(batch.obs, CompactEntityObs):
+            co = batch.obs
+            mec = tm(co.mec_index)
+            compact_tm = (tm(co.rows).float(),
+                          mec.unsqueeze(-1) == mec.unsqueeze(-2),
+                          tm(co.mean), tm(co.std))
+            obs = None
+        else:
+            compact_tm = None
+            obs = tm(batch.obs).float()
         state = tm(batch.state).float()
         avail = tm(batch.avail_actions)                    # (T+1, B, A, n)
         actions = tm(batch.actions).long()                 # (T, B, A)
@@ -316,11 +369,16 @@ class QMixLearner:
         term = tm(batch.terminated).float()
         mask = tm(batch.filled).float()
 
-        qs, hs = self._unroll_agent(params["agent"], obs,
-                                    n_grad=obs.shape[0] - 1)
+        # the mixer keys (k_mx, k_tmx) would seed dropout, which raises at
+        # build: the mixer unrolls stay deterministic
+        k_ag = k_tag = None
+        if key is not None:
+            k_ag, k_tag, _k_mx, _k_tmx = prng.split(key, 4).unbind(0)
+        qs, hs = self._unroll_agent(params["agent"], obs, k_ag, compact_tm,
+                                    n_grad=avail.shape[0] - 1)
         with torch.no_grad():
             target_qs, target_hs = self._unroll_agent(
-                target_params["agent"], obs)
+                target_params["agent"], obs, k_tag, compact_tm)
 
         chosen = qs[:-1].gather(-1, actions[..., None])[..., 0]  # (T, B, A)
         # illegal actions are suppressed in the targets; over all T+1
@@ -336,7 +394,8 @@ class QMixLearner:
                 target_params["mixer"], target_max, target_hs, state,
                 obs)[1:]
         q_tot = self._unroll_mixer(params["mixer"], chosen, hs[:-1],
-                                   state[:-1], obs[:-1])
+                                   state[:-1],
+                                   None if obs is None else obs[:-1])
 
         if cfg.reward_unit != 1.0:
             reward = reward / cfg.reward_unit
@@ -366,20 +425,29 @@ class QMixLearner:
     # ------------------------------------------------------------ train
 
     def train(self, ls: LearnerState, batch: EpisodeBatch,
-              weights: torch.Tensor, t_env, episode, spec=None
+              weights: torch.Tensor, t_env, episode,
+              key: Optional[torch.Tensor] = None, spec=None
               ) -> Tuple[LearnerState, Dict[str, torch.Tensor]]:
         """One importance-weighted QMIX update; hard target sync every
-        ``target_update_interval`` episodes. ``info["grad_norm"]`` is the
-        pre-clip norm; when the loss or the gradients are not finite
-        (``info["all_finite"]`` False) params and optimizer state pass
-        through unchanged, and ``train_steps`` still counts the call."""
+        ``target_update_interval`` episodes. ``key`` (``k_learn``) seeds
+        the noisy q-head and is required when it is on (ignored
+        otherwise). ``info["grad_norm"]`` is the pre-clip norm; when the
+        loss or the gradients are not finite (``info["all_finite"]``
+        False) params and optimizer state pass through unchanged, and
+        ``train_steps`` still counts the call."""
         del t_env
         if spec is not None:
             raise _not_ported("the population spec", "item 11")
+        if self.needs_rngs and key is None:
+            raise ValueError("QMixLearner.train needs a PRNG key when "
+                             "action_selector is noisy-new (the noise is "
+                             "drawn in the loss unroll)")
+        if not self.needs_rngs:
+            key = None
         cfg = self.cfg
         params = _tree_map(lambda p: p.detach().requires_grad_(), ls.params)
         loss, info = self._loss(params, ls.target_params, batch,
-                                weights.to(self.device).float())
+                                weights.to(self.device).float(), key)
         inject_at = cfg.resilience.inject_nan_at_step
         if inject_at >= 0:            # fault injection (off: not traced)
             trip = ls.train_steps == inject_at

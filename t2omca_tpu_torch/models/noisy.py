@@ -1,10 +1,14 @@
 """Factorized-Gaussian NoisyNet linear layer (port of
-``t2omca_tpu/models/noisy.py``), deterministic path only.
+``t2omca_tpu/models/noisy.py``).
 
-``w = mu_w + sigma_w * (f(eps_out) ⊗ f(eps_in))``; evaluation (and so
-serving) uses the mean weights alone, which is all this slice runs. The
-noise draw needs the threefry PRNG port and arrives with the training
-slice. Weights are stored torch-style, ``(out, in)``.
+``w = mu_w + sigma_w * (f(eps_out) ⊗ f(eps_in))``, ``b = mu_b + sigma_b *
+f(eps_out)`` with ``f(x) = sign(x)·sqrt(|x|)``. ``noisy_weights`` makes
+one draw of that affine from an explicit threefry key, as the JAX
+function does for the query-slice and entity-table q-heads
+(``ops/query_slice._q_head``), bit for bit in the key chain. The dense
+module below keeps only its deterministic mu path: its noisy forward
+draws through flax's path-folded ``make_rng`` stream in JAX, which is
+not ported. Weights are stored torch-style, ``(out, in)``.
 """
 
 from __future__ import annotations
@@ -12,6 +16,32 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from .. import prng
+from ..xla_float import fma, sqrt
+
+
+def _scaled_noise(key: torch.Tensor, n: int) -> torch.Tensor:
+    """``f(x) = sign(x)·sqrt(|x|)`` of ``n`` standard normals from ``key
+    (..., 2)`` → ``(..., n)``."""
+    x = prng.normal(key, (n,))
+    return torch.sign(x) * sqrt(torch.abs(x))
+
+
+def noisy_weights(w_mu: torch.Tensor, w_sigma: torch.Tensor,
+                  b_mu, b_sigma, key: torch.Tensor):
+    """One factored-Gaussian draw of the noisy affine: ``k_in, k_out =
+    split(key)``, ``eps_in`` over the ``in`` features and ``eps_out`` over
+    the ``out`` features. ``w (out, in)``; keys ``(..., 2)`` give a draw
+    for each key, ``(..., out, in)``. ``b_mu=None`` for bias-less layers.
+    XLA contracts ``sigma · outer + mu`` into one FMA; so does this."""
+    k_in, k_out = prng.split(key).unbind(-2)
+    eps_in = _scaled_noise(k_in, w_mu.shape[-1])
+    eps_out = _scaled_noise(k_out, w_mu.shape[-2])
+    outer = eps_out.unsqueeze(-1) * eps_in.unsqueeze(-2)
+    w = fma(w_sigma, outer, w_mu)
+    b = None if b_mu is None else fma(b_sigma, eps_out, b_mu)
+    return w, b
 
 
 class NoisyLinear(nn.Module):
@@ -31,7 +61,9 @@ class NoisyLinear(nn.Module):
                 ) -> torch.Tensor:
         if not deterministic:
             raise NotImplementedError(
-                "NoisyLinear noise draws need the threefry PRNG port "
-                "(training slice); only the deterministic mu path exists")
+                "the dense NoisyLinear's training noise (flax's make_rng "
+                "stream) is not ported yet (ROADMAP.md Queue A item 2); "
+                "the query-slice and entity-table q-heads draw theirs "
+                "(noisy_weights)")
         return F.linear(x, self.weight_mu.to(x.dtype),
                         self.bias_mu.to(x.dtype))

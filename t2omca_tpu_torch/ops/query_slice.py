@@ -17,17 +17,28 @@ the agent's state dict (``TransformerAgent`` names) or a
 ``n_agents + 3`` rows (w1 per agent, b1, w2, the b2 source and the 3
 recurrent hyper tokens), with ``k0`` as both keys and values; under
 autograd the flash kernel's Function returns ``dk`` and ``dv`` for that
-one tensor and autograd sums them. The entity tables are a later slice.
+one tensor and autograd sums them.
+
+``agent_forward_qslice_entity`` is the entity-table acting forward: under
+``obs_entity_mode`` + ``fast_norm`` every observer's token ``j`` is one of
+two per-env embedded rows (entity ``j`` visible or masked) plus an
+is-self correction on the diagonal, so logits and context contract
+against ``(B, A, E)`` tables and the ``(B·A, A+1, E)`` keys never exist.
+It is plain tensor code (JAX computes it outside any Pallas kernel), so
+it launches no flash kernel. Noisy q-heads draw one factored-Gaussian
+sample a call from an explicit threefry key (``_q_head``), which is not
+the dense flax module's ``make_rng`` stream.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from ..kernels.attention import flash_attention
 from ..models.mixer import qmix_pos_func
+from ..models.noisy import noisy_weights
 from ..models.transformer import LN_EPS
 
 #: marker key of a pre-folded parameter tree
@@ -43,8 +54,10 @@ def agent_qslice_eligible(cfg) -> bool:
 
 
 def entity_tables_eligible(cfg) -> bool:
-    """Whether the JAX package acts through the entity tables (not
-    ported: the port's runner raises on it)."""
+    """Whether acting (and the learner's compact unroll) runs the entity
+    tables: the query-slice agent, the entity observation mode, the
+    batched normalizer (the sequential one gives each observer its own
+    prefix statistics) and no entity-count override."""
     return (cfg.model.use_entity_tables
             and agent_qslice_eligible(cfg)
             and cfg.env_args.obs_entity_mode
@@ -53,8 +66,10 @@ def entity_tables_eligible(cfg) -> bool:
 
 
 def entity_store_eligible(cfg) -> bool:
-    """Whether the JAX package stores compact entity observations (not
-    ported: the port's learner raises on it)."""
+    """Whether episodes store the compact entity observation
+    (``CompactEntityObs``): the entity tables, a mixer that reads the
+    state and not the obs, the ring on the device, and MEC ids that fit
+    the stored int8."""
     return (cfg.replay.compact_entity_store
             and entity_tables_eligible(cfg)
             and cfg.env_args.state_entity_mode
@@ -170,13 +185,19 @@ def transformer_rows(tf_folded: dict, k0: torch.Tensor, x0: torch.Tensor,
     return x0.float()
 
 
-def _q_head(qb: Dict[str, torch.Tensor], h_new: torch.Tensor
-            ) -> torch.Tensor:
-    """Q head on ``(S, E)`` f32 rows: dense ``q_basic`` or the noisy
-    layer's deterministic mu path."""
+def _q_head(qb: Dict[str, torch.Tensor], h_new: torch.Tensor,
+            noise_key: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Q head on ``(S, E)`` f32 rows: dense ``q_basic`` (``weight``,
+    ``bias``) or the noisy layer. ``noise_key=None`` takes the noisy
+    layer's mu path; a ``(2,)`` key draws ONE factored-Gaussian sample of
+    its weights for the whole call (``noisy_weights``)."""
     if "weight" in qb:
         return h_new @ qb["weight"].float().t() + qb["bias"].float()
-    return h_new @ qb["weight_mu"].float().t() + qb["bias_mu"].float()
+    w, b = qb["weight_mu"].float(), qb["bias_mu"].float()
+    if noise_key is not None:
+        w, b = noisy_weights(w, qb["weight_sigma"].float(), b,
+                             qb["bias_sigma"].float(), noise_key)
+    return h_new @ w.t() + b
 
 
 def fold_agent_params(params: dict, *, emb: int, heads: int, depth: int,
@@ -202,10 +223,13 @@ def agent_forward_qslice(params: dict, inputs: torch.Tensor,
                          hidden_state: torch.Tensor, *, n_entities: int,
                          feat_dim: int, emb: int, heads: int, depth: int,
                          n_actions: int, standard_heads: bool = False,
-                         dtype=torch.float32, attn_impl: str = "xla"
+                         dtype=torch.float32,
+                         noise_key: Optional[torch.Tensor] = None,
+                         attn_impl: str = "xla"
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Drop-in for ``TransformerAgent.forward`` (deterministic): inputs
-    ``(B, A, obs)``, hidden ``(B, A, emb)`` → (q, hidden'), both f32."""
+    """Drop-in for ``TransformerAgent.forward``: inputs ``(B, A, obs)``,
+    hidden ``(B, A, emb)`` → (q, hidden'), both f32. ``noise_key`` as in
+    ``_q_head``."""
     f = fold_agent_params(params, emb=emb, heads=heads, depth=depth,
                           standard_heads=standard_heads, dtype=dtype)
     b, a, _ = inputs.shape
@@ -220,7 +244,89 @@ def agent_forward_qslice(params: dict, inputs: torch.Tensor,
                            heads=heads, depth=depth, dtype=dtype,
                            attn_impl=attn_impl)                # (S, 1, E)
     h_new = out[:, 0, :]
-    q = _q_head(f["qb"], h_new)
+    q = _q_head(f["qb"], h_new, noise_key)
+    return q.reshape(b, a, n_actions), h_new.reshape(b, a, emb)
+
+
+def _bmm32(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """``x @ y`` over ``dtype`` operands, accumulated in f32 (the einsums
+    with ``preferred_element_type=f32``: bf16 products are exact in
+    f32)."""
+    return torch.matmul(x.float(), y.float())
+
+
+def agent_forward_qslice_entity(params: dict, rows: torch.Tensor,
+                                same_mec: torch.Tensor, mean: torch.Tensor,
+                                std: torch.Tensor,
+                                hidden_state: torch.Tensor, *, emb: int,
+                                heads: int, depth: int, n_actions: int,
+                                standard_heads: bool = False,
+                                dtype=torch.float32,
+                                noise_key: Optional[torch.Tensor] = None
+                                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``agent_forward_qslice`` on the factored entity observation
+    (``MultiAgvOffloadingEnv.compact_obs``): ``rows (B, A, 8)``,
+    ``same_mec (B, A, A)`` bool, ``mean``/``std (B, A, 9)``, hidden ``(B,
+    A, emb)`` → (q, hidden'), both f32. Agent ``i``'s token ``j`` is the
+    normalized ``(same_mec[i, j] ? rows[j] : 0, i == j)``, so each env
+    has a visible and a masked embedded row per entity plus an is-self
+    correction ``we[8] / (std[j, 8] + 1e-8)`` on the diagonal. The bf16
+    mode rounds where the JAX function does: the softmax in bf16, and
+    each of the four context terms cast to bf16 before they are added."""
+    f = fold_agent_params(params, emb=emb, heads=heads, depth=depth,
+                          standard_heads=standard_heads, dtype=dtype)
+    b, a, _ = rows.shape
+    s = b * a
+    # per-env embedding tables (feature 8 is is-self)
+    denom = std.float() + 1e-8                                # (B, A, 9)
+    rows9 = torch.cat([rows.float(), rows.new_zeros(b, a, 1,
+                                                    dtype=torch.float32)],
+                      dim=-1)
+    nv = ((rows9 - mean) / denom).to(dtype)                   # visible
+    nh = ((-mean) / denom).to(dtype)                          # masked
+    we = f["fe"]["weight"].t().to(dtype)                      # (9, E)
+    be = f["fe"]["bias"].float()
+    e_vis = (_mm32(nv, we, dtype) + be).to(dtype)             # (B, A, E)
+    e_hid = (_mm32(nh, we, dtype) + be).to(dtype)
+    self_corr = (we[8].float() / denom[..., 8:9]).to(dtype)  # (B, A, E)
+
+    h_tok = hidden_state.to(dtype)                            # (B, A, E)
+    vis = same_mec.unsqueeze(2)                               # (B, A, 1, A)
+    eye = torch.eye(a, device=rows.device).view(1, a, 1, a)
+    x0 = h_tok
+    for i in range(depth):
+        bp = f["tf"]["blocks"][i]
+        qp = _mm32(x0.reshape(s, emb), bp["wqk"], dtype)
+        qp = qp.to(dtype).reshape(b, a, heads, emb)
+        # logits against key 0 (the own hidden token) and the tables
+        l0 = _bmm32(qp, h_tok.unsqueeze(-1))[..., 0]          # (B, A, H)
+        qf = qp.reshape(b, a * heads, emb)
+        lv = _bmm32(qf, e_vis.transpose(1, 2)).reshape(b, a, heads, a)
+        lh = _bmm32(qf, e_hid.transpose(1, 2)).reshape(b, a, heads, a)
+        ls = _bmm32(qp, self_corr.unsqueeze(-1))              # (B, A, H, 1)
+        lent = torch.where(vis, lv, lh) + eye * ls
+        logits = torch.cat([l0.unsqueeze(-1), lent], dim=-1)
+        if dtype == torch.float32:
+            attn = torch.softmax(logits, dim=-1)
+        else:
+            attn = torch.softmax(logits.to(dtype), dim=-1)
+        attn = attn.to(dtype)
+        a0, ae = attn[..., 0], attn[..., 1:]                  # (B, A, H[, A])
+        av = ae * vis.to(dtype)
+        ah = ae - av                                          # masked branch
+        diag = ae.diagonal(dim1=1, dim2=3).transpose(1, 2)    # (B, A, H)
+        ctx_v = _bmm32(av.reshape(b, a * heads, a), e_vis).to(dtype)
+        ctx_h = _bmm32(ah.reshape(b, a * heads, a), e_hid).to(dtype)
+        ctx = (a0.unsqueeze(-1) * h_tok.unsqueeze(2)
+               + ctx_v.reshape(b, a, heads, emb)
+               + ctx_h.reshape(b, a, heads, emb)
+               + diag.unsqueeze(-1) * self_corr.unsqueeze(2))
+        ctx = ctx.to(dtype).reshape(s, heads * emb)
+        attended = _mm32(ctx, bp["wvu"], dtype) + bp["u_bias"].float()
+        x0 = _block_tail(bp, attended, x0.reshape(s, emb),
+                         dtype).reshape(b, a, emb)
+    h_new = x0.float().reshape(s, emb)
+    q = _q_head(f["qb"], h_new, noise_key)
     return q.reshape(b, a, n_actions), h_new.reshape(b, a, emb)
 
 

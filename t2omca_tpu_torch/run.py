@@ -37,6 +37,7 @@ from .controllers.basic_mac import MAC_REGISTRY
 from .device import DeviceLike, resolve_device
 from .envs.registry import make_env
 from .learners.qmix_learner import LEARNER_REGISTRY
+from .ops.query_slice import entity_store_eligible
 from .runners.parallel_runner import RUNNER_REGISTRY
 from .train.program import TrainState, build_train_iter
 
@@ -81,7 +82,8 @@ class Experiment:
                       n_actions=env_info["n_actions"],
                       obs_dim=env_info["obs_shape"],
                       state_dim=env_info["state_shape"],
-                      store_dtype=cfg.replay.store_dtype, device=device)
+                      store_dtype=cfg.replay.store_dtype,
+                      compact_obs=entity_store_eligible(cfg), device=device)
         if cfg.replay.prioritized:
             buffer = PrioritizedReplayBuffer(
                 alpha=cfg.replay.per_alpha, beta0=cfg.replay.per_beta,

@@ -13,7 +13,11 @@ kept from the JAX runner:
 * reward scaling (``env_args.reward_scaling``) on training rollouts
   only, the scaled reward stored and the raw one in the stats;
 * ``t_env`` does not advance in test mode;
-* obs and state stored in ``replay.store_dtype``, avail as bool.
+* obs and state stored in ``replay.store_dtype``, avail as bool;
+* under compact entity storage (``compact_store``) the obs slot holds
+  ``CompactEntityObs`` (f32 rows and statistics, the MEC index as int8)
+  made from each step's carried env state, and the acting forward reads
+  the same compact tuple through the entity tables.
 
 No draw of an episode depends on the env's state, so the rollout draws
 them all before the step loop (the env's and the selector's, over keys
@@ -22,8 +26,10 @@ draws step by step: the threefry hash then runs ~30 times a rollout
 instead of ~18 times a step. The step loop makes no host sync:
 ``t_env`` is a host int, so epsilon lives on the host, and every other
 value stays on the device.
-Not ported: ``capture`` (the serving-side trajectory viz) raises, and
-so does construction for a config that acts through the entity tables.
+The env returns the observation in the form the rollout reads
+(``obs_form``): compact alone under the default stack, so the dense
+``(B, A, A·F)`` obs is never built, as XLA drops it from the JAX rollout.
+Not ported: ``capture`` (the serving-side trajectory viz) raises.
 """
 
 from __future__ import annotations
@@ -33,14 +39,15 @@ import dataclasses
 import torch
 
 from .. import prng
-from ..components.episode_buffer import TimeMajorEpisodes
+from ..components.episode_buffer import (CompactEntityObs,
+                                        TimeMajorEpisodes, obs_map)
 from ..config import TrainConfig
 from ..controllers.basic_mac import BasicMAC, torch_dtype
 from ..envs.mec_offload import EnvParams, EnvState, MultiAgvOffloadingEnv
 from ..envs.normalization import (RewardScaleState, reset_reward_scale,
                                   scale_reward)
 from ..envs.registry import make_scenario_distribution
-from ..ops.query_slice import entity_tables_eligible
+from ..ops.query_slice import entity_store_eligible
 
 #: fold_in salt of the per-rollout scenario-sampling key (folded off the
 #: rollout key, never split from it, as in the JAX runner)
@@ -83,16 +90,25 @@ class ParallelRunner:
     mac: BasicMAC
     cfg: TrainConfig
 
-    def __post_init__(self):
-        if entity_tables_eligible(self.cfg):
-            raise NotImplementedError(
-                "the entity-table acting path and compact storage are not "
-                "ported yet (ROADMAP.md Queue A: the entity tables); set "
-                "model.use_entity_tables=false")
-
     @property
     def batch_size(self) -> int:
         return self.cfg.batch_size_run
+
+    @property
+    def compact_store(self) -> bool:
+        """Store the factored entity obs instead of the dense tensor
+        (``ops/query_slice.entity_store_eligible``)."""
+        return entity_store_eligible(self.cfg)
+
+    @property
+    def obs_form(self) -> str:
+        """What the rollout reads of each observation (the env's
+        ``obs_form``): compact alone when it acts through the entity
+        tables and stores compact obs, both when it acts through the
+        tables and stores dense obs, else dense."""
+        if self.compact_store:
+            return "compact"
+        return "both" if self.mac.use_entity_tables else "dense"
 
     @property
     def scenario(self):
@@ -111,7 +127,8 @@ class ParallelRunner:
         key, k_reset = prng.split(key).unbind(-2)
         env_params = self._sample_scenarios(k_reset)
         states = self.env.reset(prng.split(k_reset, self.batch_size),
-                                None, env_params)[0]
+                                None, env_params, obs_form="compact"
+                                if self.compact_store else "dense")[0]
         return RunnerState(
             env_states=states, key=key, t_env=0,
             rscale=RewardScaleState.create(self.cfg.gamma,
@@ -138,17 +155,38 @@ class ParallelRunner:
         key, k_reset, k_scan = prng.split(rs.key, 3).unbind(-2)
         params = self.mac.prepare_acting_params(params)
         env_params = self._sample_scenarios(rs.key)
+        form = self.obs_form
         env_states, obs, gstate, avail = env.reset(
-            prng.split(k_reset, b), rs.env_states.norm, env_params)
+            prng.split(k_reset, b), rs.env_states.norm, env_params,
+            obs_form=form)
         hidden = self.mac.init_hidden(b)
         sd = torch_dtype(self.cfg.replay.store_dtype)
         scale_on = self.cfg.env_args.reward_scaling and not test_mode
         rscale = reset_reward_scale(rs.rscale)
 
-        dev = obs.device
-        seq = lambda x, dtype: torch.empty((t_len,) + tuple(x.shape),
-                                           dtype=dtype, device=dev)
-        obs_seq, gstate_seq = seq(obs, sd), seq(gstate, sd)
+        def split_obs(obs):
+            """→ (dense obs or None, compact tuple or None)."""
+            if form == "compact":
+                return None, obs
+            return obs if form == "both" else (obs, None)
+
+        def stored(env_states, dense, compact):
+            """The obs slot's storage form (Q15: the pre-step obs).
+            Compact leaves stay f32 under any store_dtype: raw features
+            of O(1e4), which the learner normalizes again."""
+            if form != "compact":
+                return dense.to(sd)
+            rows, _, mean, std = compact
+            return CompactEntityObs(
+                rows=rows, mec_index=env_states.mec_index.to(torch.int8),
+                mean=mean, std=std)
+
+        dense, compact = split_obs(obs)
+        dev = avail.device
+        seq = lambda x, dtype=None: torch.empty(
+            (t_len,) + tuple(x.shape), dtype=dtype or x.dtype, device=dev)
+        obs_seq = obs_map(seq, stored(env_states, dense, compact))
+        gstate_seq = seq(gstate, sd)
         avail_seq = seq(avail, torch.bool)
         action_seq = torch.empty((t_len, b, env.n_agents), dtype=torch.int32,
                                  device=dev)
@@ -165,14 +203,18 @@ class ParallelRunner:
         env_draws = env.draw_step(prng.split(k_env, b))      # (T, B, A)
         for t in range(t_len):
             actions, hidden, eps = self.mac.select_actions(
-                params, obs, avail, hidden, k_act[t], t_env,
+                params, dense, avail, hidden, k_act[t], t_env,
                 test_mode=test_mode,
-                draws=None if sel is None else (sel[0][t], sel[1][t]))
-            obs_seq[t], gstate_seq[t] = obs, gstate           # Q15
+                draws=None if sel is None else (sel[0][t], sel[1][t]),
+                compact=compact)
+            obs_map(lambda dst, x: dst[t].copy_(x), obs_seq,   # Q15
+                    stored(env_states, dense, compact))
+            gstate_seq[t] = gstate
             avail_seq[t], action_seq[t] = avail > 0, actions
             env_states, reward, terminated, info, obs, gstate, avail = \
                 env.step(env_states, actions, None, env_params,
-                         draws=env_draws.at(t))
+                         draws=env_draws.at(t), obs_form=form)
+            dense, compact = split_obs(obs)
             reward_seq[t] = reward
             if scale_on:
                 rscale, rec_seq[t] = scale_reward(rscale, reward)
@@ -183,8 +225,8 @@ class ParallelRunner:
         tm = TimeMajorEpisodes(
             obs=obs_seq, state=gstate_seq, avail_actions=avail_seq,
             actions=action_seq, reward=rec_seq, terminated=term_seq,
-            last_obs=obs.to(sd), last_state=gstate.to(sd),
-            last_avail=avail > 0)
+            last_obs=stored(env_states, dense, compact),
+            last_state=gstate.to(sd), last_avail=avail > 0)
         stats = RolloutStats(
             episode_return=reward_seq.sum(dim=0),
             episode_length=torch.full((b,), float(t_len), device=dev),

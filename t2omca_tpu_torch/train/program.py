@@ -29,17 +29,17 @@ def build_train_iter(buffer, learner, cfg):
     """→ ``train_iter(ts, key, t_env) -> (ts', info)``. ``key`` (a ``(2,)``
     key of the driver's chain) splits into ``k_sample, k_learn`` as in
     the JAX program; the sampler draws from ``k_sample``, and ``k_learn``
-    would seed noise or dropout, which the port's learner does not train
-    with yet. A step whose loss or gradients are not finite writes back
+    seeds a noisy q-head's training noise (the learner ignores it
+    otherwise). A step whose loss or gradients are not finite writes back
     the sampled episodes' existing priorities (``valid=``), so NaN never
     enters the ring."""
 
     def train_iter(ts: TrainState, key: torch.Tensor, t_env):
-        k_sample, _k_learn = prng.split(key).unbind(-2)
+        k_sample, k_learn = prng.split(key).unbind(-2)
         batch, idx, weights = buffer.sample(ts.buffer, k_sample,
                                             cfg.batch_size, t_env)
         learner_state, info = learner.train(ts.learner, batch, weights,
-                                            t_env, ts.episode)
+                                            t_env, ts.episode, k_learn)
         buf = buffer.update_priorities(
             ts.buffer, idx, info["td_errors_abs"] + 1e-6,          # Q9
             valid=info["all_finite"])

@@ -412,3 +412,82 @@ def test_one_loop_iteration_on_cuda(cuda_device):
     taken = torch.gather(st.avail_actions[:4, :-1], -1,
                          st.actions[:4].long().unsqueeze(-1))
     assert bool(taken.all()) and cursor.t_env == 4 * 12
+
+
+# --------------------------------------------------- the default fast stack
+
+def _entity_setup(cuda_device, dtype, noisy=False):
+    """A MAC on the default stack and a few env steps at small widths on
+    the card: → (exp, params, dense obs, compact obs, avail)."""
+    from t2omca_tpu_torch import prng
+    from t2omca_tpu_torch.config import from_dict
+    from t2omca_tpu_torch.run import Experiment
+    cfg = from_dict({
+        "batch_size_run": 4, "batch_size": 4,
+        "action_selector": "noisy-new" if noisy else "epsilon_greedy",
+        "env_args": {"agv_num": 16, "mec_num": 4, "num_channels": 4,
+                     "episode_limit": 12},
+        "model": {"emb": 64, "heads": 4, "depth": 2, "mixer_emb": 64,
+                  "mixer_heads": 4, "mixer_depth": 2,
+                  "standard_heads": True, "dtype": dtype},
+        "replay": {"buffer_size": 8}})
+    exp = Experiment.build(cfg, device=cuda_device)
+    assert exp.mac.use_entity_tables
+    env = exp.env
+    state, (dense, compact), _, avail = env.reset(
+        prng.split(prng.PRNGKey(0, cuda_device), 4), obs_form="both")
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    for i in range(3):
+        acts = torch.where(avail > 0, torch.rand(avail.shape, device=cuda_device,
+                                                 generator=g), -1.0).argmax(-1)
+        state, _, _, _, (dense, compact), _, avail = env.step(
+            state, acts, prng.split(prng.PRNGKey(10 + i, cuda_device), 4),
+            env.default_params(4), obs_form="both")
+    params = exp.mac.init_params(torch.Generator().manual_seed(0))
+    return exp, params, dense, compact, avail
+
+
+@pytest.mark.cuda
+def test_entity_forward_matches_query_slice_on_cuda(cuda_device):
+    """The entity-table forward against the query-slice forward on the
+    env's dense obs, on the card at f32: q and h within rtol 2e-4 / atol
+    2e-5 (tests/test_entity_tables.py's bound); it launches no flash
+    kernel."""
+    exp, params, dense, compact, _ = _entity_setup(cuda_device, "float32")
+    hidden = torch.randn(4, 16, 64, device=cuda_device,
+                         generator=torch.Generator(
+                             device=cuda_device).manual_seed(2))
+    port.reset_launches()
+    q_ent, h_ent = exp.mac.forward_entity(params, compact, hidden)
+    assert sum(port.LAUNCHES.values()) == 0
+    q_obs, h_obs = exp.mac.forward_qslice(params, dense, hidden)
+    torch.testing.assert_close(q_ent, q_obs, rtol=2e-4, atol=2e-5)
+    torch.testing.assert_close(h_ent, h_obs, rtol=2e-4, atol=2e-5)
+
+
+@pytest.mark.cuda
+def test_noisy_select_actions_on_cuda(cuda_device):
+    """One noisy ``select_actions`` on CUDA tensors through the entity
+    tables: legal actions, the same actions as the CPU from the same key
+    and inputs, and the mu head (test mode) differs in q."""
+    from t2omca_tpu_torch import prng
+    exp, params, _, compact, avail = _entity_setup(cuda_device, "float32",
+                                                   noisy=True)
+    mac = exp.mac
+    key = prng.PRNGKey(7, cuda_device)
+    hidden = mac.init_hidden(4)
+    acts, h, _ = mac.select_actions(params, None, avail, hidden, key,
+                                    compact=compact)
+    assert acts.device.type == "cuda" and acts.shape == (4, 16)
+    taken = torch.gather(avail, -1, acts.long().unsqueeze(-1))
+    assert bool((taken > 0).all())
+    cpu = lambda x: x.cpu() if isinstance(x, torch.Tensor) else x
+    acts_cpu, _, _ = mac.select_actions(
+        {k: v.cpu() for k, v in params.items()}, None, avail.cpu(),
+        hidden.cpu(), key.cpu(), compact=tuple(map(cpu, compact)))
+    assert torch.equal(acts.cpu(), acts_cpu)
+    k_noise = prng.split(key)[0]
+    q_noisy, _ = mac.forward_entity(params, compact, hidden, key=k_noise,
+                                    deterministic=False)
+    q_mu, _ = mac.forward_entity(params, compact, hidden)
+    assert not torch.equal(q_noisy, q_mu)

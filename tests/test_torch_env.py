@@ -304,7 +304,8 @@ def test_normalization_matches_jax():
 
 def test_scenarios_and_registry():
     """The fixed kind samples; the uniform and mixture kinds raise naming
-    ROADMAP item 11; ``compact_obs`` raises naming the entity tables."""
+    ROADMAP item 11; ``compact_obs`` of a reset state equals the jitted
+    JAX one exactly, and the sequential normalizer has no compact form."""
     cfg = EnvConfig(agv_num=4, mec_num=2, num_channels=2)
     assert scenario_config(cfg).kind == "fixed"
     assert isinstance(make_distribution(scenario_config(cfg)),
@@ -318,8 +319,16 @@ def test_scenarios_and_registry():
         pkey(jax.random.split(jax.random.PRNGKey(0), 2)), tenv)
     assert float(tp.gain_scale[0]) == pytest.approx(0.7)
     assert int(tp.family[0]) == 2
-    state = tenv.reset(pkey(jax.random.split(jax.random.PRNGKey(0), 2)))[0]
-    with pytest.raises(NotImplementedError, match="entity"):
-        tenv.compact_obs(state, tenv.default_params(2))
+    keys = jax.random.split(jax.random.PRNGKey(0), 2)
+    state = tenv.reset(pkey(keys))[0]
+    jenv = JaxEnv(JaxEnvConfig(agv_num=4, mec_num=2, num_channels=2))
+    jp = jax.vmap(lambda _: jenv.default_params())(jnp.arange(2))
+    jstate = jax.jit(jax.vmap(jenv.reset))(keys, None, jp)[0]
+    want = jax.jit(jax.vmap(jenv.compact_obs))(jstate, jp)
+    for j, t in zip(want, tenv.compact_obs(state, tenv.default_params(2))):
+        np.testing.assert_array_equal(t.numpy(), np.asarray(j))
+    seq = make_env(dataclasses.replace(cfg, fast_norm=False), device="cpu")
+    with pytest.raises(ValueError, match="fast_norm"):
+        seq.compact_obs(state, seq.default_params(2))
     with pytest.raises(KeyError):
         make_env(dataclasses.replace(cfg, key="nope"), device="cpu")

@@ -80,11 +80,15 @@ def to_port(ep):
                            for k, v in ep.items()})
 
 
-def build_pair(d):
+def build_pair(d, jit_init=False):
+    """JAX and port learners of config ``d`` from the same params; with
+    ``jit_init`` the JAX state is initialized under ``jax.jit`` (faster,
+    other float32 values than the eager init)."""
     jcfg = jax_from_dict(d)
     info = jax_make_env(jcfg.env_args).get_env_info()
     jl = JaxLearner.build(jcfg, JaxMAC.build(jcfg, info), info)
-    jls = jl.init_state(jax.random.PRNGKey(0))
+    init = jax.jit(jl.init_state) if jit_init else jl.init_state
+    jls = init(jax.random.PRNGKey(0))
     tcfg = from_dict(d)
     tinfo = make_env(tcfg.env_args).get_env_info()
     assert tinfo == info
@@ -191,8 +195,7 @@ def test_train_info_zeros_matches_train_info():
 
 @pytest.mark.parametrize("over,match", [
     ({"mixer": "vdn"}, "mixer 'vdn'"),
-    ({"model.dropout": 0.1}, "noise or dropout"),
-    ({"replay.compact_entity_store": True}, "compact entity storage"),
+    ({"model.dropout": 0.1}, "dropout"),
     ({"env_args.scenario": {"min_agents": 2}}, "padding mask"),
     ({"model.remat": True}, "remat"),
 ])
@@ -204,12 +207,17 @@ def test_unported_paths_raise(over, match):
         QMixLearner.build(tcfg, mac, info, device="cpu")
 
 
-def test_attention_routing_matches_the_card_launch_counts(monkeypatch):
+@pytest.mark.parametrize("compact", [False, True])
+def test_attention_routing_matches_the_card_launch_counts(monkeypatch,
+                                                          compact):
     """On CPU tensors the kernels' plain versions run where the card
     launches K1, K1 + residuals, K2 and K3. Counting those calls over one
     qslice/pallas train step gives the launch counts ``chip_smoke.py``
-    asserts on the card: K1 (2(T+1)+1)·depth (target unrolls and the
-    online agent's bootstrap step), K1 + residuals, K2 and K3 2T·depth."""
+    asserts on the card. Dense storage: K1 (2(T+1)+1)·depth (target
+    unrolls and the online agent's bootstrap step), K1 + residuals, K2
+    and K3 2T·depth. Compact storage (the default stack): the agent
+    unrolls through the entity tables and launch nothing, so K1 is the
+    target mixer's (T+1)·depth and the rest the online mixer's T·depth."""
     from t2omca_tpu_torch.kernels import attention as att
     calls = {"k1": 0, "k1_res": 0, "bwd": 0}
     ref, fwd_ref, bwd_ref = (att.flash_attention_reference,
@@ -229,15 +237,26 @@ def test_attention_routing_matches_the_card_launch_counts(monkeypatch):
     monkeypatch.setattr(att, "flash_attention_bwd_reference",
                         counted("bwd", bwd_ref))
     d = config(**{"kernels.attention": "pallas", "model.depth": 2,
-                  "model.mixer_depth": 2})
+                  "model.mixer_depth": 2,
+                  "replay.compact_entity_store": compact})
     tcfg = from_dict(d)
     info = make_env(tcfg.env_args).get_env_info()
     tl = QMixLearner.build(tcfg, BasicMAC.build(tcfg, info, device="cpu"),
                            info, device="cpu")
     tls = tl.init_state(torch.Generator().manual_seed(0))
     rng = np.random.default_rng(4)
-    tl.train(tls, to_port(make_episodes(rng, info, BATCH, T)),
-             torch.ones(BATCH), 0, 0)
+    if compact:
+        import test_torch_entity
+        batch = test_torch_entity.to_port(test_torch_entity.episodes(
+            rng, info, BATCH, T))
+    else:
+        batch = to_port(make_episodes(rng, info, BATCH, T))
+    tl.train(tls, batch, torch.ones(BATCH), 0, 0)
     depth = 2
-    assert calls == {"k1": (2 * (T + 1) + 1) * depth,
-                     "k1_res": 2 * T * depth, "bwd": 2 * T * depth}
+    if compact:
+        want = {"k1": (T + 1) * depth, "k1_res": T * depth,
+                "bwd": T * depth}
+    else:
+        want = {"k1": (2 * (T + 1) + 1) * depth, "k1_res": 2 * T * depth,
+                "bwd": 2 * T * depth}
+    assert calls == want

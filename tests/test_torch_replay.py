@@ -146,11 +146,6 @@ def test_uniform_sample_matches_jax_with_injected_scores():
         assert torch.equal(ik, it)
 
 
-def test_compact_storage_is_not_ported_and_says_so():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ReplayBuffer(capacity=4, compact_obs=True, device="cpu", **KW)
-
-
 def test_train_iter_matches_jax_composition():
     """Two trainer steps (split → sample → train → priority feedback) from
     the same ring, params and key: priorities, max_priority and params

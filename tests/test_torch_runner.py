@@ -164,12 +164,19 @@ def test_reward_scaling_rollout_matches_jax():
 
 
 def test_unported_paths_raise(pair):
+    """Capture still raises. A config that acts through the entity tables
+    but stores dense obs (``compact_entity_store: false``) builds, asks
+    the env for both obs forms, and rolls out as JAX does: actions
+    identical, the stored dense obs at the env's tolerance."""
     with pytest.raises(NotImplementedError, match="viz"):
         pair.texp.runner.run(pair.agent, pair.runner_state(), capture=True)
-    cfg = from_dict(config(**{"env_args.fast_norm": True,
-                              "model.use_entity_tables": True}))
-    with pytest.raises(NotImplementedError, match="entity"):
-        ParallelRunner(pair.texp.env, pair.texp.mac, cfg)
+    p = Pair(config(**{"env_args.fast_norm": True,
+                       "model.use_entity_tables": True,
+                       "replay.compact_entity_store": False}))
+    runner = ParallelRunner(p.texp.env, p.texp.mac, p.texp.cfg)
+    assert runner.obs_form == "both" and p.texp.mac.use_entity_tables
+    assert not p.texp.buffer.compact_obs
+    run_both(p, test_mode=False, episodes=1)
 
 
 @pytest.mark.parametrize("t_env", [0, 60, 10 ** 6])
