@@ -83,7 +83,26 @@ failed check ends the script with a non-zero exit):
              default stack at 128 lanes: [loop]'s launches, the noisy q
              differs from the mu q, and the sigma params' gradients are
              finite and not all zero
-10. summary  the kernels JSON line, the card line, the result line
+10. driver   the training driver as a user runs it: ``python -m
+             t2omca_tpu_torch``'s ``main`` on configs/
+             config3_tpu_northstar.yaml uncut (1024 lanes, ring 2048,
+             K = 4, spans and memwatch on) with kernels.attention=pallas,
+             obs.sight.enabled=false and obs.pulse_port=0: one dispatch
+             to t_env 614400 with launches 4 x [loop]'s, the metric keys,
+             a verified checkpoint and no staging leftover; the same call
+             resumed from it to 1228800 (every restored tensor, the ring
+             cursor and the driver key equal to the checkpoint's before
+             the first new dispatch, launches as before); a SIGTERM'd
+             training subprocess (4 lanes, ring 256, K = 1) exits 0 with an
+             emergency checkpoint, the resume hint and a flight recorder
+             with the memwatch peak; evaluate with benchmark.csv from a
+             full-state restore and from the model-only fallback. Prints
+             startup, the dispatch's and each iteration's time beside
+             [loop]'s, the test rollout, the checkpoint's bytes and its
+             save, hash and restore times, an evaluate episode and
+             SIGTERM to exit. Runs under a temporary directory in the
+             checkout that it deletes.
+11. summary  the kernels JSON line, the card line, the result line
 
 Run from the repository root: ``python3 chip_smoke.py``. The last line
 is ``{"ok": true, "device": {...}}``; it is printed only when every
@@ -1579,6 +1598,386 @@ def phase_loop_noisy(torch, att):
     return result
 
 
+#: [driver]: config 3 through the CLI, as a user runs it, with the three
+#: overrides it needs on the port (the flash kernels on, the learning-
+#: health probes and the live plane left to a later slice); the SIGTERM
+#: and the full-state evaluate steps run a cut copy (4 lanes, a ring of
+#: 256, and for SIGTERM K = 1), so as not to pay another full-width
+#: startup
+DRIVER_CONFIG = "configs/config3_tpu_northstar.yaml"
+DRIVER_OVERRIDES = ("kernels.attention=pallas", "obs.sight.enabled=false",
+                    "obs.pulse_port=0")
+SIGTERM_LANES = 4                   # batch_size_run 1024 -> 4
+SIGTERM_RING = 256                  # replay.buffer_size 2048 -> 256
+EVAL_EPISODES = 4
+#: the metric keys a config-3 run must write. At K = 4 the dispatch is
+#: timed as time_superstep_ms, as the JAX driver times its fused one, and
+#: env_steps_per_sec needs a second log cadence (the first only starts
+#: its clock, as in JAX): the SIGTERM run, which logs every dispatch,
+#: must write it
+DRIVER_KEYS = ("return_mean", "test_return_mean", "reward_mean",
+               "task_completion_rate_mean", "episode_limit_mean", "epsilon",
+               "loss", "grad_norm", "episode", "time_superstep_ms",
+               "time_test_ms")
+
+
+def _metric_rows(results: str) -> list:
+    rows = []
+    for path in sorted(__import__("glob").glob(
+            os.path.join(results, "*", "metrics.jsonl"))):
+        with open(path) as f:
+            rows += [json.loads(line) for line in f]
+    return rows
+
+
+def _spans(results: str) -> list:
+    out = []
+    for path in __import__("glob").glob(os.path.join(results, "*",
+                                                     "spans.jsonl")):
+        with open(path) as f:
+            out += [json.loads(line) for line in f if line.strip()]
+    return out
+
+
+def _one_dir(pattern: str) -> str:
+    found = __import__("glob").glob(pattern)
+    check(len(found) == 1, f"expected one match of {pattern}: {found}")
+    return found[0]
+
+
+class _LogLines:
+    """Collects the driver's console lines (the ``t2omca`` logger)."""
+
+    def __init__(self):
+        import logging
+        self.lines = []
+        self.handler = logging.Handler()
+        self.handler.emit = lambda rec: self.lines.append(rec.getMessage())
+        logging.getLogger("t2omca").addHandler(self.handler)
+
+    def has(self, text: str) -> bool:
+        return any(text in line for line in self.lines)
+
+    def close(self):
+        import logging
+        logging.getLogger("t2omca").removeHandler(self.handler)
+
+
+def _timed_iterations(torch, run_mod):
+    """Wrap ``run.run_classic`` so a K-iteration dispatch runs as K calls
+    of one iteration each (the same work: ``run_classic`` chains its
+    iterations exactly so) with a CUDA event after each: the device
+    timeline between the events is each iteration's time, with no added
+    synchronize. → (events list, restore function)."""
+    original = run_mod.run_classic
+    events = []
+
+    def timed(exp, ts, n, cursor=None, sync=False):
+        start = torch.cuda.Event(enable_timing=True)
+        start.record()
+        marks, recs = [start], []
+        for _ in range(n):
+            ts, cursor, (rec,) = original(exp, ts, 1, cursor, sync)
+            recs.append(rec)
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks.append(ev)
+        events.append(marks)
+        return ts, cursor, recs
+
+    run_mod.run_classic = timed
+    return events, lambda: setattr(run_mod, "run_classic", original)
+
+
+def phase_driver(torch, att, loop: dict) -> dict:
+    """The training driver through ``python -m t2omca_tpu_torch``'s
+    ``main``: config 3 uncut (one K = 4 dispatch, the test, save and log
+    cadences), an exact resume, a SIGTERM'd subprocess and evaluate."""
+    import gc
+    import glob
+    import shutil
+    import signal
+    import tempfile
+    import numpy as np
+    from t2omca_tpu_torch import __main__ as cli
+    from t2omca_tpu_torch import run as run_mod
+    from t2omca_tpu_torch.config import load_config
+    from t2omca_tpu_torch.runners.episode_runner import EpisodeRunner
+    from t2omca_tpu_torch.utils import checkpoint as ckpt
+    from t2omca_tpu_torch.utils import resilience
+    root = os.path.dirname(os.path.abspath(__file__))
+    cfg3 = os.path.join(root, DRIVER_CONFIG)
+    cfg = load_config(cfg3, DRIVER_OVERRIDES)
+    k = cfg.superstep
+    per = k * cfg.batch_size_run * cfg.env_args.episode_limit
+    check(k > 1 and cfg.t_max < per, f"[driver] {DRIVER_CONFIG} does not "
+          f"train exactly one K={k} dispatch (t_max {cfg.t_max})")
+    want = {name: k * v for name, v in loop_launches(cfg).items()}
+    timeout = max(120.0, round(4 * k * loop["iteration_p50_ms"] / 1e3))
+    tmp = tempfile.mkdtemp(prefix=".chip_smoke_driver_", dir=root)
+    base = ["--config", cfg3, *DRIVER_OVERRIDES]
+    result = {}
+    logs = _LogLines()
+    try:
+        # ---- 1. train: config 3 uncut, one dispatch of K = 4 ----------
+        out1 = os.path.join(tmp, "train")
+        events, unwrap = _timed_iterations(torch, run_mod)
+        att.reset_launches()             # ---- the driver path starts here
+        t_start = time.time()
+        try:
+            rc = cli.main(["train", *base,
+                           f"resilience.dispatch_timeout={timeout}",
+                           f"local_results_path={out1}"])
+        finally:
+            unwrap()
+        torch.cuda.synchronize()
+        train_wall = time.time() - t_start
+        launches = dict(att.LAUNCHES)    # ---- and ends here
+        check(rc == 0, f"[driver] train returned {rc}")
+        check(len(events) == 1, f"[driver] {len(events)} dispatches, "
+                                f"expected one")
+        check(launches == want, f"[driver] launches {launches} != {want}")
+        iters_ms = [a.elapsed_time(b) for a, b in zip(events[0],
+                                                      events[0][1:])]
+        rows = _metric_rows(out1)
+        keys = {r["key"] for r in rows}
+        missing = [k for k in DRIVER_KEYS if k not in keys]
+        check(not missing, f"[driver] metrics.jsonl lacks {missing}")
+        check(max(r["t"] for r in rows) == per,
+              f"[driver] last t {max(r['t'] for r in rows)} != {per}")
+        for r in rows:
+            v = r["value"]
+            check(all(np.isfinite(v if isinstance(v, list) else [v])),
+                  f"[driver] non-finite {r}")
+        model_dir = _one_dir(os.path.join(out1, "models", "*"))
+        found = ckpt.find_checkpoint(model_dir)
+        check(found is not None and found[1] == per,
+              f"[driver] checkpoint {found}")
+        check(ckpt.verify_checkpoint(found[0]), "[driver] verify failed")
+        check(not glob.glob(os.path.join(model_dir, "tmp.*")),
+              "[driver] a staging directory was left over")
+        save = dict(ckpt.LAST_TIMES)
+        spans = _spans(out1)
+        check(any(sp.get("phase") == "memwatch.snapshot" for sp in spans)
+              and any(sp.get("phase") == "checkpoint.save" for sp in spans),
+              "[driver] spans.jsonl lacks the memwatch / checkpoint spans")
+        by_phase = {}
+        for sp in spans:
+            if sp.get("event") == "span":
+                by_phase.setdefault(sp["phase"], []).append(sp)
+        disp = by_phase["dispatch.superstep"][0]
+        startup_s = disp["t0"] - t_start
+        test_ms = [r["value"] for r in rows if r["key"] == "time_test_ms"]
+        print(f"[driver] train: config 3 uncut via python -m "
+              f"t2omca_tpu_torch train --config {DRIVER_CONFIG} "
+              f"{' '.join(DRIVER_OVERRIDES)} (+ resilience.dispatch_timeout="
+              f"{timeout}, local_results_path): {cfg.batch_size_run} lanes, "
+              f"ring {cfg.replay.buffer_size}, one K={k} dispatch to t_env "
+              f"{per}, launches {launches} ({k} x [loop]'s), "
+              f"{len(rows)} metric rows, checkpoint {found[1]} verified",
+              flush=True)
+        print(f"[driver] times: startup to the first dispatch "
+              f"{startup_s:.2f} s (kernels prebuilt); dispatch host "
+              f"{disp['wall_ms']:.0f} ms; iterations (device timeline) "
+              f"{', '.join(f'{x:.0f}' for x in iters_ms)} ms against "
+              f"[loop]'s iteration p50 {loop['iteration_p50_ms']:.0f} ms "
+              f"(driver overhead {sum(iters_ms) / k - loop['iteration_p50_ms']:+.0f}"
+              f" ms an iteration); test rollout "
+              f"{test_ms[0] if test_ms else float('nan'):.0f} ms; whole "
+              f"call {train_wall:.1f} s", flush=True)
+        print(f"[driver] checkpoint: {save['save_bytes'] / 1e9:.3f} GB, "
+              f"device->host {save['save_copy_s']:.2f} s, write+fsync "
+              f"{save['save_write_s']:.2f} s "
+              f"({save['save_bytes'] / 1e9 / save['save_write_s']:.2f} GB/s),"
+              f" hash {save['save_hash_s']:.2f} s", flush=True)
+        result.update(launches=launches, iterations_ms=iters_ms,
+                      dispatch_host_ms=disp["wall_ms"], startup_s=startup_s,
+                      test_ms=test_ms[0] if test_ms else None,
+                      train_wall_s=train_wall, **save)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ---- 2. resume: the same call from the checkpoint ------------
+        saved = torch.load(os.path.join(found[0], "state.pt"),
+                           map_location="cpu", weights_only=True, mmap=True)
+        meta = ckpt.read_meta(found[0])
+        seen = {}
+
+        def compare(t_env, state, key, **_):
+            if seen:
+                return
+            tensors, host = ckpt.flatten_state(state)
+            check(set(tensors) == set(saved), "[driver] resumed leaves")
+            diff = [k for k, v in tensors.items()
+                    if not torch.equal(v.cpu(), saved[k])]
+            check(not diff, f"[driver] resumed state differs: {diff[:5]}")
+            host_want = dict(meta["host"], **{"runner.t_env": per})
+            check(host == host_want, f"[driver] host {host} != {host_want}")
+            check(key.tolist() == meta["driver"]["key"],
+                  "[driver] the driver key was not restored")
+            seen.update(t_env=t_env, n=len(tensors),
+                        bytes=sum(v.numel() * v.element_size()
+                                  for v in tensors.values()))
+            att.reset_launches()         # the new dispatch starts here
+
+        out2 = os.path.join(tmp, "resume")
+        resilience.register_fault("driver.iteration", compare)
+        t0 = time.time()
+        try:
+            rc = cli.main(["train", *base,
+                           f"resilience.dispatch_timeout={timeout}",
+                           f"checkpoint_path={model_dir}", f"t_max={per}",
+                           f"local_results_path={out2}"])
+        finally:
+            resilience.clear_faults()
+        resume_wall = time.time() - t0
+        launches2 = dict(att.LAUNCHES)
+        restore = dict(ckpt.LAST_TIMES)
+        check(rc == 0 and seen.get("t_env") == per,
+              f"[driver] resume rc {rc}, first t_env {seen.get('t_env')}")
+        check(launches2 == want, f"[driver] resume launches {launches2}")
+        rows2 = _metric_rows(out2)
+        check(max(r["t"] for r in rows2) == 2 * per,
+              f"[driver] resume ended at {max(r['t'] for r in rows2)}")
+        check(ckpt.find_checkpoint(_one_dir(os.path.join(
+            out2, "models", "*")))[1] == 2 * per, "[driver] resume save")
+        print(f"[driver] resume: from t_env {seen['t_env']} to {2 * per}; "
+              f"{seen['n']} restored tensors ({seen['bytes'] / 1e9:.3f} GB: "
+              f"params, Adam, ring, priorities, env states, runner key), "
+              f"the ring cursor and counters and the driver key equal the "
+              f"checkpoint bit for bit before the first new dispatch; "
+              f"launches {launches2}; restore: verify hash "
+              f"{restore['verify_hash_s']:.2f} s, load "
+              f"{restore['load_s']:.2f} s; whole call {resume_wall:.1f} s",
+              flush=True)
+        result.update(restore_hash_s=restore["verify_hash_s"],
+                      restore_load_s=restore["load_s"], launches_resume=
+                      launches2, resume_wall_s=resume_wall)
+        del saved
+        gc.collect()
+        torch.cuda.empty_cache()
+        shutil.rmtree(model_dir, ignore_errors=True)   # free the disk early
+        resumed_models = _one_dir(os.path.join(out2, "models", "*"))
+
+        # ---- 3. SIGTERM: a subprocess, after its first dispatch logged -
+        out3 = os.path.join(tmp, "sigterm")
+        cut = [f"batch_size_run={SIGTERM_LANES}",
+               f"replay.buffer_size={SIGTERM_RING}"]
+        # K = 1 here: a SIGTERM waits for the dispatch in flight, and one
+        # iteration bounds that wait (and runs the K = 1 dispatches)
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "t2omca_tpu_torch", "train", *base, *cut,
+             "superstep=1", "t_max=100000000",
+             "save_model_interval=100000000",
+             f"log_interval={SIGTERM_LANES * cfg.env_args.episode_limit}",
+             f"test_nepisode={SIGTERM_LANES}", f"local_results_path={out3}"],
+            cwd=root, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)
+        lines = []
+        try:
+            deadline = time.time() + 300
+            for line in proc.stdout:     # the second log cadence's line
+                lines.append(line)
+                if ("Recent stats" in line and "env_steps_per_sec" in line
+                        or time.time() > deadline):
+                    break
+            t_sig = time.time()
+            proc.send_signal(signal.SIGTERM)
+            rest, _ = proc.communicate(timeout=300)
+            sig_s = time.time() - t_sig
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        text = "".join(lines) + rest
+        check(proc.returncode == 0,
+              f"[driver] SIGTERM exit {proc.returncode}: {text[-2000:]}")
+        sig_models = _one_dir(os.path.join(out3, "models", "*"))
+        sig_found = ckpt.find_checkpoint(sig_models)
+        check(sig_found is not None, "[driver] no emergency checkpoint")
+        check("resume with checkpoint_path=" in text,
+              "[driver] no resume hint in the SIGTERM'd run's log")
+        check("env_steps_per_sec" in {r["key"] for r in _metric_rows(out3)},
+              "[driver] the SIGTERM run logged no env_steps_per_sec")
+        with open(_one_dir(os.path.join(out3, "*",
+                                        "flight_recorder.json"))) as f:
+            mem = json.load(f).get("memwatch", {})
+        hw = [d.get("high_water_bytes", -1)
+              for d in mem.get("devices", {}).values()]
+        check(mem.get("supported") is True and hw and max(hw) > 0,
+              f"[driver] flight recorder memwatch block {mem}")
+        print(f"[driver] SIGTERM: subprocess (cut: batch_size_run "
+              f"{cfg.batch_size_run} -> {SIGTERM_LANES}, buffer_size "
+              f"{cfg.replay.buffer_size} -> {SIGTERM_RING}, superstep {k} -> "
+              f"1, log_interval -> one dispatch) "
+              f"SIGTERM'd after its first dispatch logged: exit 0 in "
+              f"{sig_s:.2f} s, emergency checkpoint at t_env "
+              f"{sig_found[1]} verified, resume hint logged, "
+              f"flight_recorder.json with memwatch (peak "
+              f"{max(hw, default=0) / 2 ** 30:.2f} GiB)", flush=True)
+        result["sigterm_to_exit_s"] = sig_s
+
+        # ---- 4. evaluate: full state, then the model-only fallback ---
+        ep_s = []
+        original_run = EpisodeRunner.run
+
+        def timed_run(self, *a, **k):
+            t0 = time.perf_counter()
+            out = original_run(self, *a, **k)
+            torch.cuda.synchronize()
+            ep_s.append(time.perf_counter() - t0)
+            return out
+
+        EpisodeRunner.run = timed_run
+        evals = {}
+        try:
+            for tag, ckpt_dir, extra in (
+                    ("full", sig_models, cut),
+                    ("model-only", resumed_models,
+                     [f"batch_size_run={SIGTERM_LANES}"])):
+                out4 = os.path.join(tmp, "eval_" + tag)
+                n_lines = len(logs.lines)
+                rc = cli.main(["evaluate", *base, *extra,
+                               f"checkpoint_path={ckpt_dir}",
+                               f"test_nepisode={EVAL_EPISODES}",
+                               "benchmark_mode=true",
+                               f"local_results_path={out4}"])
+                said = logs.lines[n_lines:]
+                full = any("loaded full state" in x for x in said)
+                only = any("loaded learner (model-only)" in x for x in said)
+                check(rc == 0 and (full if tag == "full" else only),
+                      f"[driver] evaluate {tag}: rc {rc}, log {said[-5:]}")
+                rows4 = _metric_rows(out4)
+                ret = [r["value"] for r in rows4
+                       if r["key"] == "test_return_mean"]
+                check(len(ret) == 1 and np.isfinite(ret[0]),
+                      f"[driver] evaluate {tag}: test_return_mean {ret}")
+                with open(_one_dir(os.path.join(out4, "*",
+                                                "benchmark.csv"))) as f:
+                    n_rows = len(f.read().strip().splitlines()) - 1
+                check(n_rows == EVAL_EPISODES,
+                      f"[driver] benchmark.csv has {n_rows} rows")
+                evals[tag] = ret[0]
+        finally:
+            EpisodeRunner.run = original_run
+        per_ep = statistics.median(ep_s)
+        print(f"[driver] evaluate: {EVAL_EPISODES} greedy episodes each "
+              f"({SIGTERM_LANES} lanes), full-state restore of the SIGTERM "
+              f"checkpoint (test_return_mean {evals['full']:.4g}) and the "
+              f"model-only fallback from the resumed run's "
+              f"{cfg.batch_size_run}-lane checkpoint "
+              f"(test_return_mean {evals['model-only']:.4g}); benchmark.csv"
+              f" {EVAL_EPISODES} rows each; {per_ep * 1e3:.0f} ms an "
+              f"episode (p50, B=1, T=150)", flush=True)
+        result["eval_episode_ms"] = per_ep * 1e3
+    finally:
+        logs.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return result
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1637,7 +2036,12 @@ def main() -> int:
     lap("loop-dense")
     noisy = phase_loop_noisy(torch, att)
     lap("loop-noisy")
-    loops = {"loop": loop, "loop_dense": dense, "loop_noisy": noisy}
+    driver = phase_driver(torch, att, loop)
+    lap("driver")
+    loops = {"loop": loop, "loop_dense": dense, "loop_noisy": noisy,
+             "driver": {"launches": {
+                 k: driver["launches"][k] + driver["launches_resume"][k]
+                 for k in driver["launches"]}}}
 
     def fwd_times(key):
         ms, plain, lib_ms, bound, by = times[key]
@@ -1732,6 +2136,18 @@ def main() -> int:
           f"acting forward at {LOOP_LANES} lanes: entity tables "
           f"{entity['entity_ms']:.3f} ms, query slice {entity['qslice_ms']:.3f}"
           f" ms", flush=True)
+    print(f"[summary] driver (config 3 via python -m t2omca_tpu_torch, one "
+          f"K=4 dispatch): startup {driver['startup_s']:.2f} s, dispatch "
+          f"host {driver['dispatch_host_ms']:.0f} ms, iterations "
+          f"{', '.join(f'{x:.0f}' for x in driver['iterations_ms'])} ms, "
+          f"test rollout {driver['test_ms']:.0f} ms, checkpoint "
+          f"{driver['save_bytes'] / 1e9:.3f} GB (copy "
+          f"{driver['save_copy_s']:.2f} s, write {driver['save_write_s']:.2f}"
+          f" s, hash {driver['save_hash_s']:.2f} s; restore hash "
+          f"{driver['restore_hash_s']:.2f} s, load "
+          f"{driver['restore_load_s']:.2f} s), evaluate "
+          f"{driver['eval_episode_ms']:.0f} ms an episode, SIGTERM to exit "
+          f"{driver['sigterm_to_exit_s']:.2f} s", flush=True)
     print(f"[summary] total {time.perf_counter() - t_start:.1f} s; by phase: "
           + ", ".join(f"{k} {v:.1f} s" for k, v in phases.items()),
           flush=True)

@@ -29,7 +29,10 @@ value stays on the device.
 The env returns the observation in the form the rollout reads
 (``obs_form``): compact alone under the default stack, so the dense
 ``(B, A, A·F)`` obs is never built, as XLA drops it from the JAX rollout.
-Not ported: ``capture`` (the serving-side trajectory viz) raises.
+``capture=True`` also returns the visualization trajectory of the same
+episode (``runners/episode_runner.py``): each step's pre-step positions
+and serving MECs, the post-step ACKs, the actions, rewards and step
+info, as the JAX runner's scan emits them.
 """
 
 from __future__ import annotations
@@ -139,18 +142,17 @@ class ParallelRunner:
     def run(self, params, rs: RunnerState, test_mode: bool = False,
             capture: bool = False):
         """One synchronous batched episode → (runner state', episode
-        batch ``(B, T(+1), ...)``, stats)."""
-        new_rs, tm, stats = self.run_raw(params, rs, test_mode, capture)
-        return new_rs, tm.to_batch(), stats
+        batch ``(B, T(+1), ...)``, stats[, viz]). ``viz`` (with
+        ``capture``): ``{"pos", "mec_index", "acks", "actions", "reward",
+        "info"}`` of ``(T, B, ...)`` tensors, ``info`` a ``StepInfo`` of
+        every step."""
+        out = self.run_raw(params, rs, test_mode, capture)
+        return (out[0], out[1].to_batch()) + tuple(out[2:])
 
     def run_raw(self, params, rs: RunnerState, test_mode: bool = False,
                 capture: bool = False):
         """``run`` before the episode-batch assembly: → (runner state',
-        ``TimeMajorEpisodes``, stats)."""
-        if capture:
-            raise NotImplementedError(
-                "rollout capture (the serving-side trajectory viz) is not "
-                "ported yet (ROADMAP.md Queue A item 13)")
+        ``TimeMajorEpisodes``, stats[, viz])."""
         env, b, t_len = self.env, self.batch_size, self.env.cfg.episode_limit
         key, k_reset, k_scan = prng.split(rs.key, 3).unbind(-2)
         params = self.mac.prepare_acting_params(params)
@@ -193,6 +195,12 @@ class ParallelRunner:
         reward_seq = torch.empty((t_len, b), device=dev)
         rec_seq = torch.empty_like(reward_seq) if scale_on else reward_seq
         term_seq = torch.empty((t_len, b), dtype=torch.bool, device=dev)
+        # the episode return summed over time in step order, float32, as
+        # XLA reduces the time axis (a torch sum over it reassociates)
+        ret = torch.zeros(b, device=dev)
+        viz = ({"pos": seq(env_states.pos), "mec_index":
+                seq(env_states.mec_index), "acks": seq(env_states.last_ack),
+                "info": []} if capture else None)
         t_env = rs.t_env
         # every draw of the episode at once: the keys of step t are
         # split(k_scan, T)[t] -> k_act, k_env as in the JAX scan, and no
@@ -211,11 +219,18 @@ class ParallelRunner:
                     stored(env_states, dense, compact))
             gstate_seq[t] = gstate
             avail_seq[t], action_seq[t] = avail > 0, actions
+            if capture:                        # the pre-step placement
+                viz["pos"][t] = env_states.pos
+                viz["mec_index"][t] = env_states.mec_index
             env_states, reward, terminated, info, obs, gstate, avail = \
                 env.step(env_states, actions, None, env_params,
                          draws=env_draws.at(t), obs_form=form)
+            if capture:
+                viz["acks"][t] = env_states.last_ack
+                viz["info"].append(info)
             dense, compact = split_obs(obs)
             reward_seq[t] = reward
+            ret = ret + reward
             if scale_on:
                 rscale, rec_seq[t] = scale_reward(rscale, reward)
             term_seq[t] = terminated & ~info.episode_limit     # Q7
@@ -228,7 +243,7 @@ class ParallelRunner:
             last_obs=stored(env_states, dense, compact),
             last_state=gstate.to(sd), last_avail=avail > 0)
         stats = RolloutStats(
-            episode_return=reward_seq.sum(dim=0),
+            episode_return=ret,
             episode_length=torch.full((b,), float(t_len), device=dev),
             reward=reward, delay_reward=info.delay_reward,
             overtime_penalty=info.overtime_penalty,
@@ -242,6 +257,14 @@ class ParallelRunner:
         new_rs = RunnerState(env_states=env_states, key=key, t_env=t_env,
                              rscale=rscale if scale_on else rs.rscale,
                              env_params=env_params)
+        if capture:
+            infos = viz["info"]
+            viz.update(actions=action_seq, reward=reward_seq,
+                       info=type(infos[0])(**{
+                           f.name: torch.stack([getattr(i, f.name)
+                                                for i in infos])
+                           for f in dataclasses.fields(infos[0])}))
+            return new_rs, tm, stats, viz
         return new_rs, tm, stats
 
 

@@ -491,3 +491,40 @@ def test_noisy_select_actions_on_cuda(cuda_device):
                                     deterministic=False)
     q_mu, _ = mac.forward_entity(params, compact, hidden)
     assert not torch.equal(q_noisy, q_mu)
+
+
+# --------------------------------------------------- the driver's state
+
+@pytest.mark.cuda
+def test_checkpoint_round_trip_of_a_cuda_train_state(cuda_device, tmp_path):
+    """A CUDA ``TrainState`` after one iteration saves to CPU tensors and
+    loads back onto the card bit for bit, host values included."""
+    from t2omca_tpu_torch.run import Experiment, run_classic
+    from t2omca_tpu_torch.utils.checkpoint import (find_checkpoint,
+                                                   flatten_state,
+                                                   load_checkpoint,
+                                                   save_checkpoint)
+    exp = Experiment.build(_loop_cfg(), device=cuda_device)
+    ts, _, _ = run_classic(exp, exp.init_state(0), 1)
+    save_checkpoint(str(tmp_path), 48, ts)
+    dirname, step = find_checkpoint(str(tmp_path))
+    restored = load_checkpoint(dirname, exp.init_state(1))
+    a, ha = flatten_state(ts)
+    b, hb = flatten_state(restored)
+    assert step == 48 and ha == hb and set(a) == set(b)
+    assert all(v.device.type == "cuda" for v in b.values())
+    assert all(torch.equal(a[k], b[k]) for k in a)
+
+
+@pytest.mark.cuda
+def test_memwatch_reads_the_card(cuda_device):
+    from t2omca_tpu_torch.obs.memwatch import MemWatch
+    mw = MemWatch()
+    x = torch.empty(1 << 20, device=cuda_device)
+    snap = mw.snapshot("startup", t_env=0)
+    report = mw.report()
+    assert report["supported"] is True and snap
+    dev = report["devices"]["0"]
+    assert dev["bytes_in_use"] >= x.numel() * 4
+    assert dev["high_water_bytes"] >= dev["bytes_in_use"]
+    assert dev["high_water_phase"] == "startup"

@@ -86,7 +86,8 @@ def test_entry_points_raise_without_cuda_unless_cpu_named(no_cuda):
     info = make_env(cfg.env_args).get_env_info()
     tree = {"feat_embedding": {"bias": np.zeros(8)}}
     from t2omca_tpu_torch import prng
-    from t2omca_tpu_torch.run import Experiment
+    from t2omca_tpu_torch.__main__ import main
+    from t2omca_tpu_torch.run import Experiment, run
     cpu_mac = BasicMAC.build(cfg, info, device="cpu")
     buf_kw = dict(capacity=4, episode_limit=3, n_agents=2, n_actions=3,
                   obs_dim=info["obs_shape"], state_dim=info["state_shape"])
@@ -103,7 +104,10 @@ def test_entry_points_raise_without_cuda_unless_cpu_named(no_cuda):
                  lambda: QMixLearner.build(cfg, cpu_mac, info),
                  lambda: ReplayBuffer(**buf_kw),
                  lambda: PrioritizedReplayBuffer(**buf_kw),
-                 lambda: ServeFrontend(cfg, {}, (1,))):
+                 lambda: ServeFrontend(cfg, {}, (1,)),
+                 lambda: run(cfg),
+                 lambda: main(["train", "t_max=10",
+                               "env_args.agv_num=2"])):
         with pytest.raises(RuntimeError, match="CUDA|cuda"):
             call()
     # the explicit CPU request builds, inits and serves
@@ -167,12 +171,23 @@ def test_exploration_draws_from_the_key_chain():
     assert torch.equal(greedy, act(prng.PRNGKey(4, "cpu"), True)[0])
 
 
-NEW_MODULES = ("prng.py", "run.py", "xla_float.py",
+NEW_MODULES = ("prng.py", "run.py", "xla_float.py", "__main__.py",
                os.path.join("runners", "parallel_runner.py"),
+               os.path.join("runners", "episode_runner.py"),
                os.path.join("envs", "normalization.py"),
                os.path.join("envs", "critic.py"),
                os.path.join("envs", "graftworld.py"),
-               os.path.join("components", "transforms.py"))
+               os.path.join("components", "transforms.py"),
+               os.path.join("utils", "ioutil.py"),
+               os.path.join("utils", "timehelper.py"),
+               os.path.join("utils", "logging.py"),
+               os.path.join("utils", "stats.py"),
+               os.path.join("utils", "profiling.py"),
+               os.path.join("utils", "resilience.py"),
+               os.path.join("utils", "watchdog.py"),
+               os.path.join("utils", "checkpoint.py"),
+               os.path.join("obs", "spans.py"),
+               os.path.join("obs", "memwatch.py"))
 
 
 def test_import_scan_covers_the_loop_modules():

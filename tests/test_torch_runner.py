@@ -164,12 +164,24 @@ def test_reward_scaling_rollout_matches_jax():
 
 
 def test_unported_paths_raise(pair):
-    """Capture still raises. A config that acts through the entity tables
-    but stores dense obs (``compact_entity_store: false``) builds, asks
-    the env for both obs forms, and rolls out as JAX does: actions
-    identical, the stored dense obs at the env's tolerance."""
-    with pytest.raises(NotImplementedError, match="viz"):
-        pair.texp.runner.run(pair.agent, pair.runner_state(), capture=True)
+    """Capture (ported with the driver's episode runner) emits the JAX
+    runner's trajectory of the same episode: pre-step positions and MECs,
+    post-step ACKs and actions identical, rewards and step info at the
+    env's tolerance. A config that acts through the entity tables but
+    stores dense obs (``compact_entity_store: false``) builds, asks the
+    env for both obs forms, and rolls out as JAX does: actions identical,
+    the stored dense obs at the env's tolerance."""
+    jrun = jax.jit(pair.jexp.runner.run,
+                   static_argnames=("test_mode", "capture"))
+    *_, jviz = jrun(pair.jts.learner.params["agent"], pair.jts.runner,
+                    test_mode=False, capture=True)
+    *_, tviz = pair.texp.runner.run(pair.agent, pair.runner_state(),
+                                    capture=True)
+    for name in ("pos", "mec_index", "acks", "actions", "reward"):
+        assert_close(tviz[name], jviz[name], f"viz {name}")
+    for f in dataclasses.fields(tviz["info"]):
+        assert_close(getattr(tviz["info"], f.name),
+                     getattr(jviz["info"], f.name), f"viz info.{f.name}")
     p = Pair(config(**{"env_args.fast_norm": True,
                        "model.use_entity_tables": True,
                        "replay.compact_entity_store": False}))
