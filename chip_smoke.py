@@ -75,6 +75,20 @@ failed check ends the script with a non-zero exit):
              env-steps/s, trainer step and iteration p50, peak memory,
              launches and PRNG ops of a rollout by part, and a profiled
              rollout's device busy/idle share and top device ops
+   sight     the learning-health probes (obs.sight) on [loop]'s trainer
+             step (its ring: compact storage, batch 32, T = 150, bf16):
+             off and on from one state, three steps each in turns; params,
+             target, Adam and priorities bit-identical, the same kernel
+             launches, the probes finite (histograms summing to 1,
+             entropies in [0, 1]); the probes' extra compute ops at the
+             dispatcher and the step p50 both ways
+   remat     model.remat on the same step, off and on: loss, grad_norm
+             and every param bit-identical (or, printed, within
+             tests/test_torch_loop.py's tolerances), K1 + residuals twice
+             per online mixer step, the peak memory lower; then f32 at
+             T = 150 under remat (three steps: p50, peak, finite loss,
+             moving params) and the f32 pallas-vs-xla cross-check on one
+             remat step
    loop-dense  the kill switch model.use_entity_tables=false (dense obs,
              query-slice acting, the agent's unrolls through the kernels)
              at 128 lanes and a ring of 256: threefry on CUDA against the
@@ -86,16 +100,23 @@ failed check ends the script with a non-zero exit):
 10. driver   the training driver as a user runs it: ``python -m
              t2omca_tpu_torch``'s ``main`` on configs/
              config3_tpu_northstar.yaml uncut (1024 lanes, ring 2048,
-             K = 4, spans and memwatch on) with kernels.attention=pallas,
-             obs.sight.enabled=false and obs.pulse_port=0: one dispatch
-             to t_env 614400 with launches 4 x [loop]'s, the metric keys,
-             a verified checkpoint and no staging leftover; the same call
+             K = 4, spans, memwatch, the learning-health probes and the
+             live plane on port 9464 on) with kernels.attention=pallas,
+             its only override: one dispatch to t_env 614400 with
+             launches 4 x [loop]'s, the metric keys (the sight keys
+             finite, histograms summing to 1, entropies in [0, 1]),
+             /metrics and /healthz read from a thread during the call
+             (t_env, the watchdog gauges, HBM in use; the watchdog, guard
+             and five detector checks, whose verdicts it prints), a
+             verified checkpoint and no staging leftover; the same call
              resumed from it to 1228800 (every restored tensor, the ring
              cursor and the driver key equal to the checkpoint's before
              the first new dispatch, launches as before); a SIGTERM'd
-             training subprocess (4 lanes, ring 256, K = 1) exits 0 with an
-             emergency checkpoint, the resume hint and a flight recorder
-             with the memwatch peak; evaluate with benchmark.csv from a
+             training subprocess (4 lanes, ring 256, K = 1) takes a
+             PULSE_TRACE capture (a one-iteration torch.profiler Chrome
+             trace in pulse_trace_01_t*) and exits 0 with an emergency
+             checkpoint, the resume hint and a flight recorder with the
+             memwatch peak; evaluate with benchmark.csv from a
              full-state restore and from the model-only fallback. Prints
              startup, the dispatch's and each iteration's time beside
              [loop]'s, the test rollout, the checkpoint's bytes and its
@@ -812,12 +833,13 @@ def phase_kernels_bwd(torch, att):
 
 
 def train_cfg(dtype: str, attention: str = "pallas", use_qslice=True,
-              batch_size: int = 32, episode_limit: int = 150):
+              batch_size: int = 32, episode_limit: int = 150,
+              remat: bool = False):
     from t2omca_tpu_torch.config import from_dict
     d = json.loads(json.dumps(NORTH_STAR))
     d["batch_size"] = batch_size
     d["env_args"]["episode_limit"] = episode_limit
-    d["model"].update(dtype=dtype, use_qslice=use_qslice)
+    d["model"].update(dtype=dtype, use_qslice=use_qslice, remat=remat)
     d["kernels"] = {"attention": attention}
     d["replay"] = {"buffer_size": RING, "store_dtype": "bfloat16",
                    "compact_entity_store": False}
@@ -976,6 +998,7 @@ def phase_train(torch, att):
               f"{CROSS_GATE}): pallas vs xla {report}", flush=True)
         del outs
         torch.cuda.empty_cache()
+    result["cross_batch"] = (batch, w)    # [remat]'s cross-check reuses it
     return result, buffer, ring, cfg, info
 
 
@@ -987,12 +1010,14 @@ def phase_train(torch, att):
 CROSS_GATE = 1e-3
 
 
-def cross_check_step(torch, info, attention, use_qslice, batch, w):
+def cross_check_step(torch, info, attention, use_qslice, batch, w,
+                     remat: bool = False):
     """One f32 train step at batch 2 → (loss, grad_norm, clipped
     gradients, params after the step)."""
     from t2omca_tpu_torch.learners.qmix_learner import (
         clip_by_global_norm, global_norm)
-    cfg = train_cfg("float32", attention, use_qslice, batch_size=2)
+    cfg = train_cfg("float32", attention, use_qslice, batch_size=2,
+                    remat=remat)
     cfg = dataclasses.replace(cfg, model=dataclasses.replace(
         cfg.model, mixer_zero_init=True))
     lrn = build_learner(cfg, info)
@@ -1509,7 +1534,313 @@ def phase_loop(torch, att):
           f"over a trainer step alone", flush=True)
     result.update(peak_rollout_gib=peak_roll, peak_train_gib=peak_train,
                   held_gib=base)
-    del exp, ts
+    return result, exp, ts
+
+
+#: [sight] and [remat]: trainer steps of [loop]'s config 3 (compact
+#: storage, batch 32, T = 150, bf16) on [loop]'s ring, each variant from
+#: the same state with the same keys, in turns; the first step of each
+#: counted (kernel launches, and compute ops at the dispatcher, each
+#: about one device launch), the rest timed
+AB_STEPS = 3
+F32_REMAT_STEPS = 3
+
+
+def count_ops(torch, fn):
+    """→ (fn(), compute ops (view ops excluded) it dispatched, backward
+    included)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    n = [0]
+
+    class Counter(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if not func.is_view:
+                n[0] += 1
+            return func(*args, **(kwargs or {}))
+
+    with Counter():
+        out = fn()
+    torch.cuda.synchronize()
+    return out, n[0]
+
+
+def count_syncs(torch, fn):
+    """→ (fn(), the host synchronizations it made as ``file:line`` of the
+    calling frame: the calls CUDA's sync debug mode flags, such as a
+    device→host copy or ``.item()``)."""
+    import warnings
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, [f"{os.path.basename(w.filename)}:{w.lineno}"
+                 for w in caught if "synchroniz" in str(w.message)]
+
+
+def learner_leaves(ls) -> dict:
+    """Every tensor of a learner state: params, target, optimizer."""
+    out = {}
+    for name, tree in (("params", ls.params), ("target", ls.target_params),
+                       ("mu", ls.opt_state["mu"]),
+                       ("nu", ls.opt_state["nu"])):
+        for m, sub in tree.items():
+            for k, v in sub.items():
+                out[f"{name}.{m}.{k}"] = v
+    return out
+
+
+def ab_steps(torch, att, exp, ts, variants: dict, n: int = AB_STEPS):
+    """The same ``n`` trainer steps from ``ts`` under each config of
+    ``variants`` ({name: cfg}, built on [loop]'s MAC and ring), in turns
+    step by step. → {name: {"ts": state after the last step, "first":
+    state and info after the first, "ops" (first step), "syncs" (each
+    step's), "launches" (a
+    step: every step's are checked equal), "launch_total", "times_ms"
+    (all but the first), "peak_gib"}}."""
+    from t2omca_tpu_torch import prng
+    from t2omca_tpu_torch.learners import QMixLearner
+    from t2omca_tpu_torch.train.program import build_train_iter
+    info = exp.env.get_env_info()
+    iters = {name: build_train_iter(exp.buffer, QMixLearner.build(
+        cfg, exp.mac, info), cfg) for name, cfg in variants.items()}
+    keys = prng.split(prng.PRNGKey(SEED + 50, "cuda"), n)
+    t_env = exp.cfg.batch_size_run * exp.cfg.env_args.episode_limit * 4
+    out = {name: {"ts": ts, "times_ms": [], "peak_gib": 0.0,
+                  "launch_total": {}, "syncs": []} for name in variants}
+    for i in range(n):
+        for name, train_iter in iters.items():
+            r = out[name]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            att.reset_launches()         # ---- a trainer step starts here
+            if i == 0:
+                ((r["ts"], inf), r["ops"]), syncs = count_syncs(
+                    torch, lambda: count_ops(
+                        torch, lambda: train_iter(r["ts"], keys[i], t_env)))
+                r["launches"] = dict(att.LAUNCHES)
+                r["first"] = (r["ts"], inf)
+            else:
+                t0 = time.perf_counter()
+                (r["ts"], _), syncs = count_syncs(
+                    torch, lambda: train_iter(r["ts"], keys[i], t_env))
+                torch.cuda.synchronize()
+                r["times_ms"].append((time.perf_counter() - t0) * 1e3)
+            r["syncs"].append(syncs)
+            check(att.LAUNCHES == r["launches"], f"{name} step {i}: "
+                  f"launches {att.LAUNCHES} != {r['launches']}")
+            for k, v in att.LAUNCHES.items():
+                r["launch_total"][k] = r["launch_total"].get(k, 0) + v
+            r["peak_gib"] = max(r["peak_gib"],
+                                torch.cuda.max_memory_allocated() / 2 ** 30)
+    return out
+
+
+def _with(cfg, **sections):
+    """``cfg`` with fields of its sections replaced: ``model={...}``."""
+    for sect, kw in sections.items():
+        cfg = dataclasses.replace(cfg, **{sect: dataclasses.replace(
+            getattr(cfg, sect), **kw)})
+    return cfg
+
+
+def phase_sight(torch, att, exp, ts) -> dict:
+    """The learning-health probes (obs.sight) on config 3's trainer step:
+    on against off from the same state — the update bit-identical, the
+    same kernel launches, the probes' extra dispatcher ops and the step
+    p50 both ways; the probes finite and in range."""
+    import numpy as np
+    cfg = exp.cfg
+    sg = dataclasses.replace(cfg.obs.sight, enabled=True)
+    runs = ab_steps(torch, att, exp, ts, {
+        "off": cfg, "on": _with(cfg, obs={"sight": sg})})
+    off, on = runs["off"], runs["on"]
+    for when, (a, b) in (("after one step", (off["first"][0], on["first"][0])),
+                         (f"after {AB_STEPS} steps", (off["ts"], on["ts"]))):
+        la, lb = learner_leaves(a.learner), learner_leaves(b.learner)
+        diff = [k for k in la if not torch.equal(la[k], lb[k])]
+        check(not diff, f"[sight] params {when} differ with the probes on: "
+                        f"{diff[:4]}")
+        check(torch.equal(a.buffer.priorities, b.buffer.priorities),
+              f"[sight] priorities {when} differ with the probes on")
+    i_off, i_on = off["first"][1], on["first"][1]
+    for k in i_off:
+        check(torch.equal(i_off[k], i_on[k]), f"[sight] info {k} differs")
+    check(off["launches"] == on["launches"] == loop_launches(cfg),
+          f"[sight] launches {off['launches']} / {on['launches']}")
+    # the first step of a process may sync once more (one-time setup):
+    # the steady state is the later steps'
+    check(off["syncs"][1:] == on["syncs"][1:], f"[sight] the probes "
+          f"change the host syncs: off {off['syncs']}, on {on['syncs']}")
+    keys = sorted(k for k in i_on if k.startswith("sight_"))
+    vals = {k: i_on[k].float().cpu().numpy() for k in keys}
+    for k, v in vals.items():
+        check(bool(np.isfinite(v).all()), f"[sight] {k} not finite: {v}")
+        if k.endswith("_hist"):
+            check(v.shape == (sg.bins,) and abs(float(v.sum()) - 1) < 1e-5,
+                  f"[sight] {k} {v}")
+        if k.startswith("sight_attn_entropy"):
+            check(v.shape == (cfg.model.depth,)
+                  and bool(((v >= 0) & (v <= 1 + 1e-6)).all()),
+                  f"[sight] {k} {v}")
+    check(len(keys) == 15, f"[sight] keys {keys}")
+    p50 = {n: statistics.median(r["times_ms"]) for n, r in runs.items()}
+    extra = on["ops"] - off["ops"]
+    print(f"[sight] config 3's trainer step ([loop]'s ring: compact "
+          f"storage, batch {cfg.batch_size}, T={cfg.env_args.episode_limit}"
+          f", bf16), obs.sight off and on from one state, {AB_STEPS} steps "
+          f"each in turns: params, target, Adam and priorities "
+          f"bit-identical after one step and after {AB_STEPS}; kernel "
+          f"launches {on['launches']} a step both ways; host syncs of "
+          f"each step (CUDA sync debug mode) off {off['syncs']}, on "
+          f"{on['syncs']}", flush=True)
+    print(f"[sight] compute ops a step at the dispatcher (~ device "
+          f"launches): off {off['ops']}, on {on['ops']}, the probes "
+          f"+{extra} ({100 * extra / off['ops']:.2f}%); step p50 off "
+          f"{p50['off']:.1f} ms, on {p50['on']:.1f} ms "
+          f"({100 * (p50['on'] / p50['off'] - 1):+.1f}%; each: off "
+          f"{', '.join(f'{x:.1f}' for x in off['times_ms'])}, on "
+          f"{', '.join(f'{x:.1f}' for x in on['times_ms'])})", flush=True)
+    scal = {k: float(v) for k, v in vals.items() if v.ndim == 0}
+    print("[sight] probes of the first step: " + ", ".join(
+        f"{k[6:]} {v:.4g}" for k, v in scal.items()) + "; attention "
+          "entropy agent " + "/".join(f"{x:.3f}" for x in
+                                      vals["sight_attn_entropy_agent"])
+          + ", mixer " + "/".join(f"{x:.3f}" for x in
+                                  vals["sight_attn_entropy_mixer"]),
+          flush=True)
+    return {"ops_off": off["ops"], "ops_on": on["ops"], "extra_ops": extra,
+            "syncs": on["syncs"][-1],
+            "p50_off_ms": p50["off"], "p50_on_ms": p50["on"],
+            "launches": {k: off["launch_total"][k] + on["launch_total"][k]
+                         for k in on["launch_total"]}}
+
+
+def phase_remat(torch, att, exp, ts, cross_batch) -> dict:
+    """model.remat on config 3's trainer step: off against on from one
+    state (the update bit-identical or within tests/test_torch_loop.py's
+    tolerances, K1 + residuals twice per online mixer step, the peak
+    falls); then f32 at T = 150 with remat (it does not fit without),
+    and the f32 pallas-vs-xla cross-check on one remat step."""
+    import numpy as np
+    from t2omca_tpu_torch.controllers.basic_mac import BasicMAC
+    from t2omca_tpu_torch.learners import QMixLearner
+    from t2omca_tpu_torch.train.program import build_train_iter
+    from t2omca_tpu_torch import prng
+    cfg = exp.cfg
+    runs = ab_steps(torch, att, exp, ts, {
+        "off": cfg, "on": _with(cfg, model={"remat": True})})
+    off, on = runs["off"], runs["on"]
+    want = loop_launches(cfg)
+    want_on = dict(want, flash_fwd_res=2 * want["flash_fwd_res"])
+    check(off["launches"] == want, f"[remat] off: launches "
+                                   f"{off['launches']} != {want}")
+    check(on["launches"] == want_on, f"[remat] on: launches "
+                                     f"{on['launches']} != {want_on}")
+    (ta, ia), (tb, ib) = off["first"], on["first"]
+    la, lb = learner_leaves(ta.learner), learner_leaves(tb.learner)
+    same = (all(torch.equal(la[k], lb[k]) for k in la)
+            and all(torch.equal(ia[k], ib[k]) for k in ia))
+    if same:
+        agree = "bit-identical (loss, grad_norm, every info value and " \
+                "every param, target and Adam moment)"
+    else:
+        # tests/test_torch_loop.py's tolerances
+        worst = max(float((la[k].float() - lb[k].float()).abs().max())
+                    for k in la)
+        for k in ("loss", "td_error_abs", "q_taken_mean", "target_mean"):
+            a, b = float(ia[k]), float(ib[k])
+            check(abs(a - b) <= 1e-6 + 1e-5 * abs(a), f"[remat] {k} {a} "
+                                                      f"vs {b}")
+        a, b = float(ia["grad_norm"]), float(ib["grad_norm"])
+        check(abs(a - b) <= 1e-6 + 1e-4 * abs(a), f"[remat] grad_norm")
+        for m in ta.learner.params:
+            d = torch.cat([(ta.learner.params[m][k]
+                            - tb.learner.params[m][k]).abs().flatten()
+                           for k in ta.learner.params[m]])
+            check(float((d > 1e-5).float().mean()) <= 0.01
+                  and float(d.max()) <= 2 * cfg.lr, f"[remat] {m} params")
+        agree = (f"NOT bit-identical: largest param/moment difference "
+                 f"{worst:.3e}; loss, grad_norm and params within "
+                 f"tests/test_torch_loop.py's tolerances")
+    p50 = {n: statistics.median(r["times_ms"]) for n, r in runs.items()}
+    check(on["peak_gib"] < off["peak_gib"],
+          f"[remat] peak {on['peak_gib']:.2f} GiB not below "
+          f"{off['peak_gib']:.2f}")
+    print(f"[remat] config 3's trainer step ([loop]'s ring, bf16, batch "
+          f"{cfg.batch_size}, T={cfg.env_args.episode_limit}), model.remat "
+          f"off and on from one state, {AB_STEPS} steps each in turns: "
+          f"{agree}", flush=True)
+    print(f"[remat] launches a step: off {off['launches']}, on "
+          f"{on['launches']}; compute ops at the dispatcher off "
+          f"{off['ops']}, on {on['ops']}; step p50 off {p50['off']:.1f} ms, "
+          f"on {p50['on']:.1f} ms (x{p50['on'] / p50['off']:.2f}); peak "
+          f"memory off {off['peak_gib']:.2f} GiB, on {on['peak_gib']:.2f} "
+          f"GiB", flush=True)
+    result = {"p50_off_ms": p50["off"], "p50_on_ms": p50["on"],
+              "peak_off_gib": off["peak_gib"], "peak_on_gib": on["peak_gib"],
+              "bit_identical": same,
+              "launches": {k: off["launch_total"][k] + on["launch_total"][k]
+                           for k in want}}
+    del runs, off, on, ta, tb, la, lb
+    torch.cuda.empty_cache()
+
+    # f32 at T = 150 under remat
+    cfg32 = _with(cfg, model={"dtype": "float32", "remat": True})
+    info = exp.env.get_env_info()
+    learner = QMixLearner.build(cfg32, BasicMAC.build(cfg32, info), info)
+    train_iter = build_train_iter(exp.buffer, learner, cfg32)
+    keys = prng.split(prng.PRNGKey(SEED + 60, "cuda"), F32_REMAT_STEPS)
+    t32 = ts
+    times, losses = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    att.reset_launches()
+    for i in range(F32_REMAT_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        t32, inf = train_iter(t32, keys[i], 1000 * (i + 1))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        loss, gn = float(inf["loss"]), float(inf["grad_norm"])
+        check(np.isfinite(loss) and np.isfinite(gn) and
+              bool(inf["all_finite"]), f"[remat] f32 step {i}: loss {loss}"
+                                       f" grad_norm {gn}")
+        losses.append((loss, gn))
+    launches32 = dict(att.LAUNCHES)
+    check(launches32 == {k: F32_REMAT_STEPS * v for k, v in want_on.items()},
+          f"[remat] f32 launches {launches32}")
+    peak32 = torch.cuda.max_memory_allocated() / 2 ** 30
+    moved = max(float((t32.learner.params[m][k]
+                       - ts.learner.params[m][k]).abs().max())
+                for m in ts.learner.params for k in ts.learner.params[m])
+    check(moved > 0.0, "[remat] f32 params did not move")
+    p50_32 = statistics.median(times)
+    print(f"[remat] f32 at T={cfg.env_args.episode_limit} with remat, "
+          f"{F32_REMAT_STEPS} trainer steps: p50 {p50_32:.1f} ms (each: "
+          f"{', '.join(f'{x:.1f}' for x in times)}), peak memory "
+          f"{peak32:.2f} GiB, loss/grad_norm "
+          f"{', '.join(f'{a:.4g}/{b:.4g}' for a, b in losses)}, max param "
+          f"move {moved:.3e}, launches {launches32}", flush=True)
+    result.update(p50_f32_ms=p50_32, peak_f32_gib=peak32)
+    for k, v in launches32.items():
+        result["launches"][k] += v
+    del learner, train_iter, t32
+    torch.cuda.empty_cache()
+
+    # the f32 pallas-vs-xla cross-check on one remat step ([train]'s)
+    batch, w = cross_batch
+    outs = {attention: cross_check_step(torch, info, attention, True, batch,
+                                        w, remat=True)
+            for attention in ("pallas", "xla")}
+    report = compare_steps(torch, outs["pallas"], outs["xla"], cfg.lr,
+                           cfg.optim_eps)
+    print(f"[remat] f32 cross-check under remat (query slice, batch 2, "
+          f"T={cfg.env_args.episode_limit}, gate {CROSS_GATE}): pallas vs "
+          f"xla {report}", flush=True)
+    del outs
     torch.cuda.empty_cache()
     return result
 
@@ -1598,15 +1929,15 @@ def phase_loop_noisy(torch, att):
     return result
 
 
-#: [driver]: config 3 through the CLI, as a user runs it, with the three
-#: overrides it needs on the port (the flash kernels on, the learning-
-#: health probes and the live plane left to a later slice); the SIGTERM
-#: and the full-state evaluate steps run a cut copy (4 lanes, a ring of
-#: 256, and for SIGTERM K = 1), so as not to pay another full-width
-#: startup
+#: [driver]: config 3 through the CLI, as a user runs it, with the one
+#: override it needs on the port (the flash kernels on; the file leaves
+#: kernels.attention at xla), so with the learning-health probes
+#: (obs.sight) and the live plane on port 9464 (obs.pulse_port); the
+#: SIGTERM and the full-state evaluate steps run a cut copy (4 lanes, a
+#: ring of 256, and for SIGTERM K = 1 and a one-iteration trace window),
+#: so as not to pay another full-width startup
 DRIVER_CONFIG = "configs/config3_tpu_northstar.yaml"
-DRIVER_OVERRIDES = ("kernels.attention=pallas", "obs.sight.enabled=false",
-                    "obs.pulse_port=0")
+DRIVER_OVERRIDES = ("kernels.attention=pallas",)
 SIGTERM_LANES = 4                   # batch_size_run 1024 -> 4
 SIGTERM_RING = 256                  # replay.buffer_size 2048 -> 256
 EVAL_EPISODES = 4
@@ -1619,6 +1950,66 @@ DRIVER_KEYS = ("return_mean", "test_return_mean", "reward_mean",
                "task_completion_rate_mean", "episode_limit_mean", "epsilon",
                "loss", "grad_norm", "episode", "time_superstep_ms",
                "time_test_ms")
+#: the learning-health keys (obs.sight) the log cadence writes: scalars,
+#: the histograms (obs.sight.bins long, each summing to 1) and the
+#: per-layer attention entropies (depth long, in [0, 1])
+SIGHT_KEYS = tuple(f"sight_{k}" for k in (
+    "grad_norm_agent_tf", "grad_norm_embed", "grad_norm_mixer",
+    "update_norm_agent_tf", "update_norm_embed", "update_norm_mixer",
+    "per_ess", "target_drift", "priority_entropy", "priority_entropy_norm",
+    "td_hist", "q_taken_hist", "target_hist", "attn_entropy_agent",
+    "attn_entropy_mixer"))
+#: the /healthz checks of a config-3 run: the watchdog, the shutdown
+#: guard and one per learning-health detector
+HEALTH_CHECKS = ("watchdog-main", "shutdown-guard") + tuple(
+    f"sight-{d}" for d in ("loss_plateau", "q_divergence",
+                           "priority_collapse", "attention_collapse",
+                           "grad_starvation"))
+
+
+class _Scraper:
+    """Reads the live plane's /metrics and /healthz from a thread every
+    ``every`` seconds while a run goes on, and once more on demand (the
+    driver's last read, just before the plane closes)."""
+
+    def __init__(self, port: int, every: float = 1.0):
+        import threading
+        self.base = f"http://127.0.0.1:{port}"
+        self.every = every
+        self.metrics, self.health = [], []
+        self.stop = threading.Event()
+        self.thread = threading.Thread(target=self._loop, daemon=True)
+
+    def scrape(self) -> None:
+        import urllib.error
+        import urllib.request
+        try:
+            with urllib.request.urlopen(self.base + "/metrics",
+                                        timeout=5) as r:
+                self.metrics.append(r.read().decode())
+        except OSError:
+            pass
+        try:
+            with urllib.request.urlopen(self.base + "/healthz",
+                                        timeout=5) as r:
+                self.health.append((r.status, json.loads(r.read())))
+        except urllib.error.HTTPError as e:
+            self.health.append((e.code, json.loads(e.read())))
+        except OSError:
+            pass
+
+    def _loop(self) -> None:
+        while not self.stop.wait(self.every):
+            self.scrape()
+
+    def __enter__(self):
+        self.thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self.stop.set()
+        self.thread.join(timeout=30)
+        check(not self.thread.is_alive(), "[driver] the scraper hung")
 
 
 def _metric_rows(results: str) -> list:
@@ -1702,6 +2093,7 @@ def phase_driver(torch, att, loop: dict) -> dict:
     from t2omca_tpu_torch import __main__ as cli
     from t2omca_tpu_torch import run as run_mod
     from t2omca_tpu_torch.config import load_config
+    from t2omca_tpu_torch.obs import pulse as pulse_mod
     from t2omca_tpu_torch.runners.episode_runner import EpisodeRunner
     from t2omca_tpu_torch.utils import checkpoint as ckpt
     from t2omca_tpu_torch.utils import resilience
@@ -1712,6 +2104,10 @@ def phase_driver(torch, att, loop: dict) -> dict:
     per = k * cfg.batch_size_run * cfg.env_args.episode_limit
     check(k > 1 and cfg.t_max < per, f"[driver] {DRIVER_CONFIG} does not "
           f"train exactly one K={k} dispatch (t_max {cfg.t_max})")
+    port = cfg.obs.pulse_port
+    check(cfg.obs.sight.enabled and port > 0 and cfg.obs.memwatch,
+          f"[driver] {DRIVER_CONFIG} does not turn on obs.sight, the live "
+          f"plane and memwatch")
     want = {name: k * v for name, v in loop_launches(cfg).items()}
     timeout = max(120.0, round(4 * k * loop["iteration_p50_ms"] / 1e3))
     tmp = tempfile.mkdtemp(prefix=".chip_smoke_driver_", dir=root)
@@ -1722,14 +2118,27 @@ def phase_driver(torch, att, loop: dict) -> dict:
         # ---- 1. train: config 3 uncut, one dispatch of K = 4 ----------
         out1 = os.path.join(tmp, "train")
         events, unwrap = _timed_iterations(torch, run_mod)
+        scraper = _Scraper(port)
+        close = pulse_mod.PulseHandle.close
+
+        def read_then_close(handle):
+            # the plane's last read: after the run's last log cadence,
+            # just before the driver closes it
+            scraper.scrape()
+            close(handle)
+
+        pulse_mod.PulseHandle.close = read_then_close
+        n_lines = len(logs.lines)
         att.reset_launches()             # ---- the driver path starts here
         t_start = time.time()
         try:
-            rc = cli.main(["train", *base,
-                           f"resilience.dispatch_timeout={timeout}",
-                           f"local_results_path={out1}"])
+            with scraper:
+                rc = cli.main(["train", *base,
+                               f"resilience.dispatch_timeout={timeout}",
+                               f"local_results_path={out1}"])
         finally:
             unwrap()
+            pulse_mod.PulseHandle.close = close
         torch.cuda.synchronize()
         train_wall = time.time() - t_start
         launches = dict(att.LAUNCHES)    # ---- and ends here
@@ -1741,8 +2150,41 @@ def phase_driver(torch, att, loop: dict) -> dict:
                                                       events[0][1:])]
         rows = _metric_rows(out1)
         keys = {r["key"] for r in rows}
-        missing = [k for k in DRIVER_KEYS if k not in keys]
+        missing = [k for k in DRIVER_KEYS + SIGHT_KEYS if k not in keys]
         check(not missing, f"[driver] metrics.jsonl lacks {missing}")
+        newest = {r["key"]: r["value"] for r in rows}
+        for key in SIGHT_KEYS:
+            v = np.asarray(newest[key], np.float64)
+            if key.endswith("_hist"):
+                check(v.shape == (cfg.obs.sight.bins,)
+                      and abs(float(v.sum()) - 1.0) < 1e-5,
+                      f"[driver] {key} {v}")
+            elif key.startswith("sight_attn_entropy"):
+                check(v.shape == (cfg.model.depth,)
+                      and bool(((v >= 0) & (v <= 1 + 1e-6)).all()),
+                      f"[driver] {key} {v}")
+            else:
+                check(v.shape == (), f"[driver] {key} {v}")
+        # the live plane answered during the call, and bound its port
+        said = logs.lines[n_lines:]
+        check(not any("could not bind" in x for x in said),
+              f"[driver] the live plane could not bind 127.0.0.1:{port}")
+        check(any(f"metrics endpoint on 127.0.0.1:{port}" in x
+                  for x in said), "[driver] the live plane did not start")
+        check(scraper.metrics and scraper.health,
+              f"[driver] /metrics or /healthz never answered on {port}")
+        scraped = "\n".join(scraper.metrics)
+        for name in ("t2omca_t_env ", "t2omca_episode ",
+                     'watchdog_heartbeat_age_seconds{side="main"}',
+                     'watchdog_stalls_total{side="main"}',
+                     'hbm_bytes_in_use{device="0"}',
+                     'backend_info{backend="cuda"}', "t2omca_superstep_k 4"):
+            check(name in scraped, f"[driver] /metrics never showed {name}")
+        code, health = scraper.health[-1]
+        check(set(HEALTH_CHECKS) == set(health["checks"]),
+              f"[driver] /healthz checks {sorted(health['checks'])}")
+        check(code == (200 if health["status"] == "ok" else 503),
+              f"[driver] /healthz {code} with status {health['status']}")
         check(max(r["t"] for r in rows) == per,
               f"[driver] last t {max(r['t'] for r in rows)} != {per}")
         for r in rows:
@@ -1790,6 +2232,28 @@ def phase_driver(torch, att, loop: dict) -> dict:
               f"{save['save_write_s']:.2f} s "
               f"({save['save_bytes'] / 1e9 / save['save_write_s']:.2f} GB/s),"
               f" hash {save['save_hash_s']:.2f} s", flush=True)
+        alerts = sorted(r["key"][len("sight_alert_"):] for r in rows
+                        if r["key"].startswith("sight_alert_")
+                        and r["value"])
+        print(f"[driver] live plane on 127.0.0.1:{port}: "
+              f"{len(scraper.metrics)} /metrics and {len(scraper.health)} "
+              f"/healthz reads during the call (every 1 s and one after the "
+              f"last log cadence); the last: /healthz {code} "
+              f"{health['status']}; " + "; ".join(
+                  f"{n} {'ok' if c['ok'] else 'DEGRADED'} ({c['detail']})"
+                  for n, c in sorted(health["checks"].items())), flush=True)
+        fmt = lambda k: "/".join(f"{x:.3f}" for x in np.atleast_1d(
+            np.asarray(newest[k], np.float64)))
+        print(f"[driver] learning health at t_env {per}: attention entropy "
+              f"agent {fmt('sight_attn_entropy_agent')}, mixer "
+              f"{fmt('sight_attn_entropy_mixer')}; PER ESS "
+              f"{fmt('sight_per_ess')}, priority entropy / log n "
+              f"{fmt('sight_priority_entropy_norm')}; grad norm agent_tf/"
+              f"embed/mixer {newest['sight_grad_norm_agent_tf']:.4g}/"
+              f"{newest['sight_grad_norm_embed']:.4g}/"
+              f"{newest['sight_grad_norm_mixer']:.4g}; target drift "
+              f"{fmt('sight_target_drift')}; detector trips: "
+              f"{', '.join(alerts) or 'none'}", flush=True)
         result.update(launches=launches, iterations_ms=iters_ms,
                       dispatch_host_ms=disp["wall_ms"], startup_s=startup_s,
                       test_ms=test_ms[0] if test_ms else None,
@@ -1822,6 +2286,7 @@ def phase_driver(torch, att, loop: dict) -> dict:
 
         out2 = os.path.join(tmp, "resume")
         resilience.register_fault("driver.iteration", compare)
+        n_lines = len(logs.lines)
         t0 = time.time()
         try:
             rc = cli.main(["train", *base,
@@ -1836,6 +2301,9 @@ def phase_driver(torch, att, loop: dict) -> dict:
         check(rc == 0 and seen.get("t_env") == per,
               f"[driver] resume rc {rc}, first t_env {seen.get('t_env')}")
         check(launches2 == want, f"[driver] resume launches {launches2}")
+        check(any(f"metrics endpoint on 127.0.0.1:{port}" in x
+                  for x in logs.lines[n_lines:]),
+              f"[driver] the resumed call did not bind {port} again")
         rows2 = _metric_rows(out2)
         check(max(r["t"] for r in rows2) == 2 * per,
               f"[driver] resume ended at {max(r['t'] for r in rows2)}")
@@ -1868,18 +2336,29 @@ def phase_driver(torch, att, loop: dict) -> dict:
         proc = subprocess.Popen(
             [sys.executable, "-m", "t2omca_tpu_torch", "train", *base, *cut,
              "superstep=1", "t_max=100000000",
-             "save_model_interval=100000000",
+             "save_model_interval=100000000", "profile_iterations=1",
              f"log_interval={SIGTERM_LANES * cfg.env_args.episode_limit}",
              f"test_nepisode={SIGTERM_LANES}", f"local_results_path={out3}"],
             cwd=root, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)
-        lines = []
+        lines, armed, traced = [], None, False
         try:
             deadline = time.time() + 300
-            for line in proc.stdout:     # the second log cadence's line
+            for line in proc.stdout:
                 lines.append(line)
-                if ("Recent stats" in line and "env_steps_per_sec" in line
-                        or time.time() > deadline):
+                if (armed is None and "Recent stats" in line
+                        and "env_steps_per_sec" in line):
+                    # the second log cadence: touch PULSE_TRACE, then
+                    # wait for the one-iteration capture it arms
+                    armed = os.path.dirname(_one_dir(os.path.join(
+                        out3, "*", "metrics.jsonl")))
+                    open(os.path.join(armed, "PULSE_TRACE"), "w").close()
+                    t_arm = time.time()
+                elif armed and "profiler trace written to" in line:
+                    traced = True
+                    trace_s = time.time() - t_arm
+                    break
+                if time.time() > deadline:
                     break
             t_sig = time.time()
             proc.send_signal(signal.SIGTERM)
@@ -1892,6 +2371,17 @@ def phase_driver(torch, att, loop: dict) -> dict:
         text = "".join(lines) + rest
         check(proc.returncode == 0,
               f"[driver] SIGTERM exit {proc.returncode}: {text[-2000:]}")
+        check(armed is not None and traced, "[driver] the PULSE_TRACE "
+              f"capture did not land: {text[-2000:]}")
+        trace = _one_dir(os.path.join(armed, "pulse_trace_01_t*",
+                                      "trace_*.json"))
+        check(not os.path.exists(os.path.join(armed, "PULSE_TRACE")),
+              "[driver] PULSE_TRACE was not consumed")
+        with open(trace, "rb") as f:
+            head = f.read(1 << 16)
+        check(head.lstrip().startswith(b"{") and b'"traceEvents"' in head
+              and os.path.getsize(trace) > 1 << 20,
+              f"[driver] the pulse trace {trace} is not a Chrome trace")
         sig_models = _one_dir(os.path.join(out3, "models", "*"))
         sig_found = ckpt.find_checkpoint(sig_models)
         check(sig_found is not None, "[driver] no emergency checkpoint")
@@ -1915,7 +2405,13 @@ def phase_driver(torch, att, loop: dict) -> dict:
               f"{sig_found[1]} verified, resume hint logged, "
               f"flight_recorder.json with memwatch (peak "
               f"{max(hw, default=0) / 2 ** 30:.2f} GiB)", flush=True)
-        result["sigterm_to_exit_s"] = sig_s
+        print(f"[driver] PULSE_TRACE touched in the SIGTERM'd run after its "
+              f"second log cadence: a one-iteration torch.profiler capture "
+              f"landed in {os.path.relpath(trace, armed)} "
+              f"({os.path.getsize(trace) / 1e6:.1f} MB) {trace_s:.1f} s "
+              f"after the touch; the trigger file was "
+              f"consumed", flush=True)
+        result.update(sigterm_to_exit_s=sig_s, pulse_trace_s=trace_s)
 
         # ---- 4. evaluate: full state, then the model-only fallback ---
         ep_s = []
@@ -2030,15 +2526,23 @@ def main() -> int:
     torch.cuda.empty_cache()
     entity = phase_entity(torch)
     lap("entity")
-    loop = phase_loop(torch, att)
+    loop, loop_exp, loop_ts = phase_loop(torch, att)
     lap("loop")
+    sight = phase_sight(torch, att, loop_exp, loop_ts)
+    lap("sight")
+    remat = phase_remat(torch, att, loop_exp, loop_ts,
+                        train.pop("cross_batch"))
+    lap("remat")
+    del loop_exp, loop_ts
+    torch.cuda.empty_cache()
     dense = phase_loop_dense(torch, att)
     lap("loop-dense")
     noisy = phase_loop_noisy(torch, att)
     lap("loop-noisy")
     driver = phase_driver(torch, att, loop)
     lap("driver")
-    loops = {"loop": loop, "loop_dense": dense, "loop_noisy": noisy,
+    loops = {"loop": loop, "sight": sight, "remat": remat,
+             "loop_dense": dense, "loop_noisy": noisy,
              "driver": {"launches": {
                  k: driver["launches"][k] + driver["launches_resume"][k]
                  for k in driver["launches"]}}}

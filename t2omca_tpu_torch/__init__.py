@@ -7,5 +7,7 @@ points run on the CUDA card unless the caller passes ``device="cpu"``
 which slices are ported (greedy serving, the trainer step with the
 hand-written flash-attention kernels in ``kernels/``, the classic
 training loop: env, rollout, insert, train, and the driver around it:
-``python -m t2omca_tpu_torch train|evaluate|benchmark``).
+``python -m t2omca_tpu_torch train|evaluate|benchmark``, with the
+learning-health probes, the live ``/metrics`` ``/healthz`` plane and
+``model.remat``).
 """

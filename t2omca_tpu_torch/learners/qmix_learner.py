@@ -29,11 +29,21 @@ k_tmx = split(key, 4)``, one key a step from ``split(k_ag, T + 1)`` (and
 ``k_tag``), as in JAX; the learner draws every step's q-head weights
 before its unroll, the same numbers the JAX scan draws step by step.
 
+``model.remat`` runs every unroll step that needs a gradient through
+``torch.utils.checkpoint`` (JAX's ``jax.checkpoint`` around each scan
+body): the backward recomputes the step's forward instead of keeping its
+activations, with the same values and gradients. Under ``pallas`` each
+online mixer step then launches K1 + residuals twice (forward and
+recompute). ``obs.sight`` adds the learning-health probes
+(``obs/sight.py``) to the info: histograms and attention entropies in
+``_loss``, per-module norms, ESS and target drift after the guard
+select in ``train``, all on detached tensors under ``torch.no_grad()``,
+so the update is bit-identical with the gate on or off.
+
 Not ported (each raises ``NotImplementedError`` naming the ROADMAP
 item): dropout, the dense agent's noise (``noisy-new`` with
 ``use_qslice: false``), the padding mask of scenario distributions that
-can pad, ``obs.sight``, the population ``spec``, ``model.remat`` and
-the ``qmix_ff``/``vdn`` mixers.
+can pad, the population ``spec`` and the ``qmix_ff``/``vdn`` mixers.
 """
 
 from __future__ import annotations
@@ -43,6 +53,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint
 
 from .. import prng
 from ..components.episode_buffer import CompactEntityObs, EpisodeBatch
@@ -52,6 +63,7 @@ from ..controllers.basic_mac import (BasicMAC, Params, init_module_params,
 from ..device import DeviceLike, resolve_device
 from ..models.mixer import TransformerMixer
 from ..models.noisy import noisy_weights
+from ..obs import sight
 from ..ops.query_slice import agent_qslice_eligible
 
 Tree = Dict[str, Params]
@@ -186,10 +198,6 @@ class QMixLearner:
         if scenario_can_pad(cfg.env_args, env_info["n_agents"]):
             raise _not_ported("the mixer padding mask of a scenario that "
                               "can pad", "item 11")
-        if cfg.obs.sight.enabled:
-            raise _not_ported("obs.sight", "item 13")
-        if cfg.model.remat:
-            raise _not_ported("model.remat", "item 5")
         n_entities = cfg.model.n_entities_state or env_info["n_entities"]
         state_entity_mode = "state_entity_feats" in env_info
         if state_entity_mode:
@@ -240,14 +248,18 @@ class QMixLearner:
 
     def train_info_zeros(self, batch_size: int) -> Dict[str, torch.Tensor]:
         """The info dict of a skipped train step: ``train``'s keys,
-        shapes and dtypes, ``all_finite`` True."""
+        shapes and dtypes, ``all_finite`` True (with ``obs.sight`` on,
+        its keys too)."""
         z = torch.zeros((), device=self.device)
-        return {"loss": z, "td_error_abs": z.clone(),
-                "q_taken_mean": z.clone(), "target_mean": z.clone(),
-                "grad_norm": z.clone(),
-                "td_errors_abs": torch.zeros(batch_size, device=self.device),
-                "all_finite": torch.ones((), dtype=torch.bool,
-                                         device=self.device)}
+        out = {"loss": z, "td_error_abs": z.clone(),
+               "q_taken_mean": z.clone(), "target_mean": z.clone(),
+               "grad_norm": z.clone(),
+               "td_errors_abs": torch.zeros(batch_size, device=self.device),
+               "all_finite": torch.ones((), dtype=torch.bool,
+                                        device=self.device)}
+        if self.cfg.obs.sight.enabled:
+            out.update(sight.train_info_extras_zeros(self.cfg, self.device))
+        return out
 
     # ---------------------------------------------------------- unrolls
 
@@ -259,6 +271,15 @@ class QMixLearner:
     def _mixer_qslice(self) -> bool:
         from ..ops.query_slice import mixer_qslice_eligible
         return mixer_qslice_eligible(self.cfg)
+
+    def _step(self, fn, *args):
+        """One unroll step: under ``model.remat`` and autograd, through
+        ``torch.utils.checkpoint`` (the backward recomputes the step;
+        nothing in a step draws, so no RNG state is stashed)."""
+        if self.cfg.model.remat and torch.is_grad_enabled():
+            return checkpoint(fn, *args, use_reentrant=False,
+                              preserve_rng_state=False)
+        return fn(*args)
 
     @property
     def needs_rngs(self) -> bool:
@@ -281,7 +302,8 @@ class QMixLearner:
         Steps from ``n_grad`` on run without autograd: the online
         unroll's bootstrap step feeds only the detached double-Q argmax,
         and JAX prunes its backward the same way (torch would otherwise
-        run it with zero cotangents)."""
+        run it with zero cotangents). Under ``model.remat`` each step
+        with a gradient runs through ``_step``'s checkpoint."""
         if self._agent_qslice:
             from ..ops.query_slice import fold_agent_params
             a = self.mac.agent
@@ -314,7 +336,7 @@ class QMixLearner:
         for t, x_t in enumerate(xs):
             with torch.set_grad_enabled(grad and (n_grad is None
                                                   or t < n_grad)):
-                q, h = fwd(step_params[t], x_t, h)
+                q, h = self._step(fwd, step_params[t], x_t, h)
             qs.append(q)
             hs.append(h)
         return torch.stack(qs), torch.stack(hs)
@@ -324,7 +346,8 @@ class QMixLearner:
                       obs_tm: Optional[torch.Tensor]) -> torch.Tensor:
         """q_tm ``(T, B, A)`` → ``q_tot (T, B)``, carrying the 3 hyper
         tokens across time. ``obs_tm`` is None under compact storage
-        (the mixer reads the state alone)."""
+        (the mixer reads the state alone). Under ``model.remat`` and
+        autograd each step runs through ``_step``'s checkpoint."""
         if self._mixer_qslice:
             from ..ops.query_slice import make_mixer_qslice
             fold, mix = make_mixer_qslice(self.mixer)
@@ -337,7 +360,8 @@ class QMixLearner:
             obs_tm = [None] * len(q_tm)
         q_tots = []
         for qv, h, s, o in zip(q_tm, hid_tm, state_tm, obs_tm):
-            q_tot, hyper = mix(mixer_params, qv[:, None, :], h, hyper, s, o)
+            q_tot, hyper = self._step(mix, mixer_params, qv[:, None, :], h,
+                                      hyper, s, o)
             q_tots.append(q_tot[:, 0, 0])
         return torch.stack(q_tots)
 
@@ -420,6 +444,24 @@ class QMixLearner:
                 "target_mean": (targets * mask).sum() / denom,
                 "td_errors_abs": td.abs().sum(dim=0) / ep_mask,    # (B,)
             }
+        if cfg.obs.sight.enabled:
+            # the learning-health probes on detached tensors: value-scale
+            # histograms and one-timestep attention entropies
+            info.update(sight.loss_sight_info(
+                cfg.obs.sight, td.detach(), chosen.detach(),
+                targets.detach(), mask))
+            if cfg.agent == "transformer":
+                info["sight_attn_entropy_agent"] = \
+                    sight.agent_attention_entropy(
+                        self, params["agent"],
+                        None if obs is None else obs[0],
+                        None if compact_tm is None
+                        else tuple(x[0] for x in compact_tm))
+            if cfg.mixer == "transformer":
+                info["sight_attn_entropy_mixer"] = \
+                    sight.mixer_attention_entropy(
+                        self, params["mixer"], state[0],
+                        None if obs is None else obs[0], hs[0].detach())
         return loss, info
 
     # ------------------------------------------------------------ train
@@ -446,8 +488,9 @@ class QMixLearner:
             key = None
         cfg = self.cfg
         params = _tree_map(lambda p: p.detach().requires_grad_(), ls.params)
-        loss, info = self._loss(params, ls.target_params, batch,
-                                weights.to(self.device).float(), key)
+        weights = weights.to(self.device).float()
+        loss, info = self._loss(params, ls.target_params, batch, weights,
+                                key)
         inject_at = cfg.resilience.inject_nan_at_step
         if inject_at >= 0:            # fault injection (off: not traced)
             trip = ls.train_steps == inject_at
@@ -469,6 +512,12 @@ class QMixLearner:
         # state (a NaN gradient would poison Adam's moments for good)
         new_params = _select(all_finite, new_params, ls.params)
         opt_state = _select(all_finite, opt_state, ls.opt_state)
+        if cfg.obs.sight.enabled:
+            # after the guard select: a tripped step reports the drift of
+            # the params it kept; the target before this step's sync
+            info.update(sight.learner_train_info(
+                cfg, grads, updates, new_params, ls.target_params,
+                weights))
 
         episode = torch.as_tensor(episode, dtype=torch.int32,
                                   device=self.device)

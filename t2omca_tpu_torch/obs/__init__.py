@@ -1,4 +1,8 @@
-"""Runtime telemetry of the port (``spans.py``: the span recorder and
-flight recorder; ``memwatch.py``: device-memory high water). The JAX
-package's learning-health probes (``obs/sight.py``) and live HTTP plane
-(``obs/pulse.py``) are not ported yet (``ROADMAP.md`` item 13a)."""
+"""Runtime telemetry of the port: ``spans.py`` (the span recorder and
+flight recorder), ``memwatch.py`` (device-memory high water),
+``pulse.py`` (the live ``/metrics`` ``/healthz`` ``/trace`` plane) and
+``sight.py`` (the learning-health probes, their detector monitor and the
+``python -m t2omca_tpu_torch.obs learning`` report). Still to port
+(``ROADMAP.md`` item 13b): per-program device time
+(``obs.program_trace``, ``device_time.py``) and the ``report`` and
+``timeline`` CLIs."""

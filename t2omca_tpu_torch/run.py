@@ -22,7 +22,11 @@ resume from ``checkpoint_path``; the non-finite streak and its checkpoint
 restore; SIGTERM/SIGINT through ``ShutdownGuard`` with an emergency
 checkpoint; the watchdog stamping every device-facing region and the
 bounded retry of transient failures (never a swap to the plain kernels
-or the CPU).
+or the CPU); with ``obs.pulse_port`` the live plane (``obs/pulse.py``:
+``/metrics``, ``/healthz`` with the watchdog, guard and detector checks,
+``/trace`` and the ``PULSE_TRACE`` file trigger), and with
+``obs.sight.enabled`` the learning-health detectors (``obs/sight.py``)
+over the log cadence's one fetch of the train info.
 
 Where the port differs from the JAX driver:
 
@@ -43,10 +47,9 @@ Where the port differs from the JAX driver:
   across from flax with ``convert.py``).
 
 Left out, to later slices: the population (item 11), data parallelism
-and Sebulba (item 12), the learning-health probes and the live HTTP
-plane (``obs.sight``, ``obs.pulse_port``: item 13a), per-program device
-time (``obs.program_trace``: item 13b) and the fused superstep (item 8).
-Each raises naming its item.
+and Sebulba (item 12), per-program device time (``obs.program_trace``:
+item 13b; a pulse trace capture is a ``torch.profiler`` Chrome trace)
+and the fused superstep (item 8). Each raises naming its item.
 """
 
 from __future__ import annotations
@@ -71,6 +74,8 @@ from .device import DeviceLike, resolve_device
 from .envs.registry import make_env
 from .learners.qmix_learner import LEARNER_REGISTRY
 from .obs import memwatch as obs_memwatch
+from .obs import pulse as obs_pulse
+from .obs import sight as obs_sight
 from .obs import spans as obs_spans
 from .ops.query_slice import entity_store_eligible
 from .runners.episode_runner import EpisodeRunner
@@ -90,6 +95,12 @@ from .utils.timehelper import time_left, time_str
 def _not_ported(what: str, where: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet (ROADMAP.md "
                                f"Queue A: {where})")
+
+
+#: the learner values the log cadence writes itself (the sight_* leaves
+#: are the monitor's to log)
+LOG_KEYS = ("loss", "grad_norm", "td_error_abs", "q_taken_mean",
+            "target_mean")
 
 
 def superstep_eligible(cfg: TrainConfig) -> bool:
@@ -279,12 +290,6 @@ def _check_driver_scope(cfg: TrainConfig) -> None:
         raise _not_ported("the population", "item 11")
     if cfg.sebulba.actor_devices:
         raise _not_ported("Sebulba (sebulba.actor_devices)", "item 12")
-    if cfg.obs.sight.enabled:
-        raise _not_ported("obs.sight (the learning-health probes)",
-                          "item 13a")
-    if cfg.obs.pulse_port:
-        raise _not_ported("obs.pulse_port (the live HTTP plane)",
-                          "item 13a")
 
 
 class _DriverKit:
@@ -292,10 +297,10 @@ class _DriverKit:
     loop): watchdog stamps, fault-handled dispatch, sync points, the
     stall response, flight persist and the bounded save lock."""
 
-    def __init__(self, *, cfg, res, log, rec, mw, guard, model_dir,
-                 save_lock):
+    def __init__(self, *, cfg, res, log, rec, mw, sight_mon, guard,
+                 model_dir, save_lock):
         self.cfg, self.res, self.log, self.rec = cfg, res, log, rec
-        self.mw, self.guard = mw, guard
+        self.mw, self.sight_mon, self.guard = mw, sight_mon, guard
         self.model_dir, self.save_lock = model_dir, save_lock
         self.default_wd = None      # armed by the driver once built
         self.t_env_fn = lambda: 0   # the loop re-binds its cursor
@@ -304,10 +309,15 @@ class _DriverKit:
     # ------------------------------------------------------------ telemetry
 
     def persist_flight(self, path: str) -> None:
-        """Flight persist + the memwatch block (cached state only — safe
-        on crash/stall paths over a wedged device)."""
-        extra = {"memwatch": self.mw.report()} if self.mw.enabled else None
-        self.rec.persist(path, extra=extra)
+        """Flight persist + the memwatch high-water and sight-verdict
+        blocks (cached state only — safe on crash/stall paths over a
+        wedged device)."""
+        extra = {}
+        if self.mw.enabled:
+            extra["memwatch"] = self.mw.report()
+        if self.sight_mon is not None:
+            extra["sight"] = self.sight_mon.report()
+        self.rec.persist(path, extra=extra or None)
 
     def watched(self, phase, state=None, t=None, **meta):
         """One watchdog stamp (outer) + span (inner) for a device-facing
@@ -409,6 +419,8 @@ class _DriverKit:
                 log.exception("flight tail unavailable")
         if self.mw.enabled:
             extra["memwatch"] = self.mw.report()
+        if self.sight_mon is not None:
+            extra["sight"] = self.sight_mon.report()
         watchdog.write_diagnosis(diag, self.model_dir, extra=extra or None)
         self.guard.request(tag)
         if (cfg.save_model and res.emergency_checkpoint
@@ -486,6 +498,8 @@ def run_sequential(exp: Experiment, logger: Logger, results_dir: str,
     log.info(f"env_info: {env_info}")
     mw = obs_memwatch.make_memwatch(cfg.obs, rec=rec)
     mw.snapshot("startup", t_env=0)
+    # the learning-health monitor: None when obs.sight is off
+    sight_mon = obs_sight.make_monitor(cfg.obs, logger=logger, rec=rec)
 
     found = None
     if cfg.checkpoint_path:
@@ -530,7 +544,8 @@ def run_sequential(exp: Experiment, logger: Logger, results_dir: str,
     # thread's cadence/exit saves (both stage into tmp.<t_env>)
     save_lock = threading.Lock()
     kit = _DriverKit(cfg=cfg, res=res, log=log, rec=rec, mw=mw,
-                     guard=guard, model_dir=model_dir, save_lock=save_lock)
+                     sight_mon=sight_mon, guard=guard, model_dir=model_dir,
+                     save_lock=save_lock)
     kit.t_env_fn = lambda: t_env
     _persist_flight = kit.persist_flight
     _acquire_save_lock = kit.acquire_save_lock
@@ -651,6 +666,27 @@ def run_sequential(exp: Experiment, logger: Logger, results_dir: str,
     def _save_topology():
         return {"loop": "classic", "superstep": K}
 
+    # the live plane and the on-demand trace trigger: None when their
+    # config is off, and the loop below is then unchanged. Bound just
+    # before the loop's try, whose finally closes it
+    pulse = obs_pulse.make_pulse(cfg.obs, rec=rec, log=log)
+    trc = (obs_pulse.TraceController(
+               results_dir, rec=rec,
+               hub=pulse.hub if pulse is not None else None,
+               n_iterations=cfg.profile_iterations)
+           if (rec.enabled or pulse is not None) else None)
+    if pulse is not None:
+        # the watchdog rows are read per scrape (visible while the main
+        # thread is wedged); /healthz degrades the moment a stall fires,
+        # the guard trips or a detector trips (sight-<detector>)
+        if wd is not None:
+            pulse.wire_watchdog(wd)
+        pulse.wire_guard(guard)
+        pulse.set("superstep_k", K)
+        pulse.set("backend_info", 1, backend=device.type)
+        if sight_mon is not None:
+            sight_mon.wire_pulse(pulse.hub)
+
     # signal handlers are process-global state: restore them on EVERY
     # exit (normal, preemption, divergence abort)
     try:
@@ -661,6 +697,12 @@ def run_sequential(exp: Experiment, logger: Logger, results_dir: str,
                             state=ts, key=key)
             if guard.triggered:
                 break
+            if pulse is not None:
+                pulse.tick_iteration(t_env, episode)
+            if trc is not None:
+                # the PULSE_TRACE file / /trace endpoint trigger: one
+                # os.path.exists when idle
+                trc.poll(t_env)
             tracer.maybe_start(t_env)
             if K > 1:
                 # ------------ K iterations in one dispatch ---------------
@@ -750,6 +792,8 @@ def run_sequential(exp: Experiment, logger: Logger, results_dir: str,
                     _dispatch_ladder(df)
                     continue
             tracer.tick(logger, t_env)
+            if trc is not None:
+                trc.tick(logger, t_env)
 
             # train-stat cadence: runner_log_interval, epsilon alongside
             if t_env - last_runner_log_t >= cfg.runner_log_interval:
@@ -852,20 +896,27 @@ def run_sequential(exp: Experiment, logger: Logger, results_dir: str,
             if (t_env - last_log_t) >= cfg.log_interval:
                 if train_infos:
                     # ONE blocking fetch for every flag since the last
-                    # cadence and the last info row; after the save
-                    # cadence, so the checkpoint just written (finite by
-                    # construction: tripped steps are no-ops) is what a
-                    # restore wants
+                    # cadence and the last info row (its sight_* leaves
+                    # too); after the save cadence, so the checkpoint
+                    # just written (finite by construction: tripped
+                    # steps are no-ops) is what a restore wants
                     def _fetch_infos():
-                        keys = ("loss", "grad_norm", "td_error_abs",
-                                "q_taken_mean", "target_mean")
-                        flat = torch.cat([
-                            torch.stack([i["all_finite"]
-                                         for i in train_infos]).float(),
-                            torch.stack([train_infos[-1][k].float()
-                                         for k in keys])]).cpu().numpy()
+                        last = train_infos[-1]
+                        keys = LOG_KEYS + tuple(
+                            sorted(k for k in last if k.startswith("sight_")))
+                        flat = torch.cat(
+                            [torch.stack([i["all_finite"]
+                                          for i in train_infos]).float()]
+                            + [last[k].float().reshape(-1)
+                               for k in keys]).cpu().numpy()
                         n = len(train_infos)
-                        return flat[:n] > 0.5, dict(zip(keys, flat[n:]))
+                        out, at = {}, n
+                        for k in keys:
+                            size = last[k].numel()
+                            out[k] = flat[at:at + size].reshape(
+                                last[k].shape)
+                            at += size
+                        return flat[:n] > 0.5, out
                     try:
                         flags, last = _sync_point("fetch.train_infos",
                                                   _fetch_infos)
@@ -892,8 +943,24 @@ def run_sequential(exp: Experiment, logger: Logger, results_dir: str,
                             f"steps since last log (streak="
                             f"{nonfinite_streak}, total={nonfinite_total}); "
                             f"parameter updates were skipped")
-                    for k, v in last.items():
-                        logger.log_stat(k, float(v), t_env)
+                    for k in LOG_KEYS:
+                        logger.log_stat(k, float(last[k]), t_env)
+                    if sight_mon is not None:
+                        # the detector pass over the SAME fetched info
+                        # (the monitor logs the sight_* stats); a fresh
+                        # trip persists the flight ring, as a non-finite
+                        # trip does
+                        with rec.span("sight.detect", t_env=t_env):
+                            trips = sight_mon.observe(last, t_env)
+                        if trips:
+                            log.warning(
+                                f"graftsight: detector(s) tripped at "
+                                f"t_env={t_env}: {', '.join(trips)} — "
+                                f"/healthz degraded; run `python -m "
+                                f"t2omca_tpu_torch.obs learning "
+                                f"{results_dir}` for the read")
+                            _persist_flight(os.path.join(
+                                results_dir, "flight_recorder.json"))
                     train_infos = []
                     if (res.nonfinite_tolerance
                             and nonfinite_streak >= res.nonfinite_tolerance):
@@ -941,8 +1008,20 @@ def run_sequential(exp: Experiment, logger: Logger, results_dir: str,
                     rate = ((t_env - last_log_t)
                             / max(now - last_log_time, 1e-9))
                     logger.log_stat("env_steps_per_sec", rate, t_env)
+                    if pulse is not None:
+                        pulse.set("env_steps_per_sec", rate)
                 last_log_time = now
-                mw.snapshot("log", t_env=t_env)
+                # memwatch phase boundary + the live plane's cadence
+                # gauges
+                pulse_snap = mw.snapshot("log", t_env=t_env)
+                if pulse is not None:
+                    pulse.set("nonfinite_streak", nonfinite_streak)
+                    pulse.set("nonfinite_total", nonfinite_total)
+                    pulse.set("dispatch_faults", kit.dispatch_faults)
+                    pulse.set("ladder_failures", ladder.failures)
+                    pulse.set("restores", restores)
+                    pulse.set("superstep_k", K)
+                    pulse.set_memwatch(pulse_snap)
                 timer.log_and_reset(logger, t_env)
                 logger.print_recent_stats()
                 last_log_t = t_env
@@ -960,6 +1039,8 @@ def run_sequential(exp: Experiment, logger: Logger, results_dir: str,
         if wd is not None:
             wd.stop()
         guard.uninstall()
+        if pulse is not None:
+            pulse.close()       # bounded; frees the port for a next run
 
     if guard.triggered:
         # ---- preemption path: lose at most one dispatch ----------------

@@ -15,6 +15,7 @@ import torch
 from .. import prng
 from ..components.episode_buffer import BufferState
 from ..learners.qmix_learner import LearnerState
+from ..obs import sight
 
 
 @dataclasses.dataclass
@@ -32,7 +33,8 @@ def build_train_iter(buffer, learner, cfg):
     seeds a noisy q-head's training noise (the learner ignores it
     otherwise). A step whose loss or gradients are not finite writes back
     the sampled episodes' existing priorities (``valid=``), so NaN never
-    enters the ring."""
+    enters the ring. With ``obs.sight`` and PER the info also carries
+    the post-update priorities' entropy."""
 
     def train_iter(ts: TrainState, key: torch.Tensor, t_env):
         k_sample, k_learn = prng.split(key).unbind(-2)
@@ -43,6 +45,9 @@ def build_train_iter(buffer, learner, cfg):
         buf = buffer.update_priorities(
             ts.buffer, idx, info["td_errors_abs"] + 1e-6,          # Q9
             valid=info["all_finite"])
+        # the PER-health read over the post-update priorities (no-op
+        # unless obs.sight and prioritized replay)
+        info = sight.maybe_buffer_info(cfg, info, buf)
         return dataclasses.replace(ts, learner=learner_state,
                                    buffer=buf), info
 

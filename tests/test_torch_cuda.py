@@ -528,3 +528,74 @@ def test_memwatch_reads_the_card(cuda_device):
     assert dev["bytes_in_use"] >= x.numel() * 4
     assert dev["high_water_bytes"] >= dev["bytes_in_use"]
     assert dev["high_water_phase"] == "startup"
+
+
+# ------------------------------------------- learning-health probes, remat
+
+def _one_iteration(cuda_device, **over):
+    """One classic iteration on the card from seed 0 → (state, info,
+    launches)."""
+    import dataclasses
+    from t2omca_tpu_torch.kernels import attention as att
+    from t2omca_tpu_torch.run import Experiment, run_classic
+    cfg = _loop_cfg(use_entity_tables=True)
+    for sect, kw in over.items():
+        cfg = dataclasses.replace(cfg, **{sect: dataclasses.replace(
+            getattr(cfg, sect), **kw)})
+    exp = Experiment.build(cfg, device=cuda_device)
+    att.reset_launches()
+    ts, _, (rec,) = run_classic(exp, exp.init_state(0), 1)
+    torch.cuda.synchronize()
+    return ts, rec.info, dict(att.LAUNCHES)
+
+
+def _same_learner(a, b):
+    for tree in ("params", "target_params"):
+        ta, tb = getattr(a.learner, tree), getattr(b.learner, tree)
+        for m in ta:
+            for k in ta[m]:
+                assert torch.equal(ta[m][k], tb[m][k]), (tree, m, k)
+
+
+@pytest.mark.cuda
+def test_sight_on_cuda_changes_no_bit_and_reads_sane(cuda_device):
+    """obs.sight on the card: the iteration's state bit-identical to the
+    gate off, the same kernel launches, the probes finite (histograms
+    sum to 1, entropies in [0, 1]); the histogram on the card equals
+    the CPU's on the same values."""
+    from t2omca_tpu_torch.config import SightConfig
+    from t2omca_tpu_torch.obs import sight
+    off, _, l_off = _one_iteration(cuda_device)
+    on, info, l_on = _one_iteration(
+        cuda_device, obs={"sight": SightConfig(enabled=True)})
+    _same_learner(off, on)
+    assert torch.equal(off.buffer.priorities, on.buffer.priorities)
+    assert l_on == l_off
+    for k, v in info.items():
+        if k.startswith("sight_"):
+            assert bool(torch.isfinite(v).all()), k
+            if k.endswith("_hist"):
+                assert abs(float(v.sum()) - 1.0) < 1e-5, k
+            if k.startswith("sight_attn_entropy"):
+                assert bool(((v >= 0) & (v <= 1 + 1e-6)).all()), k
+    x = torch.randn(4096, generator=torch.Generator().manual_seed(0)) * 20
+    m = torch.rand(4096, generator=torch.Generator().manual_seed(1)) < 0.7
+    assert torch.equal(sight.masked_histogram(x.to(cuda_device),
+                                              m.to(cuda_device), -10.0,
+                                              10.0, 16).cpu(),
+                       sight.masked_histogram(x, m, -10.0, 10.0, 16))
+
+
+@pytest.mark.cuda
+def test_remat_on_cuda_is_bit_identical_and_reruns_k1_res(cuda_device):
+    """model.remat on the card: the same update bit for bit, K1 +
+    residuals launched twice per online mixer step, K1, K2 and K3 as
+    without remat."""
+    off, i_off, l_off = _one_iteration(cuda_device)
+    on, i_on, l_on = _one_iteration(cuda_device, model={"remat": True})
+    _same_learner(off, on)
+    assert torch.equal(i_off["loss"], i_on["loss"])
+    assert torch.equal(i_off["grad_norm"], i_on["grad_norm"])
+    assert l_on["flash_fwd_res"] == 2 * l_off["flash_fwd_res"] > 0
+    for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        assert l_on[k] == l_off[k], k

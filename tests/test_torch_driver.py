@@ -100,24 +100,27 @@ def flax_params(tmp_path_factory):
     return jax.tree.map(np.asarray, ts.learner.params)
 
 
+SIGHT = {"obs": {"sight": {"enabled": True}}}
+
+
 @pytest.fixture(scope="module")
 def both(tmp_path_factory, flax_params):
-    """superstep → (JAX rows, port rows, the port's final state, JAX's
-    final ``t_env``), each pair of runs made once."""
+    """(superstep, sight) → (JAX rows, port rows, the port's final state,
+    JAX's final ``t_env``), each pair of runs made once."""
     cache = {}
 
-    def get(superstep):
-        if superstep not in cache:
+    def get(superstep, sight=False):
+        if (superstep, sight) not in cache:
             root = tmp_path_factory.mktemp(f"k{superstep}")
             jdir, tdir = root / "jax", root / "port"
-            jts = jax_run(jax_from_dict(tiny(jdir, superstep=superstep)),
-                          JaxLogger())
-            ts = run(from_dict(tiny(tdir, superstep=superstep)), Logger(),
+            kw = dict(superstep=superstep, **(SIGHT if sight else {}))
+            jts = jax_run(jax_from_dict(tiny(jdir, **kw)), JaxLogger())
+            ts = run(from_dict(tiny(tdir, **kw)), Logger(),
                      device="cpu", learner_params=learner_params_from_flax(
                          flax_params, "cpu"))
-            cache[superstep] = (rows_of(jdir), rows_of(tdir), ts,
-                                int(jts.runner.t_env))
-        return cache[superstep]
+            cache[superstep, sight] = (rows_of(jdir), rows_of(tdir), ts,
+                                       int(jts.runner.t_env))
+        return cache[superstep, sight]
 
     return get
 
@@ -156,8 +159,69 @@ def test_first_train_step_matches_jax(both):
                                    **tol)
 
 
+SIGHT_KEYS = {f"sight_{k}" for k in (
+    "grad_norm_agent_tf", "grad_norm_embed", "grad_norm_mixer",
+    "update_norm_agent_tf", "update_norm_embed", "update_norm_mixer",
+    "per_ess", "target_drift", "td_hist", "q_taken_hist", "target_hist",
+    "attn_entropy_agent", "attn_entropy_mixer", "priority_entropy",
+    "priority_entropy_norm")}
+
+
+@pytest.mark.parametrize("superstep", [1, 2])
+def test_sight_rows_match_jax_driver(both, superstep):
+    """With ``obs.sight`` on: the same ``(key, t)`` rows as JAX's driver
+    (the sight_* stats at every log cadence that follows a train step,
+    the detectors' ``sight_alert_*`` transitions), every value finite,
+    histograms summing to 1 and entropies in [0, 1]. At superstep 1 the
+    first train step's sight values agree with JAX's as in
+    ``tests/test_torch_sight.py``'s train-step case: the norms at
+    ``grad_norm``'s rtol 1e-4, the others at the info tolerance, the
+    histograms within one masked element (of 4·6 steps, times 3 agents
+    for the chosen Qs) moved."""
+    rj, rt, _, _ = both(superstep, sight=True)
+    assert set(rt) == set(rj)
+    keys = {k for k, _ in rt if k.startswith("sight_")}
+    assert keys - {k for k in keys if k.startswith("sight_alert_")} \
+        == SIGHT_KEYS
+    for (k, t), v in rt.items():
+        assert np.all(np.isfinite(v)), (k, t)
+        if k.endswith("_hist"):
+            assert len(v) == 16 and abs(sum(v) - 1.0) < 1e-5, (k, t)
+        elif k.startswith("sight_attn_entropy"):
+            assert len(v) == 1 and 0.0 <= v[0] <= 1.0 + 1e-6, (k, t)
+    if superstep != 1:
+        return
+    for k in sorted(SIGHT_KEYS):
+        got, want = np.asarray(rt[(k, 24)]), np.asarray(rj[(k, 24)])
+        if k.endswith("_hist"):
+            total = 4 * 6 * (3 if "q_taken" in k else 1)
+            assert np.abs(got - want).sum() * total <= 2.0 + 1e-3, k
+        elif "_norm_" in k:
+            np.testing.assert_allclose(got, want, rtol=1e-4, err_msg=k)
+        else:
+            np.testing.assert_allclose(got, want, err_msg=k, **INFO)
+
+
 def _run_port(path, **kw):
     return run(from_dict(tiny(path, **kw)), Logger(), device="cpu")
+
+
+def test_sight_adds_no_stat_fetch(tmp_path):
+    """Spans on (so ``stat_fetches`` is logged): the blocking stat
+    round trips are the same with ``obs.sight`` on and off, and so is
+    every row the run writes but the sight_* ones."""
+    rows = {}
+    for on in (False, True):
+        _run_port(tmp_path / str(on), obs=dict(
+            enabled=True, sight=dict(enabled=on)))
+        rows[on] = {k: v for k, v in rows_of(tmp_path / str(on)).items()
+                    if not wall_clock(k[0])}
+    fetches = lambda r: {k: v for k, v in r.items()
+                         if k[0] == "stat_fetches"}
+    assert fetches(rows[True]) == fetches(rows[False])
+    assert len(fetches(rows[False])) > 3
+    assert {k: v for k, v in rows[True].items()
+            if not k[0].startswith("sight_")} == rows[False]
 
 
 def test_resume_is_bit_exact(tmp_path):
@@ -314,9 +378,6 @@ def test_profile_dir_writes_a_trace(tmp_path):
 
 def test_driver_raises_for_what_is_not_ported(tmp_path):
     for over, item in ((dict(dp_devices=2), "item 12"),
-                       (dict(obs=dict(pulse_port=9464)), "item 13a"),
-                       (dict(obs=dict(sight=dict(enabled=True))),
-                        "item 13a"),
                        (dict(obs=dict(enabled=True, program_trace=True),
                              profile_dir=str(tmp_path)), "item 13b")):
         with pytest.raises(NotImplementedError, match=item):

@@ -197,7 +197,8 @@ def test_train_info_zeros_matches_train_info():
     ({"mixer": "vdn"}, "mixer 'vdn'"),
     ({"model.dropout": 0.1}, "dropout"),
     ({"env_args.scenario": {"min_agents": 2}}, "padding mask"),
-    ({"model.remat": True}, "remat"),
+    ({"action_selector": "noisy-new", "model.use_qslice": False},
+     "dense agent's NoisyNet"),
 ])
 def test_unported_paths_raise(over, match):
     tcfg = from_dict(config(**over))
