@@ -49,7 +49,7 @@ failed check ends the script with a non-zero exit):
              path), and the fwd+bwd totals
 7. train     the trainer step (sample -> train -> priority feedback,
              train/program.py) at the north-star widths, bf16,
-             kernels.attention=pallas, dense replay; 5 steps with exact
+             kernels.attention=pallas, dense replay; 3 steps with exact
              launch counts of all four kernels, the p50 step time (bf16,
              and f32), the f32 pallas-vs-xla cross-check at batch 2
              (query slice and dense; loss, grad_norm, gradients and the
@@ -77,7 +77,7 @@ failed check ends the script with a non-zero exit):
              rollout's device busy/idle share and top device ops
    sight     the learning-health probes (obs.sight) on [loop]'s trainer
              step (its ring: compact storage, batch 32, T = 150, bf16):
-             off and on from one state, three steps each in turns; params,
+             off and on from one state, two steps each in turns; params,
              target, Adam and priorities bit-identical, the same kernel
              launches, the probes finite (histograms summing to 1,
              entropies in [0, 1]); the probes' extra compute ops at the
@@ -86,9 +86,24 @@ failed check ends the script with a non-zero exit):
              and every param bit-identical (or, printed, within
              tests/test_torch_loop.py's tolerances), K1 + residuals twice
              per online mixer step, the peak memory lower; then f32 at
-             T = 150 under remat (three steps: p50, peak, finite loss,
+             T = 150 under remat (two steps: p50, peak, finite loss,
              moving params) and the f32 pallas-vs-xla cross-check on one
              remat step
+   superstep the fused superstep (Experiment.superstep_program) at config
+             3's width on [loop]'s experiment and state (1024 lanes, ring
+             2048, K = 4, bf16, pallas, PER, obs.sight on): K eager
+             run_classic iterations and the process's first fused
+             dispatch (one eager warm-up iteration, the capture of the
+             rollout + insert and the train graphs, K - 1 replays) from
+             one state, bit for
+             bit (learner, ring, priorities, runner, counters, the driver
+             key, each iteration's stats and info) with the same kernel
+             launches; a dispatch of replays with no host sync (CUDA sync
+             debug mode), the state at the same addresses, its host time
+             and each iteration's device time; a profiled dispatch: the
+             device busy share and the flash kernels a train replay from
+             the profiler's rows beside LAUNCHES; capture and instantiate
+             seconds, graph nodes, peak memory with the graphs' pool
    loop-dense  the kill switch model.use_entity_tables=false (dense obs,
              query-slice acting, the agent's unrolls through the kernels)
              at 128 lanes and a ring of 256: threefry on CUDA against the
@@ -102,8 +117,9 @@ failed check ends the script with a non-zero exit):
              config3_tpu_northstar.yaml uncut (1024 lanes, ring 2048,
              K = 4, spans, memwatch, the learning-health probes and the
              live plane on port 9464 on) with kernels.attention=pallas,
-             its only override: one dispatch to t_env 614400 with
-             launches 4 x [loop]'s, the metric keys (the sight keys
+             its only override: one fused dispatch to t_env 614400 that
+             captures and replays the superstep's graphs, with launches
+             4 x [loop]'s, the metric keys (the sight keys
              finite, histograms summing to 1, entropies in [0, 1]),
              /metrics and /healthz read from a thread during the call
              (t_env, the watchdog gauges, HBM in use; the watchdog, guard
@@ -172,7 +188,7 @@ MIXER_SHAPE = (32, 1, 268, 131, 256)
 #: 64 episodes of 151 steps (bf16 storage, ~0.75 GB) are enough to
 #: sample batches of 32
 RING = 64
-TRAIN_STEPS = 5
+TRAIN_STEPS = 3
 
 
 def check(cond: bool, what: str) -> None:
@@ -910,7 +926,12 @@ def phase_train(torch, att):
     def run(cfg, steps, keys, buffer, ring):
         learner = build_learner(cfg, info)
         ls = learner.init_state(torch.Generator().manual_seed(SEED))
-        ts = TrainState(learner=ls, buffer=ring, episode=RING)
+        # the priority feedback writes in place: each run steps on its
+        # own copy of the ring's priorities, so the ring keeps the ones
+        # it was built with (the cross-checks below sample from it)
+        ts = TrainState(learner=ls, buffer=dataclasses.replace(
+            ring, priorities=ring.priorities.clone()),
+            episode=torch.tensor(RING, dtype=torch.int32, device="cuda"))
         train_iter = build_train_iter(buffer, learner, cfg)
         p0 = {m: {k: v.clone() for k, v in sub.items()}
               for m, sub in ls.params.items()}
@@ -1085,7 +1106,8 @@ def phase_profile_train(torch, buffer, ring, cfg, info):
     from t2omca_tpu_torch.train.program import TrainState, build_train_iter
     learner = build_learner(cfg, info)
     ts = TrainState(learner=learner.init_state(
-        torch.Generator().manual_seed(SEED)), buffer=ring, episode=RING)
+        torch.Generator().manual_seed(SEED)), buffer=ring,
+        episode=torch.tensor(RING, dtype=torch.int32, device="cuda"))
     train_iter = build_train_iter(buffer, learner, cfg)
     k1, k2 = prng.split(prng.PRNGKey(SEED + 13, "cuda")).unbind(0)
     ts, _ = train_iter(ts, k1, 1000)
@@ -1393,10 +1415,10 @@ def run_loop(torch, att, exp, ts, tag: str, iterations: int):
               f"{gn:.4g}, launches {launches}", flush=True)
     check(cursor.t_env == iterations * b * t,
           f"{tag}: t_env {cursor.t_env} != {iterations * b * t}")
-    check(cursor.episode == ts.episode == iterations * b,
+    check(cursor.episode == int(ts.episode) == iterations * b,
           f"{tag}: episode {cursor.episode} != {iterations * b}")
     st = ts.buffer.storage
-    n = ts.buffer.episodes_in_buffer
+    n = int(ts.buffer.episodes_in_buffer)
     check(n == min(iterations * b, cfg.replay.buffer_size),
           f"{tag}: ring holds {n} episodes")
     taken = torch.gather(st.avail_actions[:n, :-1], -1,
@@ -1426,7 +1448,7 @@ def check_stored_obs(torch, ts, env, tag: str) -> str:
     """The ring's obs: compact leaves finite with MEC ids in [0, n_mec)
     (config 3 pads no agent), or finite dense obs."""
     from t2omca_tpu_torch.components.episode_buffer import CompactEntityObs
-    n = ts.buffer.episodes_in_buffer
+    n = int(ts.buffer.episodes_in_buffer)
     obs = ts.buffer.storage.obs
     if not isinstance(obs, CompactEntityObs):
         check(bool(torch.isfinite(obs[:n].float()).all()),
@@ -1542,8 +1564,8 @@ def phase_loop(torch, att):
 #: the same state with the same keys, in turns; the first step of each
 #: counted (kernel launches, and compute ops at the dispatcher, each
 #: about one device launch), the rest timed
-AB_STEPS = 3
-F32_REMAT_STEPS = 3
+AB_STEPS = 2
+F32_REMAT_STEPS = 2
 
 
 def count_ops(torch, fn):
@@ -1608,7 +1630,11 @@ def ab_steps(torch, att, exp, ts, variants: dict, n: int = AB_STEPS):
         cfg, exp.mac, info), cfg) for name, cfg in variants.items()}
     keys = prng.split(prng.PRNGKey(SEED + 50, "cuda"), n)
     t_env = exp.cfg.batch_size_run * exp.cfg.env_args.episode_limit * 4
-    out = {name: {"ts": ts, "times_ms": [], "peak_gib": 0.0,
+    # the priority feedback writes the ring's priorities in place: each
+    # variant steps on its own copy of them (the storage is only read)
+    own = lambda: dataclasses.replace(ts, buffer=dataclasses.replace(
+        ts.buffer, priorities=ts.buffer.priorities.clone()))
+    out = {name: {"ts": own(), "times_ms": [], "peak_gib": 0.0,
                   "launch_total": {}, "syncs": []} for name in variants}
     for i in range(n):
         for name, train_iter in iters.items():
@@ -1845,6 +1871,214 @@ def phase_remat(torch, att, exp, ts, cross_batch) -> dict:
     return result
 
 
+#: [superstep]: config 3's fused program (superstep 4) uncut on [loop]'s
+#: experiment and state (1024 lanes, ring 2048, bf16, pallas, PER), with
+#: obs.sight on as the config ships it
+SUPERSTEP_K = 4
+
+
+def fused_dispatch(torch, sup, ts, mirror):
+    """One fused dispatch the driver's way: the host mirror of the
+    counters (``mirror``: key, t_env, episode, filled; advanced here)
+    gates each sub-iteration and the key splits only for gated ones →
+    (ts', stacked stats, stacked infos, gates)."""
+    from t2omca_tpu_torch import prng
+    cfg = sup.exp.cfg
+    rows, gated = [], []
+    for _ in range(sup.k):
+        mirror["episode"] += cfg.batch_size_run
+        mirror["filled"] = min(mirror["filled"] + cfg.batch_size_run,
+                               cfg.replay.buffer_size)
+        gated.append(mirror["filled"] >= cfg.batch_size
+                     and mirror["episode"] >= cfg.accumulated_episodes)
+        if gated[-1]:
+            mirror["key"], k_sample = prng.split(mirror["key"]).unbind(0)
+            rows.append(k_sample)
+        else:
+            rows.append(torch.zeros_like(mirror["key"]))
+    out = sup(ts, torch.stack(rows), mirror["t_env"], gated)
+    mirror["t_env"] += (sup.k * cfg.batch_size_run
+                        * cfg.env_args.episode_limit)
+    return out + (gated,)
+
+
+def phase_superstep(torch, att, exp, ts, smi: str) -> dict:
+    """The fused superstep (``Experiment.superstep_program``) as captured
+    CUDA graphs at config 3's width: K eager ``run_classic`` iterations
+    against the process's first fused dispatch from the same state (one
+    eager warm-up iteration, the captures, K - 1 replays; bit for bit),
+    then a dispatch of replays timed (host time, each iteration's device
+    time, no host sync, the state's addresses kept) and a profiled one
+    (busy share, kernels a replay)."""
+    import gc
+    from torch.profiler import ProfilerActivity, profile
+    from t2omca_tpu_torch import prng
+    from t2omca_tpu_torch.learners import QMixLearner
+    from t2omca_tpu_torch.run import LoopCursor, run_classic
+    from t2omca_tpu_torch.train.superstep import clone_state
+    from t2omca_tpu_torch.utils.checkpoint import flatten_state
+    cfg = _with(exp.cfg, obs={"sight": dataclasses.replace(
+        exp.cfg.obs.sight, enabled=True)})
+    exp = dataclasses.replace(exp, cfg=cfg, learner=QMixLearner.build(
+        cfg, exp.mac, exp.env.get_env_info()))
+    k, b, t = SUPERSTEP_K, cfg.batch_size_run, cfg.env_args.episode_limit
+    sup = exp.superstep_program(k)
+    mirror = {"key": prng.PRNGKey(SEED + 60, "cuda"),
+              "t_env": ts.runner.t_env, "episode": int(ts.episode),
+              "filled": int(ts.buffer.episodes_in_buffer)}
+    want = {name: k * n for name, n in loop_launches(cfg).items()}
+    print(f"[superstep] config 3 uncut ([loop]'s experiment and state: "
+          f"{b} lanes, ring {cfg.replay.buffer_size}, T={t}, bf16, pallas,"
+          f" PER, obs.sight on), K={k}: rollout + insert_time_major and "
+          f"sample + train + priority feedback as two CUDA graphs in one "
+          f"pool | {smi}", flush=True)
+    # 1. K eager classic iterations from a copy of the state (first: a
+    # captured train graph's pool and an eager train step do not fit in
+    # one card at this width) ...
+    start = dict(mirror)
+    ref = clone_state(ts)
+    att.reset_launches()
+    t0 = time.perf_counter()
+    ref, cursor, recs = run_classic(exp, ref, k, LoopCursor(
+        key=start["key"], t_env=start["t_env"], episode=start["episode"],
+        buffer_filled=start["filled"]))
+    torch.cuda.synchronize()
+    eager_s = time.perf_counter() - t0
+    eager = dict(att.LAUNCHES)
+    check(eager == want, f"[superstep] eager launches {eager} != {want}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    # 2. ... against the process's first fused dispatch from the state:
+    # its first iteration runs both stages eagerly (the warm-up), the
+    # second captures them, the other K - 1 replay the graphs (the
+    # launches of the fused dispatches are counted from here)
+    att.reset_launches()
+    t0 = time.perf_counter()
+    ts, stats, infos, gated = fused_dispatch(torch, sup, ts, mirror)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    fused = dict(att.LAUNCHES)
+    check(all(gated), f"[superstep] gates {gated}")
+    check(set(sup.graphs) == {"rollout", "train"},
+          f"[superstep] graphs after the first dispatch {sorted(sup.graphs)}")
+    check(fused == eager, f"[superstep] fused launches {fused} != eager "
+                          f"{eager}")
+    check(sum(sup.launches["rollout"].values()) == 0
+          and sup.launches["train"] == loop_launches(cfg),
+          f"[superstep] launches a replay {sup.launches}")
+    a, ha = flatten_state(ts)
+    r, hr = flatten_state(ref)
+    check(ha == hr and set(a) == set(r), f"[superstep] host {ha} != {hr}")
+    diff = [name for name in a if not torch.equal(a[name], r[name])]
+    check(not diff, f"[superstep] fused state differs from {k} eager "
+                    f"iterations: {diff[:5]} ({len(diff)} leaves)")
+    check(torch.equal(cursor.key, mirror["key"]), "[superstep] driver key")
+    for i, rec in enumerate(recs):
+        for f in dataclasses.fields(stats):
+            got, exp_v = getattr(stats, f.name)[i], getattr(rec.stats,
+                                                             f.name)
+            check(torch.equal(got.cpu(), exp_v.reshape(got.shape).cpu()),
+                  f"[superstep] stats {f.name} of iteration {i}")
+        bad = [name for name, v in rec.info.items()
+               if not torch.equal(infos[name][i], v)]
+        check(not bad, f"[superstep] info of iteration {i}: {bad}")
+    n_leaves, n_bytes = len(a), sum(v.numel() * v.element_size()
+                                    for v in a.values())
+    losses = [float(x) for x in infos["loss"]]
+    del ref, recs, r
+    gc.collect()
+    torch.cuda.empty_cache()
+    ptrs = {name: v.data_ptr() for name, v in a.items()}
+    del a
+    torch.cuda.reset_peak_memory_stats()
+    # 3. replays only: host time, device time by iteration, no sync
+    sup.timing = True
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    (ts2, _, infos, _), syncs = count_syncs(
+        torch, lambda: fused_dispatch(torch, sup, ts, mirror))
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    iters = [(e0.elapsed_time(e1), e1.elapsed_time(e2))
+             for e0, e1, e2 in sup.events]
+    sup.timing = False
+    check(not syncs, f"[superstep] host syncs inside a dispatch: {syncs}")
+    check(ts2 is ts and {n: v.data_ptr() for n, v in
+                         flatten_state(ts)[0].items()} == ptrs,
+          "[superstep] a state tensor moved between dispatches")
+    check(bool(infos["all_finite"].all()), "[superstep] non-finite step")
+    # 4. one profiled dispatch: device busy share, kernels a replay
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fused_dispatch(torch, sup, ts, mirror)
+        torch.cuda.synchronize()
+        prof_ms = (time.perf_counter() - t0) * 1e3
+    launches = dict(att.LAUNCHES)        # ---- the fused path ends here
+    check(launches == {name: 3 * n for name, n in want.items()},
+          f"[superstep] launches of 3 fused dispatches {launches}")
+    rows = device_rows(prof)
+    busy = sum(x[0] for x in rows)
+    device_launches = sum(x[1] for x in rows)
+    # the bf16 bodies: K1 and K1 + residuals share flash_fwd_tc_kernel
+    flash = {name: sum(x[1] for x in rows if body in x[2])
+             for name, body in zip(("flash_fwd", "flash_bwd_dkv",
+                                    "flash_bwd_dq"), BF16_TC_KERNELS)}
+    per_replay = {name: n / k for name, n in flash.items()}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    reserved = torch.cuda.max_memory_reserved() / 2 ** 30
+    nodes = {s: sup.nodes.get(s) for s in ("rollout", "train")}
+    print(f"[superstep] {k} eager run_classic iterations and one fused "
+          f"dispatch from one state: bit-identical ({n_leaves} state "
+          f"leaves, {n_bytes / 2 ** 30:.2f} GiB: learner, ring, priorities,"
+          f" runner, counters; the driver key; stats and infos of each "
+          f"iteration); launches {fused} both ways ({sup.launches['train']}"
+          f" a train replay, none a rollout replay); losses "
+          f"{', '.join(f'{x:.4g}' for x in losses)}", flush=True)
+    print(f"[superstep] capture: rollout {sup.capture_s['rollout']:.2f} s "
+          f"+ instantiate {sup.instantiate_s['rollout']:.2f} s, train "
+          f"{sup.capture_s['train']:.2f} s + instantiate "
+          f"{sup.instantiate_s['train']:.2f} s; graph nodes {nodes}",
+          flush=True)
+    print(f"[superstep] dispatch host times: {k} eager run_classic "
+          f"iterations {eager_s * 1e3:.0f} ms; the first fused dispatch "
+          f"(one eager iteration, the captures, {k - 1} replays) "
+          f"{first_s * 1e3:.0f} ms; a dispatch of replays "
+          f"{host_ms:.0f} ms to return ({wall_ms:.0f} ms to the device's "
+          f"end); device time "
+          f"by iteration (rollout + train, ms): "
+          + ", ".join(f"{x:.1f} + {y:.1f}" for x, y in iters)
+          + f"; host syncs inside the dispatch: {len(syncs)}", flush=True)
+    print(f"[superstep] profiled dispatch: host {prof_ms:.0f} ms, device "
+          f"busy {busy:.0f} ms ({100 * busy / prof_ms:.1f}%), idle "
+          f"{100 * (1 - busy / prof_ms):.1f}%; {device_launches} device "
+          f"kernels and copies in the trace; flash kernels a train replay "
+          f"(profiler rows / {k}) {per_replay} against LAUNCHES "
+          f"{sup.launches['train']}; peak memory over the dispatches of "
+          f"replays {peak:.2f} GiB allocated, {reserved:.2f} GiB reserved "
+          f"(the graphs' pool included) | "
+          f"{smi}", flush=True)
+    check(busy > 0, "[superstep] the profiler saw no device time")
+    lt = sup.launches["train"]
+    check(per_replay["flash_fwd"] == lt["flash_fwd"] + lt["flash_fwd_res"]
+          and per_replay["flash_bwd_dq"] == lt["flash_bwd_dq"]
+          and per_replay["flash_bwd_dkv"] == lt["flash_bwd_dkv"],
+          f"[superstep] profiler flash rows a replay {per_replay} != "
+          f"LAUNCHES {lt}")
+    capture = {s: (sup.capture_s[s], sup.instantiate_s[s])
+               for s in ("rollout", "train")}
+    sup.close()
+    del sup, ts2
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "capture_s": capture,
+            "first_s": first_s, "eager_s": eager_s,
+            "host_ms": host_ms, "wall_ms": wall_ms, "iters_ms": iters,
+            "busy_share": busy / prof_ms, "peak_gib": peak,
+            "reserved_gib": reserved, "nodes": nodes}
+
+
 def phase_loop_dense(torch, att):
     """The kill switch model.use_entity_tables=false: query-slice acting
     on the dense obs, dense storage, the agent's unrolls through the
@@ -2054,30 +2288,25 @@ class _LogLines:
         logging.getLogger("t2omca").removeHandler(self.handler)
 
 
-def _timed_iterations(torch, run_mod):
-    """Wrap ``run.run_classic`` so a K-iteration dispatch runs as K calls
-    of one iteration each (the same work: ``run_classic`` chains its
-    iterations exactly so) with a CUDA event after each: the device
-    timeline between the events is each iteration's time, with no added
-    synchronize. → (events list, restore function)."""
-    original = run_mod.run_classic
-    events = []
+def _timed_dispatches(torch, superstep_mod):
+    """Turn on the fused program's own per-iteration CUDA events
+    (``SuperstepProgram.timing``: recorded on the stream, no added
+    synchronize) for every program the driver builds, and record each
+    call's program. → (list of programs called, one entry a dispatch;
+    restore function)."""
+    cls = superstep_mod.SuperstepProgram
+    original = cls.__call__
+    calls = []
 
-    def timed(exp, ts, n, cursor=None, sync=False):
-        start = torch.cuda.Event(enable_timing=True)
-        start.record()
-        marks, recs = [start], []
-        for _ in range(n):
-            ts, cursor, (rec,) = original(exp, ts, 1, cursor, sync)
-            recs.append(rec)
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            marks.append(ev)
-        events.append(marks)
-        return ts, cursor, recs
+    def timed(self, *args, **kw):
+        self.timing = True
+        out = original(self, *args, **kw)
+        calls.append((self, list(self.events),
+                      dict(self.capture_s), dict(self.instantiate_s)))
+        return out
 
-    run_mod.run_classic = timed
-    return events, lambda: setattr(run_mod, "run_classic", original)
+    cls.__call__ = timed
+    return calls, lambda: setattr(cls, "__call__", original)
 
 
 def phase_driver(torch, att, loop: dict) -> dict:
@@ -2091,10 +2320,10 @@ def phase_driver(torch, att, loop: dict) -> dict:
     import tempfile
     import numpy as np
     from t2omca_tpu_torch import __main__ as cli
-    from t2omca_tpu_torch import run as run_mod
     from t2omca_tpu_torch.config import load_config
     from t2omca_tpu_torch.obs import pulse as pulse_mod
     from t2omca_tpu_torch.runners.episode_runner import EpisodeRunner
+    from t2omca_tpu_torch.train import superstep as superstep_mod
     from t2omca_tpu_torch.utils import checkpoint as ckpt
     from t2omca_tpu_torch.utils import resilience
     root = os.path.dirname(os.path.abspath(__file__))
@@ -2117,7 +2346,7 @@ def phase_driver(torch, att, loop: dict) -> dict:
     try:
         # ---- 1. train: config 3 uncut, one dispatch of K = 4 ----------
         out1 = os.path.join(tmp, "train")
-        events, unwrap = _timed_iterations(torch, run_mod)
+        calls, unwrap = _timed_dispatches(torch, superstep_mod)
         scraper = _Scraper(port)
         close = pulse_mod.PulseHandle.close
 
@@ -2143,11 +2372,14 @@ def phase_driver(torch, att, loop: dict) -> dict:
         train_wall = time.time() - t_start
         launches = dict(att.LAUNCHES)    # ---- and ends here
         check(rc == 0, f"[driver] train returned {rc}")
-        check(len(events) == 1, f"[driver] {len(events)} dispatches, "
-                                f"expected one")
+        check(len(calls) == 1, f"[driver] {len(calls)} fused dispatches, "
+                               f"expected one")
         check(launches == want, f"[driver] launches {launches} != {want}")
-        iters_ms = [a.elapsed_time(b) for a, b in zip(events[0],
-                                                      events[0][1:])]
+        _, marks, cap, inst = calls[0]
+        iters_ms = [e0.elapsed_time(e2) for e0, _, e2 in marks]
+        check(len(iters_ms) == k and set(cap) == {"rollout", "train"},
+              f"[driver] the dispatch replayed no captured graphs "
+              f"({len(iters_ms)} iterations, captured {sorted(cap)})")
         rows = _metric_rows(out1)
         keys = {r["key"] for r in rows}
         missing = [k for k in DRIVER_KEYS + SIGHT_KEYS if k not in keys]
@@ -2220,11 +2452,13 @@ def phase_driver(torch, att, loop: dict) -> dict:
               flush=True)
         print(f"[driver] times: startup to the first dispatch "
               f"{startup_s:.2f} s (kernels prebuilt); dispatch host "
-              f"{disp['wall_ms']:.0f} ms; iterations (device timeline) "
-              f"{', '.join(f'{x:.0f}' for x in iters_ms)} ms against "
-              f"[loop]'s iteration p50 {loop['iteration_p50_ms']:.0f} ms "
-              f"(driver overhead {sum(iters_ms) / k - loop['iteration_p50_ms']:+.0f}"
-              f" ms an iteration); test rollout "
+              f"{disp['wall_ms']:.0f} ms (the fused program: capture "
+              f"rollout {cap['rollout']:.2f} s + instantiate "
+              f"{inst['rollout']:.2f} s, train {cap['train']:.2f} s + "
+              f"{inst['train']:.2f} s, in the first iteration); iterations "
+              f"(device timeline) {', '.join(f'{x:.0f}' for x in iters_ms)}"
+              f" ms against [loop]'s eager iteration p50 "
+              f"{loop['iteration_p50_ms']:.0f} ms; test rollout "
               f"{test_ms[0] if test_ms else float('nan'):.0f} ms; whole "
               f"call {train_wall:.1f} s", flush=True)
         print(f"[driver] checkpoint: {save['save_bytes'] / 1e9:.3f} GB, "
@@ -2533,6 +2767,8 @@ def main() -> int:
     remat = phase_remat(torch, att, loop_exp, loop_ts,
                         train.pop("cross_batch"))
     lap("remat")
+    superstep = phase_superstep(torch, att, loop_exp, loop_ts, smi)
+    lap("superstep")
     del loop_exp, loop_ts
     torch.cuda.empty_cache()
     dense = phase_loop_dense(torch, att)
@@ -2542,7 +2778,8 @@ def main() -> int:
     driver = phase_driver(torch, att, loop)
     lap("driver")
     loops = {"loop": loop, "sight": sight, "remat": remat,
-             "loop_dense": dense, "loop_noisy": noisy,
+             "superstep": superstep, "loop_dense": dense,
+             "loop_noisy": noisy,
              "driver": {"launches": {
                  k: driver["launches"][k] + driver["launches_resume"][k]
                  for k in driver["launches"]}}}
@@ -2640,8 +2877,22 @@ def main() -> int:
           f"acting forward at {LOOP_LANES} lanes: entity tables "
           f"{entity['entity_ms']:.3f} ms, query slice {entity['qslice_ms']:.3f}"
           f" ms", flush=True)
+    print(f"[summary] superstep (config 3, K={SUPERSTEP_K}, captured CUDA "
+          f"graphs): bit-identical to {SUPERSTEP_K} eager iterations; "
+          f"capture rollout {superstep['capture_s']['rollout'][0]:.2f} + "
+          f"{superstep['capture_s']['rollout'][1]:.2f} s, train "
+          f"{superstep['capture_s']['train'][0]:.2f} + "
+          f"{superstep['capture_s']['train'][1]:.2f} s (capture + "
+          f"instantiate); a dispatch of replays {superstep['host_ms']:.0f} "
+          f"ms host, {superstep['wall_ms']:.0f} ms to the device's end "
+          f"(eager: {superstep['eager_s'] * 1e3:.0f} ms for {SUPERSTEP_K} "
+          f"run_classic iterations); device busy "
+          f"{100 * superstep['busy_share']:.1f}% of a profiled dispatch; "
+          f"peak {superstep['peak_gib']:.2f} GiB allocated, "
+          f"{superstep['reserved_gib']:.2f} GiB reserved", flush=True)
     print(f"[summary] driver (config 3 via python -m t2omca_tpu_torch, one "
-          f"K=4 dispatch): startup {driver['startup_s']:.2f} s, dispatch "
+          f"fused K=4 dispatch): startup {driver['startup_s']:.2f} s, "
+          f"dispatch "
           f"host {driver['dispatch_host_ms']:.0f} ms, iterations "
           f"{', '.join(f'{x:.0f}' for x in driver['iterations_ms'])} ms, "
           f"test rollout {driver['test_ms']:.0f} ms, checkpoint "

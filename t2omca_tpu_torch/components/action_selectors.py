@@ -64,19 +64,26 @@ class EpsilonGreedySelector:
 
     def select(self, key: torch.Tensor, q: torch.Tensor,
                avail: torch.Tensor, t_env, test_mode: bool = False,
-               eps_scale=None, draws=None
+               eps_scale=None, draws=None, eps=None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
         """``key (2,)``; q, avail ``(..., n_actions)`` → (actions
         ``(...)``, epsilon). ``draws`` (``exploration_draws`` of ``key``)
         replaces drawing here. ``t_env`` is a host int, so epsilon stays
-        on the host and the coin compares against it without a copy."""
-        eps = self.epsilon(t_env, test_mode, eps_scale)
+        on the host and the coin compares against it without a copy;
+        ``eps`` (a () f32 device tensor the host filled from the same
+        schedule) replaces it, so a captured rollout reads its current
+        value. Both compare the same float32 number."""
+        if eps is None or test_mode:
+            eps = self.epsilon(t_env, test_mode, eps_scale)
+            thresh = float(eps)
+        else:
+            thresh = eps
         greedy = masked_argmax(q, avail)
         if test_mode:
             return greedy, eps
         coin, g = (exploration_draws(key, q.shape) if draws is None
                    else draws)
-        return torch.where(coin < float(eps), _gumbel_argmax(g, avail),
+        return torch.where(coin < thresh, _gumbel_argmax(g, avail),
                            greedy), eps
 
 
@@ -91,9 +98,9 @@ class NoisySelector:
 
     def select(self, key: torch.Tensor, q: torch.Tensor,
                avail: torch.Tensor, t_env, test_mode: bool = False,
-               eps_scale=None, draws=None
+               eps_scale=None, draws=None, eps=None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
-        del key, eps_scale, draws
+        del key, eps_scale, draws, eps
         return masked_argmax(q, avail), torch.zeros(())
 
 

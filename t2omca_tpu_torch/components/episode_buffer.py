@@ -9,17 +9,22 @@ buffer's device, sampling and priority feedback never leave it.
 
 Differences from the JAX package, by design:
 
-* The ring's episode storage is updated IN PLACE by ``insert_episode_
-  batch`` (``index_copy_``): it is the largest tensor on the card, and
-  JAX only avoids the copy by donating it. The small priority vector is
-  replaced, not written in place. The ring cursor and fill count are
-  host integers (the host decides every insert anyway).
+* The ring is written IN PLACE: ``insert_episode_batch`` and
+  ``insert_time_major`` write the episode storage (``index_copy_``,
+  ``index_put_``) and every priority write (the insert's stamp, the
+  feedback of ``update_priorities``) is an ``index_put_`` on the ring's
+  own priority vector. The storage is the largest tensor on the card, and
+  JAX only avoids its copy by donating it. The cursor ``insert_pos`` and
+  the fill ``episodes_in_buffer`` are 0-d int32 tensors on the ring's
+  device, as in JAX; an insert returns new ones, which the fused
+  superstep (``train/superstep.py``) copies into its captured buffers.
 * ``sample`` draws from a key of the JAX key chain
   (``t2omca_tpu_torch.prng``), as the JAX buffers do; ``u`` (PER: one
   uniform per stratum) or ``scores`` (uniform: one per slot) may be
   handed in instead, so a test can give both packages the same numbers.
-* ``insert_time_major`` (the fused superstep's insert) is a later
-  slice (``ROADMAP.md`` Queue A item 8).
+  PER's β is a device scalar: the host computes it in XLA's float32 form
+  (``per_beta``) and either fills one here or hands one in (``beta=``),
+  so a captured sampler reads the current value.
 
 Compact entity storage (``compact_obs=True``) keeps ``obs`` as a
 ``CompactEntityObs``: the entity feature rows, the serving MEC's index as
@@ -136,8 +141,8 @@ class BufferState:
     """The ring plus PER priorities."""
 
     storage: EpisodeBatch        # (capacity, T(+1), ...)
-    insert_pos: int              # next ring slot
-    episodes_in_buffer: int
+    insert_pos: torch.Tensor     # () int32: next ring slot
+    episodes_in_buffer: torch.Tensor  # () int32
     # (capacity,) f32, stored PRE-EXPONENTIATED (p^alpha) by the
     # prioritized buffer, raw by the uniform one (which never samples by
     # priority)
@@ -193,12 +198,15 @@ class ReplayBuffer:
             terminated=torch.zeros(c, t, dtype=torch.bool, device=dev),
             filled=torch.zeros(c, t, dtype=torch.bool, device=dev),
         )
-        return BufferState(storage=storage, insert_pos=0,
-                           episodes_in_buffer=0,
+        zero = torch.zeros((), dtype=torch.int32, device=dev)
+        return BufferState(storage=storage, insert_pos=zero,
+                           episodes_in_buffer=zero.clone(),
                            priorities=torch.zeros(c, device=dev),
                            max_priority=torch.ones((), device=dev))
 
     def _ring_slots(self, state: BufferState, b: int) -> torch.Tensor:
+        """Target slots of ``b`` incoming episodes, from the device
+        cursor (one source for both insert paths)."""
         if b > self.capacity:
             raise ValueError(
                 f"insert batch of {b} episodes exceeds buffer capacity "
@@ -212,10 +220,24 @@ class ReplayBuffer:
         max here, pre-exponentiated by the prioritized subclass."""
         return state.max_priority
 
+    def _ring_advance(self, state: BufferState, idx: torch.Tensor,
+                      b: int) -> BufferState:
+        """Bookkeeping shared by both insert paths: the cursor and fill
+        advance on the device, the new slots are stamped at the running
+        max priority (in place)."""
+        state.priorities.index_put_(
+            (idx,), self._insert_priority(state).expand(b))
+        return dataclasses.replace(
+            state,
+            insert_pos=(state.insert_pos + b) % self.capacity,
+            episodes_in_buffer=torch.clamp(state.episodes_in_buffer + b,
+                                           max=self.capacity))
+
     def insert_episode_batch(self, state: BufferState, batch: EpisodeBatch
                              ) -> BufferState:
         """Ring-insert ``B`` episodes, overwriting the oldest when full;
-        the storage is written in place (see the module docstring)."""
+        the storage and priorities are written in place (see the module
+        docstring)."""
         b = batch.batch_size
         idx = self._ring_slots(state, b)
         put = lambda dst, src: dst.index_copy_(
@@ -223,15 +245,41 @@ class ReplayBuffer:
         for f in dataclasses.fields(EpisodeBatch):
             obs_map(put, getattr(state.storage, f.name),
                     getattr(batch, f.name))
-        stamp = self._insert_priority(state).expand(b)
-        return dataclasses.replace(
-            state,
-            insert_pos=(state.insert_pos + b) % self.capacity,
-            episodes_in_buffer=min(state.episodes_in_buffer + b,
-                                   self.capacity),
-            priorities=state.priorities.index_put((idx,), stamp))
+        return self._ring_advance(state, idx, b)
 
-    def can_sample(self, state: BufferState, batch_size: int) -> bool:
+    def insert_time_major(self, state: BufferState, tm: TimeMajorEpisodes
+                          ) -> BufferState:
+        """Ring-insert straight from the rollout's time-major ``(T, B,
+        ...)`` stacks and bootstrap step: ONE scatter per leaf, row ``(t,
+        b)`` to ring element ``(slots[b], t)``, with no ``(B, T+1, ...)``
+        batch assembled first. Contents bit-identical to
+        ``insert_episode_batch(state, tm.to_batch())``."""
+        b = tm.batch_size
+        idx = self._ring_slots(state, b)
+        t1 = self.episode_limit + 1
+        t_grid = torch.arange(t1, device=self.device)[:, None].expand(t1, b)
+        s_grid = idx[None, :].expand(t1, b)
+
+        def put_tp1(dst, seq, last):
+            upd = torch.cat([seq, last[None]], 0)
+            dst.index_put_((s_grid, t_grid), upd.to(dst.dtype))
+
+        def put_t(dst, seq):
+            dst.index_put_((s_grid[:-1], t_grid[:-1]), seq.to(dst.dtype))
+
+        st = state.storage
+        obs_map(put_tp1, st.obs, tm.obs, tm.last_obs)
+        put_tp1(st.state, tm.state, tm.last_state)
+        put_tp1(st.avail_actions, tm.avail_actions, tm.last_avail)
+        put_t(st.actions, tm.actions)
+        put_t(st.reward, tm.reward)
+        put_t(st.terminated, tm.terminated)
+        st.filled.index_fill_(0, idx, True)
+        return self._ring_advance(state, idx, b)
+
+    def can_sample(self, state: BufferState, batch_size: int
+                   ) -> torch.Tensor:
+        """() bool on the device (the driver gates on its host mirror)."""
         return state.episodes_in_buffer >= batch_size
 
     def _gather(self, state: BufferState, idx: torch.Tensor
@@ -240,13 +288,13 @@ class ReplayBuffer:
 
     def sample(self, state: BufferState, key: Optional[torch.Tensor],
                batch_size: int, t_env=0,
-               scores: Optional[torch.Tensor] = None
+               scores: Optional[torch.Tensor] = None, beta=None
                ) -> Tuple[EpisodeBatch, torch.Tensor, torch.Tensor]:
         """→ (batch, idx, weights). Uniform without replacement (weights
         1): the top ``batch_size`` of one uniform score per valid slot,
         drawn from ``key``; ``scores`` (``(capacity,)``) replaces the
         draw."""
-        del t_env
+        del t_env, beta
         if scores is None:
             scores = prng.uniform(key, (self.capacity,))
         scores = scores.to(self.device)
@@ -278,6 +326,14 @@ class PrioritizedReplayBuffer(ReplayBuffer):
     def _insert_priority(self, state: BufferState) -> torch.Tensor:
         return state.max_priority ** self.alpha
 
+    def per_beta(self, t_env) -> float:
+        """β at ``t_env`` on the host, in the float32 form XLA gives the
+        JAX sampler's ``beta0 + (1 - beta0)·clip(t_env / t_max, 0, 1)``
+        (the divisor as a reciprocal multiply, then one fused
+        multiply-add)."""
+        frac = min(max(f32(f32(t_env) * recip(self.t_max)), 0.0), 1.0)
+        return f32(frac * f32(1.0 - self.beta0) + f32(self.beta0))   # fma
+
     def _probs(self, state: BufferState) -> torch.Tensor:
         valid = torch.arange(self.capacity, device=self.device) \
             < state.episodes_in_buffer
@@ -285,13 +341,16 @@ class PrioritizedReplayBuffer(ReplayBuffer):
         return p / torch.clamp(p.sum(), min=1e-12)
 
     def sample(self, state: BufferState, key: Optional[torch.Tensor],
-               batch_size: int, t_env=0, u: Optional[torch.Tensor] = None
+               batch_size: int, t_env=0, u: Optional[torch.Tensor] = None,
+               beta: Optional[torch.Tensor] = None
                ) -> Tuple[EpisodeBatch, torch.Tensor, torch.Tensor]:
         """Stratified inverse-CDF: one uniform per equal-mass stratum,
         drawn from ``key``; ``u`` (``(batch_size,)`` in [0, 1)) replaces
         the draw. The float32 arithmetic is XLA's form of the JAX
-        sampler's (constant divisors as reciprocal multiplies, β as one
-        fused multiply-add)."""
+        sampler's (constant divisors as reciprocal multiplies). ``beta``
+        (a () f32 device tensor) is β; else ``per_beta(t_env)`` fills
+        one. ``n`` is the device fill count, so nothing here reads the
+        host."""
         probs = self._probs(state)
         cdf = torch.cumsum(probs, dim=0)
         if u is None:
@@ -300,10 +359,10 @@ class PrioritizedReplayBuffer(ReplayBuffer):
              + u.to(self.device)) * recip(batch_size)
         idx = torch.searchsorted(cdf, u * cdf[-1], side="left")
         idx = torch.clamp(idx, 0, self.capacity - 1)
-        frac = min(max(f32(f32(t_env) * recip(self.t_max)), 0.0), 1.0)
-        beta = f32(frac * f32(1.0 - self.beta0) + f32(self.beta0))   # fma
-        n = float(max(state.episodes_in_buffer, 1))
-        w = (n * torch.clamp(probs[idx], min=1e-12)) ** (-float(beta))
+        if beta is None:
+            beta = torch.full((), self.per_beta(t_env), device=self.device)
+        n = torch.clamp(state.episodes_in_buffer, min=1).float()
+        w = (n * torch.clamp(probs[idx], min=1e-12)) ** (-beta)
         w = w / torch.clamp(w.max(), min=1e-12)
         return self._gather(state, idx), idx, w
 
@@ -314,12 +373,13 @@ class PrioritizedReplayBuffer(ReplayBuffer):
         """Feed RAW ``|TD| + 1e-6`` back for the sampled episodes (Q9),
         stored as ``p^alpha``. ``valid`` (a () bool tensor) is the
         non-finite guard: when False the write puts back the episodes'
-        existing values and the running max stays, with no host sync."""
+        existing values and the running max stays, with no host sync. The
+        priorities are written in place; the running max is a new
+        tensor."""
         pa = priorities ** self.alpha
         new_max = torch.maximum(state.max_priority, priorities.max())
         if valid is not None:
             pa = torch.where(valid, pa, state.priorities[idx])
             new_max = torch.where(valid, new_max, state.max_priority)
-        return dataclasses.replace(
-            state, priorities=state.priorities.index_put((idx,), pa),
-            max_priority=new_max)
+        state.priorities.index_put_((idx,), pa)
+        return dataclasses.replace(state, max_priority=new_max)

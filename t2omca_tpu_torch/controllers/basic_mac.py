@@ -206,7 +206,7 @@ class BasicMAC:
     def select_actions(self, params, obs: Optional[torch.Tensor],
                        avail: torch.Tensor, hidden: torch.Tensor,
                        key: torch.Tensor, t_env=0, test_mode: bool = False,
-                       draws=None, compact=None
+                       draws=None, compact=None, eps=None
                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """→ (actions ``(B, A)`` int32, hidden', epsilon). ``key (2,)``
         splits ``k_noise, k_sel`` as the JAX MAC does: a noisy q-head
@@ -214,8 +214,9 @@ class BasicMAC:
         ``k_sel``, or takes ``draws`` (``exploration_draws``, drawn ahead
         for a whole rollout). ``compact`` (the env's compact obs) takes
         the entity-table forward when the MAC was built eligible; ``obs``
-        may then be None. The dense agent's training noise is not ported
-        (it raises)."""
+        may then be None. ``eps`` (a () device tensor) replaces the
+        epsilon of ``t_env`` (the selector's ``select``). The dense
+        agent's training noise is not ported (it raises)."""
         needs_noise = self.agent.noisy and not test_mode
         k_noise, k_sel = (prng.split(key).unbind(0)
                           if needs_noise or draws is None else (None, None))
@@ -238,7 +239,7 @@ class BasicMAC:
             q, hidden = self.forward(params, obs, hidden, acting=True)
         actions, eps = self.selector.select(k_sel, q, avail, t_env,
                                             test_mode=test_mode,
-                                            draws=draws)
+                                            draws=draws, eps=eps)
         return actions.to(torch.int32), hidden, eps
 
     def exploration_draws(self, key: torch.Tensor, batch: int):

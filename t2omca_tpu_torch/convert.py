@@ -110,15 +110,16 @@ def state_from_jax(cls, obj, device: DeviceLike = None):
     """A JAX ``struct.dataclass`` state (``EnvState``, ``EnvParams``,
     ``RunnerState``, ``BufferState``, ...) → the port dataclass ``cls``
     with the same field names. Nested states convert recursively; the
-    port's host-side counters (``t_env``, the ring cursor and fill)
-    become Python ints; static fields (a ``gamma``) pass through."""
+    runner's ``t_env`` (a host mirror in the port) becomes a Python int,
+    the ring cursor and fill stay 0-d int32 tensors as in JAX; static
+    fields (a ``gamma``) pass through."""
     from .components.episode_buffer import CompactEntityObs, EpisodeBatch
     from .envs.mec_offload import EnvParams, EnvState
     from .envs.normalization import NormState, RewardScaleState
     nested = {"norm": NormState, "env_states": EnvState,
               "rscale": RewardScaleState, "env_params": EnvParams,
               "storage": EpisodeBatch}
-    host_ints = ("t_env", "insert_pos", "episodes_in_buffer")
+    host_ints = ("t_env",)
     dev = resolve_device(device)
     kw = {}
     for f in dataclasses.fields(cls):

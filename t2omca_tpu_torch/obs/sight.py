@@ -282,22 +282,24 @@ def mixer_attention_entropy(learner, mixer_params, state_t0, obs_t0,
                                    heads=mx.heads, depth=mx.depth, dtype=dt)
 
 
-def buffer_sight_info(priorities: torch.Tensor, episodes_in_buffer: int
-                      ) -> dict:
+def buffer_sight_info(priorities: torch.Tensor,
+                      episodes_in_buffer: torch.Tensor) -> dict:
     """PER priority-distribution health from the ring's stored (already
     ``p^alpha``) priority vector: Shannon entropy of the sampling
     distribution over the valid slots, normalized by ``log(n)`` —
     collapse (a handful of episodes soaking all sampling mass) reads as
     norm → 0. One masked reduce over the ``(capacity,)`` vector on the
-    device; ``episodes_in_buffer`` is the host's fill count."""
-    n = int(episodes_in_buffer)
+    device; ``episodes_in_buffer`` is the ring's device fill count (an
+    int works too), and ``log(n)`` is taken in float64 and rounded once,
+    the value ``math.log`` gives, with no host read."""
     with torch.no_grad():
         pri = priorities.float()
+        n = torch.as_tensor(episodes_in_buffer, device=pri.device)
         valid = torch.arange(pri.shape[0], device=pri.device) < n
         p = torch.where(valid, pri, 0.0)
         probs = p / torch.clamp(p.sum(), min=_EPS)
         ent = -(probs * torch.log(probs + _EPS)).sum()
-        norm = ent / math.log(max(n, 2))
+        norm = ent / torch.log(torch.clamp(n, min=2).double()).float()
     return {"sight_priority_entropy": ent,
             "sight_priority_entropy_norm": norm}
 

@@ -12,17 +12,24 @@ accounting and the train gate ``buffer_filled >= batch_size and episode
 >= accumulated_episodes``, splitting ``key2, k_sample = split(key)`` only
 for iterations that train.
 
+``Experiment.superstep_program(k)`` is the fused program of K iterations
+(``train/superstep.py``: captured CUDA graphs on the card, its stage
+functions eagerly on a CPU device), bit-identical to K iterations of
+``run_classic``.
+
 ``run`` is the user's entry (``python -m t2omca_tpu_torch train|evaluate|
 benchmark``): results directory, ``metrics.jsonl``, the span recorder,
 then ``run_sequential`` (training) or ``evaluate_sequential``.
 ``run_sequential`` is the JAX driver's classic loop with its cadences
 and names: a dispatch of K iterations (K = ``superstep`` where eligible,
-else 1), then the runner-log, test, animation, save and log cadences;
+else 1; K > 1 is one call of the fused program, ``dispatch.superstep``),
+then the runner-log, test, animation, save and log cadences;
 resume from ``checkpoint_path``; the non-finite streak and its checkpoint
 restore; SIGTERM/SIGINT through ``ShutdownGuard`` with an emergency
 checkpoint; the watchdog stamping every device-facing region and the
 bounded retry of transient failures (never a swap to the plain kernels
-or the CPU); with ``obs.pulse_port`` the live plane (``obs/pulse.py``:
+or the CPU); the degradation ladder (K→1, restore, abort); with
+``obs.pulse_port`` the live plane (``obs/pulse.py``:
 ``/metrics``, ``/healthz`` with the watchdog, guard and detector checks,
 ``/trace`` and the ``PULSE_TRACE`` file trigger), and with
 ``obs.sight.enabled`` the learning-health detectors (``obs/sight.py``)
@@ -30,13 +37,12 @@ over the log cadence's one fetch of the train info.
 
 Where the port differs from the JAX driver:
 
-* **K > 1 without the fused program.** A dispatch of K iterations is K
-  classic iterations through ``run_classic`` (one ``dispatch.superstep``
-  region, ``time_superstep_ms``), then the cadences once, as the JAX
-  driver does after its fused program. The JAX contract makes the two
-  train identically. The fused program (CUDA-graph capture) is
-  ``ROADMAP.md`` item 8; until it exists the degradation ladder's K→1
-  rung has nothing to degrade, and failures go to the restore rung.
+* **The fused program writes its state in place** (JAX donates it): a
+  fused dispatch is never retried in place, its watchdog stamp carries
+  no state (a stall cannot save what the stalled replays are writing),
+  and after a failure that began writing, the ladder skips the K→1 rung
+  (JAX's "consumed the donated state"). A restore hands its state to
+  the program, which copies it into the captured buffers.
 * **The driver key is checkpointed** (``meta.json`` ``driver.key``): a
   resumed run draws the keys a run that never stopped would draw (the
   JAX driver restarts its key at ``PRNGKey(seed + 1)`` on resume). The
@@ -47,9 +53,9 @@ Where the port differs from the JAX driver:
   across from flax with ``convert.py``).
 
 Left out, to later slices: the population (item 11), data parallelism
-and Sebulba (item 12), per-program device time (``obs.program_trace``:
-item 13b; a pulse trace capture is a ``torch.profiler`` Chrome trace)
-and the fused superstep (item 8). Each raises naming its item.
+and Sebulba (item 12) and per-program device time (``obs.program_trace``:
+item 13b; a pulse trace capture is a ``torch.profiler`` Chrome trace).
+Each raises naming its item.
 """
 
 from __future__ import annotations
@@ -79,8 +85,9 @@ from .obs import sight as obs_sight
 from .obs import spans as obs_spans
 from .ops.query_slice import entity_store_eligible
 from .runners.episode_runner import EpisodeRunner
-from .runners.parallel_runner import RUNNER_REGISTRY, RolloutStats
+from .runners.parallel_runner import RUNNER_REGISTRY
 from .train.program import TrainState, build_train_iter
+from .train.superstep import SuperstepProgram
 from .utils import resilience, watchdog
 from .utils.checkpoint import (CheckpointFormatError, find_checkpoint,
                                load_checkpoint, load_learner_state,
@@ -170,7 +177,9 @@ class Experiment:
         ls = (self.learner.init_state(params=learner_params)
               if learner_params is not None else
               self.learner.init_state(torch.Generator().manual_seed(seed)))
-        return TrainState(learner=ls, buffer=self.buffer.init(), episode=0,
+        return TrainState(learner=ls, buffer=self.buffer.init(),
+                          episode=torch.zeros((), dtype=torch.int32,
+                                              device=self.device),
                           runner=self.runner.init_state(k_runner))
 
     def programs(self):
@@ -182,6 +191,13 @@ class Experiment:
 
         return (rollout, buffer.insert_episode_batch,
                 build_train_iter(buffer, self.learner, self.cfg))
+
+    def superstep_program(self, k: int) -> SuperstepProgram:
+        """→ the fused program of ``k`` iterations (``train/superstep.py``):
+        ``superstep(ts, keys, t_env0, gated) -> (ts', stacked_stats,
+        stacked_infos)``, the JAX program's arguments plus the host
+        mirror's gates."""
+        return SuperstepProgram(self, k)
 
 
 @dataclasses.dataclass
@@ -274,14 +290,6 @@ def _key_from_meta(meta: dict, device) -> Optional[torch.Tensor]:
             torch.tensor(key, dtype=torch.int64, device=device))
 
 
-def _stack_stats(stats: List[RolloutStats]) -> RolloutStats:
-    """K iterations' ``(B,)`` stats → one ``(K, B)`` (the fused
-    dispatch's stacked output)."""
-    return RolloutStats(**{f.name: torch.stack([getattr(s, f.name)
-                                                for s in stats])
-                           for f in dataclasses.fields(RolloutStats)})
-
-
 def _check_driver_scope(cfg: TrainConfig) -> None:
     """Raise for what the port's driver does not have yet."""
     if cfg.dp_devices:
@@ -333,18 +341,21 @@ class _DriverKit:
 
     # ------------------------------------------------------------ dispatch
 
-    def dispatch(self, phase, fn, state, t=None, **context):
+    def dispatch(self, phase, fn, state, t=None, retryable=True,
+                 **context):
         """One device-facing dispatch: fault-injection hook + watchdog
         stamp + bounded in-place retry with backoff of transient-classified
         failures (the callers commit their host mirrors only after
         success, so a retry replays an identical dispatch). Deterministic
         errors propagate at once; exhausted retries raise
-        ``DispatchFailed`` for the ladder. Nothing here falls back to
+        ``DispatchFailed`` for the ladder. ``retryable=False`` (the fused
+        program, which writes its state in place) sends the first
+        transient failure to the ladder. Nothing here falls back to
         another kernel or device."""
         res = self.res
         if t is None:
             t = self.t_env_fn()
-        attempts = 1 + res.dispatch_retries
+        attempts = (1 + res.dispatch_retries) if retryable else 1
         for attempt in range(1, attempts + 1):
             try:
                 with self.watched(phase, state, t=t, attempt=attempt,
@@ -407,9 +418,10 @@ class _DriverKit:
         inside the checkpoint write itself skips the save (its staging
         directory is in use). The ring's storage is written in place, so
         slots past the stamped cursor may already hold the stalled
-        dispatch's episodes: the save is a valid state (cursor,
-        priorities and counters are the stamped ones), not bit for bit
-        the pre-dispatch ring."""
+        dispatch's episodes: the save is a valid state (cursor and
+        counters are the stamped ones), not bit for bit the pre-dispatch
+        ring. A fused dispatch stamps no state (it writes all of it in
+        place), so its stall saves nothing."""
         cfg, res, log = self.cfg, self.res, self.log
         extra = {}
         if self.rec.enabled:
@@ -508,12 +520,15 @@ def run_sequential(exp: Experiment, logger: Logger, results_dir: str,
             log.info(f"no checkpoint found in {cfg.checkpoint_path}")
     ts = exp.init_state(cfg.seed, learner_params=learner_params)
     rollout, insert, train_iter = exp.programs()
+    # the fused superstep (config.superstep, docs/SPEC.md §8): K > 1
+    # swaps the three-program iteration for one fused dispatch of K
     K = cfg.superstep if superstep_eligible(cfg) else 1
+    superstep = exp.superstep_program(K) if K > 1 else None
     if cfg.superstep > 1 and K == 1:
         log.info("superstep requested but ineligible (buffer_cpu_only "
                  "keeps the three-program path)")
     elif K > 1:
-        log.info(f"superstep: {K} classic iterations per dispatch")
+        log.info(f"fused superstep: {K} iterations per dispatch")
     key = prng.PRNGKey(cfg.seed + 1, device)
 
     t_env = 0
@@ -603,8 +618,8 @@ def run_sequential(exp: Experiment, logger: Logger, results_dir: str,
     # ring fill by min(+B, capacity); the host tracks them, and the loop
     # waits on the device only at its cadences and the run-ahead bound
     steps_per_rollout = cfg.batch_size_run * cfg.env_args.episode_limit
-    episode = ts.episode
-    buffer_filled = ts.buffer.episodes_in_buffer
+    episode = int(ts.episode)
+    buffer_filled = int(ts.buffer.episodes_in_buffer)
     buffer_capacity = exp.buffer.capacity
     inflight = deque()              # device events of recent dispatches
 
@@ -619,8 +634,8 @@ def run_sequential(exp: Experiment, logger: Logger, results_dir: str,
         ts = dataclasses.replace(ts, runner=dataclasses.replace(
             ts.runner, t_env=step))
         t_env = step
-        episode = ts.episode
-        buffer_filled = ts.buffer.episodes_in_buffer
+        episode = int(ts.episode)
+        buffer_filled = int(ts.buffer.episodes_in_buffer)
         inflight.clear()
         train_infos = []
         nonfinite_streak = 0
@@ -632,14 +647,36 @@ def run_sequential(exp: Experiment, logger: Logger, results_dir: str,
         last_test_t = last_log_t = t_env
         last_runner_log_t = last_save_t = t_env
 
-    def _dispatch_ladder(df: watchdog.DispatchFailed) -> None:
-        """Rungs above in-place retry: restore the last good checkpoint,
-        then abort with the captured diagnosis. The K→1 rung needs the
-        fused program (item 8), so it is never taken here."""
-        action = ladder.next_action(can_degrade=False)
+    def _dispatch_ladder(df: watchdog.DispatchFailed,
+                         can_degrade: Optional[bool] = None) -> None:
+        """Rungs above in-place retry: superstep K→1 (drop the graphs, go
+        on with the classic loop), restore the last good checkpoint,
+        abort with the captured diagnosis. Callers ``continue`` after it
+        returns (their host mirrors were never committed). Pass
+        ``can_degrade=False`` from sync/fetch points, where only restore
+        can stand; a fused dispatch that failed after it began writing
+        its state in place cannot degrade either (JAX's consumed donated
+        state)."""
+        nonlocal K, superstep
+        if can_degrade is None:
+            can_degrade = (K > 1 and res.degrade_superstep
+                           and not (superstep is not None
+                                    and superstep.consumed))
+        action = ladder.next_action(can_degrade=can_degrade)
         logger.log_stat("dispatch_failures", ladder.failures, t_env)
         rec.mark("ladder", action=action, phase=df.phase, t_env=t_env,
                  failures=ladder.failures)
+        if action == "degrade":
+            log.warning(f"degradation ladder: {df} — falling back "
+                        f"superstep K={K} -> 1 ({ladder.describe()})")
+            K = 1
+            if superstep is not None:
+                superstep.close()
+            superstep = None
+            logger.log_stat("superstep_k", 1, t_env)
+            if pulse is not None:
+                pulse.set("superstep_k", 1)
+            return
         if action == "restore":
             good = find_checkpoint(model_dir) if cfg.save_model else None
             if good is not None:
@@ -664,7 +701,8 @@ def run_sequential(exp: Experiment, logger: Logger, results_dir: str,
         return kit.sync_point(phase, fn, _Stamp(ts, key))
 
     def _save_topology():
-        return {"loop": "classic", "superstep": K}
+        return {"loop": "classic", "superstep": K,
+                "fused": superstep is not None}
 
     # the live plane and the on-demand trace trigger: None when their
     # config is off, and the loop below is then unchanged. Bound just
@@ -704,32 +742,48 @@ def run_sequential(exp: Experiment, logger: Logger, results_dir: str,
                 # os.path.exists when idle
                 trc.poll(t_env)
             tracer.maybe_start(t_env)
-            if K > 1:
-                # ------------ K iterations in one dispatch ---------------
-                # the cursor is committed only after the dispatch
-                # succeeds, so a retry replays the identical key stream
-                cursor = LoopCursor(key=key, t_env=t_env, episode=episode,
-                                    buffer_filled=buffer_filled)
+            if superstep is not None:
+                # ------------ fused superstep (one dispatch = K iters) ---
+                # the host mirrors the counters of the K sub-iterations
+                # (they evolve deterministically), so it knows which
+                # train: it splits the driver key only for those, as the
+                # classic loop does, and keeps their info rows. Committed
+                # only after the dispatch succeeds
+                ep2, fill2, key2 = episode, buffer_filled, key
+                key_rows, gated = [], []
+                for _ in range(K):
+                    ep2 += cfg.batch_size_run
+                    fill2 = min(fill2 + cfg.batch_size_run,
+                                buffer_capacity)
+                    g = (fill2 >= cfg.batch_size
+                         and ep2 >= cfg.accumulated_episodes)
+                    gated.append(g)
+                    if g:
+                        key2, k_sample = prng.split(key2).unbind(0)
+                        key_rows.append(k_sample)
+                    else:
+                        key_rows.append(torch.zeros_like(key2))
 
-                def _fused(ts=ts, cursor=cursor):
-                    ts2, c2, recs = run_classic(exp, ts, K, cursor)
+                def _fused(ts=ts, key_rows=key_rows, gated=gated):
+                    out = superstep(ts, torch.stack(key_rows), t_env,
+                                    gated)
                     if sync_stages:
                         _sync_device()
-                    return ts2, c2, recs
+                    return out
                 try:
                     with timer.stage("superstep"):
-                        ts, c2, recs = _dispatch(
-                            "dispatch.superstep", _fused, _Stamp(ts, key),
-                            k=K)
+                        # written in place: no in-place retry, and no
+                        # state in the stamp (see the module docstring)
+                        ts, stats, infos = _dispatch(
+                            "dispatch.superstep", _fused, None,
+                            retryable=False, k=K)
                 except watchdog.DispatchFailed as df:
                     _dispatch_ladder(df)
                     continue
-                key, episode, buffer_filled = (c2.key, c2.episode,
-                                               c2.buffer_filled)
+                key, episode, buffer_filled = key2, ep2, fill2
                 t_env += K * steps_per_rollout
-                train_infos.extend(r.info for r in recs
-                                   if r.info is not None)
-                stats = _stack_stats([r.stats for r in recs])
+                train_infos.extend({k: v[i] for k, v in infos.items()}
+                                   for i, g in enumerate(gated) if g)
             else:
                 # ------------ rollout (no grad by construction) ----------
                 def _roll(ts=ts):
@@ -778,7 +832,7 @@ def run_sequential(exp: Experiment, logger: Logger, results_dir: str,
                 _sync_point("fetch.train_stats",
                             lambda: train_acc.push(stats))
             except watchdog.DispatchFailed as df:
-                _dispatch_ladder(df)
+                _dispatch_ladder(df, can_degrade=False)
                 continue
             if device.type == "cuda":
                 done = torch.cuda.Event()
@@ -789,7 +843,7 @@ def run_sequential(exp: Experiment, logger: Logger, results_dir: str,
                     _sync_point("dispatch.wait",
                                 lambda: inflight.popleft().synchronize())
                 except watchdog.DispatchFailed as df:
-                    _dispatch_ladder(df)
+                    _dispatch_ladder(df, can_degrade=False)
                     continue
             tracer.tick(logger, t_env)
             if trc is not None:
@@ -804,7 +858,7 @@ def run_sequential(exp: Experiment, logger: Logger, results_dir: str,
                 try:
                     _sync_point("fetch.train_stats", _flush_train_stats)
                 except watchdog.DispatchFailed as df:
-                    _dispatch_ladder(df)
+                    _dispatch_ladder(df, can_degrade=False)
                     continue
                 last_runner_log_t = t_env
 
@@ -841,7 +895,7 @@ def run_sequential(exp: Experiment, logger: Logger, results_dir: str,
                     # drop the partial cadence: a sub-quota leftover would
                     # miss the exact-quota flush on every later cadence
                     test_acc = StatsAccumulator()
-                    _dispatch_ladder(df)
+                    _dispatch_ladder(df, can_degrade=False)
                     continue
                 last_test_t = t_env
 
@@ -921,7 +975,7 @@ def run_sequential(exp: Experiment, logger: Logger, results_dir: str,
                         flags, last = _sync_point("fetch.train_infos",
                                                   _fetch_infos)
                     except watchdog.DispatchFailed as df:
-                        _dispatch_ladder(df)
+                        _dispatch_ladder(df, can_degrade=False)
                         continue
                     for ok in flags:
                         if ok:
@@ -1041,6 +1095,8 @@ def run_sequential(exp: Experiment, logger: Logger, results_dir: str,
         guard.uninstall()
         if pulse is not None:
             pulse.close()       # bounded; frees the port for a next run
+        if superstep is not None:
+            superstep.close()   # the graphs' memory pool
 
     if guard.triggered:
         # ---- preemption path: lose at most one dispatch ----------------

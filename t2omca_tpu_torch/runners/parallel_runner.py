@@ -25,7 +25,11 @@ them all before the step loop (the env's and the selector's, over keys
 draws step by step: the threefry hash then runs ~30 times a rollout
 instead of ~18 times a step. The step loop makes no host sync:
 ``t_env`` is a host int, so epsilon lives on the host, and every other
-value stays on the device.
+value stays on the device. ``run_raw(eps=)`` takes the episode's ``(T,)``
+epsilons as a device vector instead (the host fills it from the same
+schedule, so the bits are the same): the fused superstep's captured
+rollout reads its current values from there, and ``t_env`` stays a host
+mirror that the caller advances.
 The env returns the observation in the form the rollout reads
 (``obs_form``): compact alone under the default stack, so the dense
 ``(B, A, A·F)`` obs is never built, as XLA drops it from the JAX rollout.
@@ -149,11 +153,24 @@ class ParallelRunner:
         out = self.run_raw(params, rs, test_mode, capture)
         return (out[0], out[1].to_batch()) + tuple(out[2:])
 
+    def epsilons(self, t_env: int) -> torch.Tensor:
+        """The ``(T,)`` float32 epsilons of a training rollout that starts
+        at ``t_env``, on the host: step ``t`` at ``t_env + t·B``, the
+        schedule's elementwise float32 arithmetic on all T at once (the
+        values the step loop computes one by one)."""
+        t = t_env + self.batch_size * torch.arange(
+            self.env.cfg.episode_limit)
+        eps = torch.as_tensor(self.mac.selector.epsilon(t, False))
+        return eps.float().expand(t.shape).contiguous()
+
     def run_raw(self, params, rs: RunnerState, test_mode: bool = False,
-                capture: bool = False):
+                capture: bool = False, eps: torch.Tensor = None):
         """``run`` before the episode-batch assembly: → (runner state',
-        ``TimeMajorEpisodes``, stats[, viz])."""
+        ``TimeMajorEpisodes``, stats[, viz]). ``eps`` (``(T,)`` f32 on the
+        device, ``epsilons(rs.t_env)``'s values) replaces the host
+        epsilon of each training step."""
         env, b, t_len = self.env, self.batch_size, self.env.cfg.episode_limit
+        eps_steps = eps
         key, k_reset, k_scan = prng.split(rs.key, 3).unbind(-2)
         params = self.mac.prepare_acting_params(params)
         env_params = self._sample_scenarios(rs.key)
@@ -214,7 +231,8 @@ class ParallelRunner:
                 params, dense, avail, hidden, k_act[t], t_env,
                 test_mode=test_mode,
                 draws=None if sel is None else (sel[0][t], sel[1][t]),
-                compact=compact)
+                compact=compact,
+                eps=None if eps_steps is None else eps_steps[t])
             obs_map(lambda dst, x: dst[t].copy_(x), obs_seq,   # Q15
                     stored(env_states, dense, compact))
             gstate_seq[t] = gstate

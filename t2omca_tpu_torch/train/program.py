@@ -22,24 +22,31 @@ from ..obs import sight
 class TrainState:
     learner: LearnerState
     buffer: BufferState
-    episode: int                  # episodes inserted so far (target sync)
+    episode: torch.Tensor         # () int32: episodes inserted so far
+                                  # (target sync), on the device
     runner: Optional[object] = None   # the loop's RunnerState
 
 
 def build_train_iter(buffer, learner, cfg):
-    """→ ``train_iter(ts, key, t_env) -> (ts', info)``. ``key`` (a ``(2,)``
-    key of the driver's chain) splits into ``k_sample, k_learn`` as in
-    the JAX program; the sampler draws from ``k_sample``, and ``k_learn``
-    seeds a noisy q-head's training noise (the learner ignores it
-    otherwise). A step whose loss or gradients are not finite writes back
-    the sampled episodes' existing priorities (``valid=``), so NaN never
-    enters the ring. With ``obs.sight`` and PER the info also carries
-    the post-update priorities' entropy."""
+    """→ ``train_iter(ts, key, t_env, beta=None) -> (ts', info)``. ``key``
+    (a ``(2,)`` key of the driver's chain) splits into ``k_sample,
+    k_learn`` as in the JAX program; the sampler draws from ``k_sample``,
+    and ``k_learn`` seeds a noisy q-head's training noise (the learner
+    ignores it otherwise). PER's β is ``beta`` (a () f32 device tensor)
+    when given, else the sampler fills it from ``t_env`` on the host; the
+    episode counter and the ring's fill are device tensors, so with
+    ``beta`` given the step reads no host value and may be captured. A
+    step whose loss or gradients are not finite writes back the sampled
+    episodes' existing priorities (``valid=``), so NaN never enters the
+    ring. With ``obs.sight`` and PER the info also carries the
+    post-update priorities' entropy."""
 
-    def train_iter(ts: TrainState, key: torch.Tensor, t_env):
+    def train_iter(ts: TrainState, key: torch.Tensor, t_env,
+                   beta: Optional[torch.Tensor] = None):
         k_sample, k_learn = prng.split(key).unbind(-2)
         batch, idx, weights = buffer.sample(ts.buffer, k_sample,
-                                            cfg.batch_size, t_env)
+                                            cfg.batch_size, t_env,
+                                            beta=beta)
         learner_state, info = learner.train(ts.learner, batch, weights,
                                             t_env, ts.episode, k_learn)
         buf = buffer.update_priorities(

@@ -15,10 +15,13 @@ Layout: ``<path>/<t_env>/{state.pt, meta.json}``, the reference's
 * ``meta.json`` holds the format version, the replay obs layout
   (``dense``/``compact``), the SHA-256 and byte count of ``state.pt``, a
   topology stamp, the state's **host values that are not tensors**
-  (``host``: ``buffer.insert_pos``, ``buffer.episodes_in_buffer``,
-  ``episode``, ``runner.t_env``, the reward scaler's ``gamma``; without
-  them a resume would silently rewind the ring cursor), and whatever the
-  driver adds under ``driver`` (its key chain).
+  (``host``: ``runner.t_env``, the reward scaler's ``gamma``), and
+  whatever the driver adds under ``driver`` (its key chain). The ring
+  cursor ``buffer.insert_pos``, its fill ``buffer.episodes_in_buffer``
+  and the ``episode`` counter are 0-d device tensors and sit in
+  ``state.pt``; a checkpoint of the earlier layout, which kept them under
+  ``host``, loads into the tensors (without them a resume would silently
+  rewind the ring cursor).
 
 The JAX checkpoints (flax msgpack, ``state.msgpack``) and these do not
 cross: neither package reads the other's. Crash safety as in JAX: a
@@ -130,6 +133,13 @@ def _rebuild(template: Any, fn, path: str = "") -> Any:
     if isinstance(template, dict):
         return {k: new[str(k)] for k in template}
     return type(template)(new[str(i)] for i in range(len(template)))
+
+
+def map_tensors(state: Any, fn) -> Any:
+    """``state`` with every tensor leaf replaced by ``fn(leaf)`` (host
+    values kept), e.g. ``map_tensors(ts, torch.clone)``."""
+    return _rebuild(state, lambda _path, x: fn(x)
+                    if isinstance(x, torch.Tensor) else x)
 
 
 def _obs_layout(state: Any) -> Optional[str]:
@@ -402,8 +412,13 @@ def _restore_leaves(template: Any, tensors: Dict[str, torch.Tensor],
                     prefix: str = "") -> Any:
     """``template`` with its tensor leaves from ``tensors`` (keys
     ``prefix + path``) and its host values from ``host``; every leaf's
-    shape and dtype checked against the template first."""
+    shape and dtype checked against the template first. A tensor leaf
+    that the checkpoint holds as a host value (the counters of the
+    earlier layout) is made from it on the template's device."""
     want, _ = flatten_state(template)
+    legacy = {k for k in want
+              if prefix + k not in tensors and prefix + k in host}
+    want = {k: t for k, t in want.items() if k not in legacy}
     names = {prefix + k for k in want}
     stored = {k for k in tensors if k.startswith(prefix)}
     if names != stored:
@@ -429,6 +444,9 @@ def _restore_leaves(template: Any, tensors: Dict[str, torch.Tensor],
 
     def leaf(path, x):
         if isinstance(x, torch.Tensor):
+            if path in legacy:
+                return torch.tensor(host[prefix + path], dtype=x.dtype,
+                                    device=x.device)
             return tensors[prefix + path].to(x.device)
         return host.get(prefix + path, x)
 

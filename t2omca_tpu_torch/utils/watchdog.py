@@ -160,10 +160,13 @@ def state_intact(state: Any) -> bool:
     retry. In the JAX package this is false once a donated input buffer
     was consumed (``jax.Array.is_deleted``). Torch donates nothing: a
     program's inputs stay allocated whatever happens inside it, so in the
-    port this is true for any state. (The ring's episode storage is
-    written in place by the insert, but the host cursor that says where
-    is committed only after the dispatch succeeds, so a retried insert
-    rewrites the same slots with the same episodes.)"""
+    port this is true for any state. (The ring's episode storage and
+    priorities are written in place by the insert, but the cursor that
+    says where is a new tensor committed only after the dispatch
+    succeeds, so a retried insert rewrites the same slots with the same
+    episodes and stamps. A train step's priority feedback is written in
+    place as its last write. The fused superstep writes its whole state
+    in place: the driver never retries it, ``retryable=False``.)"""
     del state
     return True
 

@@ -599,3 +599,104 @@ def test_remat_on_cuda_is_bit_identical_and_reruns_k1_res(cuda_device):
     assert l_on["flash_fwd_res"] == 2 * l_off["flash_fwd_res"] > 0
     for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
         assert l_on[k] == l_off[k], k
+
+
+# ------------------------------------------------- the fused superstep
+
+def _fused_dispatch(exp, sup, ts, mirror):
+    """One fused dispatch the driver's way: the host mirror of the
+    counters gates each sub-iteration and the driver key splits only for
+    the gated ones → (ts', stats, infos)."""
+    from t2omca_tpu_torch import prng
+    cfg = exp.cfg
+    rows, gated = [], []
+    for _ in range(sup.k):
+        mirror["episode"] += cfg.batch_size_run
+        mirror["filled"] = min(mirror["filled"] + cfg.batch_size_run,
+                               cfg.replay.buffer_size)
+        gated.append(mirror["filled"] >= cfg.batch_size
+                     and mirror["episode"] >= cfg.accumulated_episodes)
+        if gated[-1]:
+            mirror["key"], k_sample = prng.split(mirror["key"]).unbind(0)
+            rows.append(k_sample)
+        else:
+            rows.append(torch.zeros_like(mirror["key"]))
+    out = sup(ts, torch.stack(rows), mirror["t_env"], gated)
+    mirror["t_env"] += (sup.k * cfg.batch_size_run
+                        * cfg.env_args.episode_limit)
+    return out
+
+
+@pytest.mark.cuda
+def test_superstep_graphs_replay_the_eager_iterations(cuda_device):
+    """The fused program on the card at small widths (the default stack,
+    PER, pallas, obs.sight on). The first dispatch is the process's eager
+    warm-up (where no stage ran before); the next captures both stages
+    and replays them: bit-identical to K eager ``run_classic`` iterations
+    from one state (learner, ring, priorities, runner, counters, stats,
+    infos), with the eager iterations' kernel launches. A dispatch of
+    replays makes no host sync and keeps every state tensor at its
+    address, and a state handed in with other tensors (a restore) is
+    written into the captured buffers: it replays to the same result."""
+    import dataclasses
+    from t2omca_tpu_torch import prng
+    from t2omca_tpu_torch.kernels import attention as att
+    from t2omca_tpu_torch.run import Experiment, LoopCursor, run_classic
+    from t2omca_tpu_torch.train.superstep import clone_state
+    from t2omca_tpu_torch.utils.checkpoint import flatten_state
+    cfg = _loop_cfg(use_entity_tables=True)
+    cfg = dataclasses.replace(cfg, obs=dataclasses.replace(
+        cfg.obs, sight=dataclasses.replace(cfg.obs.sight, enabled=True)))
+    exp = Experiment.build(cfg, device=cuda_device)
+    ts = exp.init_state(0)
+    sup = exp.superstep_program(3)
+    mirror = {"key": prng.PRNGKey(1, cuda_device), "t_env": 0,
+              "episode": 0, "filled": 0}
+    ts, _, _ = _fused_dispatch(exp, sup, ts, mirror)
+    start = dict(mirror)
+    ref = clone_state(ts)
+    att.reset_launches()
+    ref, cursor, recs = run_classic(exp, ref, 3, LoopCursor(
+        key=start["key"], t_env=start["t_env"], episode=start["episode"],
+        buffer_filled=start["filled"]))
+    torch.cuda.synchronize()
+    eager = dict(att.LAUNCHES)
+    att.reset_launches()
+    ts, stats, infos = _fused_dispatch(exp, sup, ts, mirror)
+    torch.cuda.synchronize()
+    assert set(sup.graphs) == {"rollout", "train"}
+    assert dict(att.LAUNCHES) == eager and eager["flash_bwd_dkv"] > 0
+    assert sum(sup.launches["rollout"].values()) == 0
+    assert {k: 3 * v for k, v in sup.launches["train"].items()} == eager
+    a, ha = flatten_state(ts)
+    b, hb = flatten_state(ref)
+    assert ha == hb and set(a) == set(b)
+    for k in a:
+        assert torch.equal(a[k], b[k]), k
+    assert torch.equal(cursor.key, mirror["key"])
+    for i, rec in enumerate(recs):
+        for f in dataclasses.fields(stats):
+            got = getattr(stats, f.name)[i]
+            want = getattr(rec.stats, f.name)
+            assert torch.equal(got.cpu(), want.reshape(got.shape).cpu()), \
+                f.name
+        for k, v in rec.info.items():
+            assert torch.equal(infos[k][i], v), k
+    del ref, recs
+    ptrs = {k: v.data_ptr() for k, v in a.items()}
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ts2, _, infos = _fused_dispatch(exp, sup, ts, mirror)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert ts2 is ts and bool(infos["all_finite"].all())
+    assert {k: v.data_ptr() for k, v in flatten_state(ts)[0].items()} \
+        == ptrs
+    saved, at = clone_state(ts), dict(mirror)
+    once = flatten_state(clone_state(_fused_dispatch(exp, sup, ts,
+                                                     mirror)[0]))[0]
+    again = _fused_dispatch(exp, sup, saved, at)[0]
+    assert again is ts
+    for k, v in flatten_state(again)[0].items():
+        assert v.data_ptr() == ptrs[k] and torch.equal(v, once[k]), k

@@ -98,10 +98,12 @@ def test_update_priorities_invalid_is_a_noop_in_value():
     st = bt.update_priorities(st, torch.arange(4),
                               torch.tensor([1.0, 2.0, 3.0, 4.0]))
     nan = torch.tensor([float("nan"), 9.0])
+    # the priorities are written in place: hold the values from before
+    before, max_before = st.priorities.clone(), st.max_priority.clone()
     after = bt.update_priorities(st, torch.tensor([1, 2]), nan,
                                  valid=torch.tensor(False))
-    assert torch.equal(after.priorities, st.priorities)
-    assert torch.equal(after.max_priority, st.max_priority)
+    assert torch.equal(after.priorities, before)
+    assert torch.equal(after.max_priority, max_before)
     uniform = ReplayBuffer(capacity=5, device="cpu", **KW)
     su = uniform.insert_episode_batch(uniform.init(),
                                       to_port(_episodes(2, 1)))

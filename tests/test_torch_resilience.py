@@ -127,21 +127,27 @@ def test_load_step_nearest_tie_prefers_smaller_step(tmp_path, tiny_state):
 
 
 def test_checkpoint_layout_and_host_values(tmp_path, tiny_state):
-    """``state.pt`` + ``meta.json``: CPU tensors under dotted paths, the
-    host values the tensors do not carry, the digest and layout."""
+    """``state.pt`` + ``meta.json``: CPU tensors under dotted paths (the
+    ring cursor, its fill and the episode counter among them), the host
+    values the tensors do not carry, the digest and layout."""
     exp, ts = tiny_state
-    ts = dataclasses.replace(ts, episode=6, buffer=dataclasses.replace(
-        ts.buffer, insert_pos=5, episodes_in_buffer=7))
+    i32 = lambda v: torch.tensor(v, dtype=torch.int32)
+    ts = dataclasses.replace(ts, episode=i32(6), buffer=dataclasses.replace(
+        ts.buffer, insert_pos=i32(5), episodes_in_buffer=i32(7)))
     d = save_checkpoint(str(tmp_path / "c"), 12, ts,
                         driver={"key": [1, 2]})
     assert sorted(os.listdir(d)) == ["meta.json", "state.pt"]
     meta = read_meta(d)
     assert meta["obs_layout"] == "compact" and meta["bytes"] > 0
-    assert meta["host"]["buffer.insert_pos"] == 5
-    assert meta["host"]["buffer.episodes_in_buffer"] == 7
-    assert meta["host"]["episode"] == 6 and meta["driver"] == {"key": [1, 2]}
+    assert meta["host"]["runner.t_env"] == ts.runner.t_env
+    assert not {"buffer.insert_pos", "buffer.episodes_in_buffer",
+                "episode"} & set(meta["host"])
+    assert meta["driver"] == {"key": [1, 2]}
     flat = torch.load(os.path.join(d, "state.pt"), weights_only=True)
     assert "buffer.storage.obs.rows" in flat and "runner.key" in flat
+    assert (int(flat["buffer.insert_pos"]),
+            int(flat["buffer.episodes_in_buffer"]),
+            int(flat["episode"])) == (5, 7, 6)
     assert all(v.device.type == "cpu" for v in flat.values())
     restored = load_checkpoint(d, exp.init_state(1))
     assert (restored.episode, restored.buffer.insert_pos,
@@ -220,7 +226,8 @@ def test_torn_but_published_write_caught_by_checksum(tmp_path, tiny_state):
 def test_resave_same_step_replaces_published_dir(tmp_path, tiny_state):
     exp, ts = tiny_state
     root = _save_steps(tmp_path, tiny_state, [10])
-    ts2 = dataclasses.replace(ts, episode=99)
+    ts2 = dataclasses.replace(ts, episode=torch.tensor(99,
+                                                       dtype=torch.int32))
     save_checkpoint(root, 10, ts2)
     assert sorted(os.listdir(root)) == ["10"]
     assert load_checkpoint(os.path.join(root, "10"),
