@@ -19,7 +19,8 @@ failed check ends the script with a non-zero exit):
              cores, and no instance of the old CUDA-core K1, K2 and K3
              bodies exists
 3. kernels   each kernel against its plain version at the main path's
-             shapes and the odd / masked / causal / all-masked cases,
+             shapes (config 6's mixer at D = 32 f32 included) and the
+             odd / masked / causal / all-masked cases,
              plus the tensor-core edges at bf16 and f32 (Tq 4/65/268, Tk
              65/131, D 8/12/64/256, the serve shape as strided (B, T, H,
              D) views, k is v, causal per-head masks, all-negative
@@ -38,11 +39,11 @@ failed check ends the script with a non-zero exit):
              bf16 (torch.profiler), after the launch counts are read
 6. kernels-bwd  K1 + residuals, K2 and K3 against their plain versions
              at the learner agent (2048, 1, 4, 65, 256) and mixer
-             (32, 1, 268, 131, 256) shapes in f32 and bf16, the dense
-             learner's heads, odd shapes, masks, causal, the all-masked
-             row, and the bf16 and f32 edges of phase 3; times of each
-             kernel at the two learner shapes in both dtypes (and with k
-             is v) beside its
+             (32, 1, 268, 131, 256) shapes in f32 and bf16 and config 6's
+             mixer (32, 1, 22, 19, 32) in f32, the dense learner's
+             heads, odd shapes, masks, causal, the all-masked row, and
+             the bf16 and f32 edges of phase 3; times of each kernel at
+             the learner shapes (and with k is v) beside its
              bound, its plain version and its SDPA yardstick (forward for
              K1 and K1 + residuals; backward alone for K2 and K3, as the
              device time of its kernels in a profiler trace; never on the
@@ -139,7 +140,30 @@ failed check ends the script with a non-zero exit):
              save, hash and restore times, an evaluate episode and
              SIGTERM to exit. Runs under a temporary directory in the
              checkout that it deletes.
-11. summary  the kernels JSON line, the card line, the result line
+   artifact  the serving artifact: [driver]'s resumed checkpoint
+             exported through ``python -m t2omca_tpu_torch.serve
+             export``'s ``main`` as shipped (query slice, no kernel) and
+             with model.use_qslice=false kernels.attention=pallas (K1
+             once a block), each loaded with ServeFrontend.load on the
+             card in f32 and bf16: export and load seconds, bytes a
+             variant, first-request and warm p50 at 1, 7, 64 and 150
+             rows, K1 launches a dispatch; the f32 actions and hiddens
+             equal an in-memory front end's from the same agent leaves,
+             and a tampered blob is refused
+11. scenarios  configs/config6_scenarios.yaml as shipped (the four-
+             family mixture, min_agents 4, the mixer padding mask, K = 4,
+             f32) with kernels.attention=pallas: the CPU path's launches
+             a train iteration (the plain versions counted, lanes cut to
+             2); the mixture draw of 4096 lanes on the card equal to the
+             CPU's, n_active in [4, 8], padded agents with and taking
+             action 0 only; 4 eager run_classic iterations against one
+             fused dispatch from one state, bit for bit, with the CPU
+             path's launches a train replay; a dispatch of replays with
+             no host sync, each iteration's device time; then python -m
+             t2omca_tpu_torch train cut in t_max to two dispatches: the
+             launches, slice<fam>_* rows for at least three families in
+             train and test, the dispatch times, the capture seconds
+12. summary  the kernels JSON line, the card line, the result line
 
 Run from the repository root: ``python3 chip_smoke.py``. The last line
 is ``{"ok": true, "device": {...}}``; it is printed only when every
@@ -184,6 +208,11 @@ GRAD_TOL = {"float32": (1e-4, 1e-5), "bfloat16": (0.05, 0.02)}
 #: heads against 64 entities + 64 agents + 3 hyper tokens)
 AGENT_SHAPE = (2048, 1, 4, 65, 256)
 MIXER_SHAPE = (32, 1, 268, 131, 256)
+#: config 6's mixer query slice (configs/config6_scenarios.yaml, f32):
+#: batch 32, 11 rows (8 agents + 3 hyper) x 2 heads against 19 tokens,
+#: D = emb 32, no mask, not causal, k and v one tensor (the CPU path's
+#: shapes of that config)
+MIXER6_SHAPE = (32, 1, 22, 19, 32)
 #: replay ring of the trainer step, cut from config 3's 2048 episodes:
 #: 64 episodes of 151 steps (bf16 storage, ~0.75 GB) are enough to
 #: sample batches of 32
@@ -470,6 +499,8 @@ def phase_kernels(torch, att):
         ("mixer", MIXER_SHAPE, "bfloat16", None, False, None),
         ("agent", AGENT_SHAPE, "float32", None, False, None),
         ("mixer", MIXER_SHAPE, "float32", None, False, None),
+        ("mixer6", MIXER6_SHAPE, "float32", None, False, None),
+        ("mixer6_k_is_v", MIXER6_SHAPE, "float32", None, False, "kv"),
     ] + BF16_EDGES + F32_EDGES
     errs = {}
     inputs = {}
@@ -692,6 +723,8 @@ def phase_kernels_bwd(torch, att):
          "broadcast", False, None),
         ("all_masked_row", (16, 2, 40, 40, 8), "float32",
          "all_masked_row", True, None),
+        ("mixer6", MIXER6_SHAPE, "float32", None, False, None),
+        ("mixer6_k_is_v", MIXER6_SHAPE, "float32", None, False, "kv"),
     ] + BF16_EDGES + F32_EDGES
     errs, inputs = {}, {}
     for name, (b, h, tq, tk, d), dt, mask, causal, extra in cases:
@@ -767,7 +800,7 @@ def phase_kernels_bwd(torch, att):
               f"{m_err:.1e}/{l_err:.1e}{m_note}, o {o_err:.2e}, dq "
               f"{gerr['dq']:.2e}, dk {gerr['dk']:.2e}, dv {gerr['dv']:.2e} "
               f"ok", flush=True)
-        if name in ("agent", "mixer"):
+        if name in ("agent", "mixer", "mixer6"):
             inputs[(name, dt)] = (q, k, v, do)
         del q, k, v, do, o, dq, dk, dv, ref, o_r
     torch.cuda.empty_cache()
@@ -2309,10 +2342,13 @@ def _timed_dispatches(torch, superstep_mod):
     return calls, lambda: setattr(cls, "__call__", original)
 
 
-def phase_driver(torch, att, loop: dict) -> dict:
+def phase_driver(torch, att, loop: dict, after=None) -> dict:
     """The training driver through ``python -m t2omca_tpu_torch``'s
     ``main``: config 3 uncut (one K = 4 dispatch, the test, save and log
-    cadences), an exact resume, a SIGTERM'd subprocess and evaluate."""
+    cadences), an exact resume, a SIGTERM'd subprocess and evaluate.
+    ``after(models_dir)`` runs on the resumed run's checkpoint directory
+    before it is deleted; its result is ``result["after"]`` and its
+    seconds ``result["after_s"]``."""
     import gc
     import glob
     import shutil
@@ -2700,12 +2736,405 @@ def phase_driver(torch, att, loop: dict) -> dict:
               f" {EVAL_EPISODES} rows each; {per_ep * 1e3:.0f} ms an "
               f"episode (p50, B=1, T=150)", flush=True)
         result["eval_episode_ms"] = per_ep * 1e3
+        if after is not None:
+            t0 = time.perf_counter()
+            result["after"] = after(resumed_models)
+            result["after_s"] = time.perf_counter() - t0
     finally:
         logs.close()
         shutil.rmtree(tmp, ignore_errors=True)
         gc.collect()
         torch.cuda.empty_cache()
     return result
+
+
+ARTIFACT_VARIANTS = {
+    # as shipped: the query slice folds the agent and launches no kernel
+    "qslice": (),
+    # the dense agent through K1 (once a block a dispatch)
+    "pallas": ("model.use_qslice=false", "kernels.attention=pallas"),
+}
+
+
+def phase_artifact(torch, att, model_dir: str) -> dict:
+    """[driver]'s config 3 checkpoint exported through ``python -m
+    t2omca_tpu_torch.serve export`` (its ``main``) as shipped and with
+    the dense agent on K1, each loaded with ``ServeFrontend.load`` on the
+    card in f32 and bf16: export seconds, bytes a variant, load seconds,
+    first-request and warm p50 at each request size, K1 launches a
+    dispatch; the f32 actions equal an in-memory front end's built from
+    the same checkpoint's agent leaves, and a tampered blob is refused."""
+    import shutil
+    import tempfile
+    import numpy as np
+    from t2omca_tpu_torch.config import load_config
+    from t2omca_tpu_torch.serve import __main__ as serve_cli
+    from t2omca_tpu_torch.serve.export import AGENT_PREFIX
+    from t2omca_tpu_torch.serve.frontend import ServeFrontend
+    from t2omca_tpu_torch.utils.checkpoint import (_read_tensors,
+                                                   find_checkpoint)
+    root = os.path.dirname(os.path.abspath(__file__))
+    cfg3 = os.path.join(root, DRIVER_CONFIG)
+    ckpt_dir, t_env = find_checkpoint(model_dir)
+    rng = np.random.default_rng(SEED + 90)
+    tmp = tempfile.mkdtemp(prefix=".chip_smoke_artifact_", dir=root)
+    result = {"launches": {name: 0 for name in att.LAUNCHES}}
+    try:
+        agent = _read_tensors(ckpt_dir, False, "cpu", mmap=True,
+                              prefix=AGENT_PREFIX)
+        for tag, over in ARTIFACT_VARIANTS.items():
+            out = os.path.join(tmp, tag)
+            t0 = time.perf_counter()
+            rc = serve_cli.main(["export", model_dir, "--config", cfg3,
+                                 "--out", out, *over])
+            export_s = time.perf_counter() - t0
+            check(rc == 0, f"[artifact] {tag}: export returned {rc}")
+            with open(os.path.join(out, "meta.json")) as f:
+                meta = json.load(f)
+            cfg = load_config(cfg3, over)
+            depth = cfg.model.depth
+            check(meta["checkpoint"]["t_env"] == t_env
+                  and (meta["n_agents"], meta["obs_dim"], meta["n_actions"],
+                       meta["emb"]) == (64, 576, 9, 256)
+                  and meta["folded"] == (tag == "qslice"),
+                  f"[artifact] {tag}: meta {meta['checkpoint']} "
+                  f"{meta['n_agents']}/{meta['emb']}/{meta['folded']}")
+            sizes = {dt: p["bytes"] for dt, p in meta["params"].items()}
+            a, od, na = meta["n_agents"], meta["obs_dim"], meta["n_actions"]
+            buckets = meta["buckets"]
+            per_dispatch = 0 if tag == "qslice" else depth
+            for dt in ("float32", "bfloat16"):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fe = ServeFrontend.load(out, dtype=dt)
+                torch.cuda.synchronize()
+                load_s = time.perf_counter() - t0
+                att.reset_launches()     # ---- the served path starts here
+                dispatches, first, warm = 0, {}, {}
+                for n in REQUEST_SIZES:
+                    lat = []
+                    for r in range(1 + REPEATS):
+                        obs = rng.standard_normal((n, a, od)).astype(
+                            np.float32)
+                        avail = rng.random((n, a, na)) < 0.6
+                        avail[..., 0] = True
+                        t0 = time.perf_counter()
+                        actions, hidden = fe.select(obs, avail)
+                        lat.append((time.perf_counter() - t0) * 1e3)
+                        dispatches += -(-n // buckets[-1])
+                        check(bool(avail[np.arange(n)[:, None],
+                                         np.arange(a)[None], actions].all())
+                              and np.isfinite(hidden).all(),
+                              f"[artifact] {tag} {dt} n={n}: illegal "
+                              f"action or non-finite hidden")
+                    first[n], warm[n] = lat[0], statistics.median(lat[1:])
+                launches = dict(att.LAUNCHES)  # ---- and ends here
+                for name, v in launches.items():
+                    result["launches"][name] += v
+                check(launches["flash_fwd"] == per_dispatch * dispatches
+                      and sum(launches.values()) == launches["flash_fwd"],
+                      f"[artifact] {tag} {dt}: launches {launches} for "
+                      f"{dispatches} dispatches")
+                print(f"[artifact] {tag} {dt}: export {export_s:.2f} s "
+                      f"(both variants), params {sizes[dt] / 1e6:.3f} MB, "
+                      f"load {load_s:.2f} s (meta, SHA-256, torch.load, "
+                      f"one warm dispatch a bucket); first request / warm "
+                      f"p50 ms: " + ", ".join(
+                          f"n={n}: {first[n]:.2f}/{warm[n]:.2f}"
+                          for n in REQUEST_SIZES)
+                      + f"; flash_fwd {launches['flash_fwd']} over "
+                      f"{dispatches} dispatches "
+                      f"({launches['flash_fwd'] / dispatches:g} a dispatch)",
+                      flush=True)
+                result[(tag, dt)] = dict(export_s=export_s,
+                                         bytes=sizes[dt], load_s=load_s,
+                                         first_ms=first, warm_ms=warm)
+                if dt == "float32":
+                    mem = ServeFrontend(cfg, agent, buckets)
+                    obs = rng.standard_normal((150, a, od)).astype(
+                        np.float32)
+                    avail = rng.random((150, a, na)) < 0.6
+                    avail[..., 0] = True
+                    a1, h1 = fe.select(obs, avail)
+                    a2, h2 = mem.select(obs, avail)
+                    check(np.array_equal(a1, a2) and np.array_equal(h1, h2),
+                          f"[artifact] {tag}: loaded f32 front end differs "
+                          f"from the in-memory one ({int((a1 != a2).sum())} "
+                          f"actions, max|dh| {np.abs(h1 - h2).max():.3e})")
+                    del mem
+                del fe
+            bad = os.path.join(out, meta["params"]["float32"]["file"])
+            with open(bad, "r+b") as f:
+                f.seek(os.path.getsize(bad) // 2)
+                byte = f.read(1)
+                f.seek(-1, 1)
+                f.write(bytes([byte[0] ^ 1]))
+            try:
+                ServeFrontend.load(out, dtype="float32")
+                refused = False
+            except ValueError as e:
+                refused = "integrity" in str(e)
+            check(refused, f"[artifact] {tag}: a tampered blob loaded")
+        print(f"[artifact] checkpoint t_env {t_env}: f32 actions and "
+              f"hiddens of each loaded front end equal an in-memory one "
+              f"built from the checkpoint's agent leaves (150 rows); a "
+              f"tampered blob is refused", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+    return result
+
+
+SCENARIO_CONFIG = "configs/config6_scenarios.yaml"
+SCENARIO_OVERRIDES = ("kernels.attention=pallas",)
+
+
+def counted_plain_launches(att):
+    """Wrap the kernels' plain versions so that a CPU run counts into
+    ``att.LAUNCHES`` what the card would launch → restore function."""
+    names = ("flash_attention_reference", "flash_attention_fwd_reference",
+             "flash_attention_bwd_reference")
+    keys = (("flash_fwd",), ("flash_fwd_res",),
+            ("flash_bwd_dq", "flash_bwd_dkv"))
+    saved = {n: getattr(att, n) for n in names}
+
+    def counted(fn, ks):
+        def wrapper(*a, **kw):
+            for k in ks:
+                att.LAUNCHES[k] += 1
+            return fn(*a, **kw)
+        return wrapper
+
+    for n, ks in zip(names, keys):
+        setattr(att, n, counted(saved[n], ks))
+    return lambda: [setattr(att, n, f) for n, f in saved.items()]
+
+
+def phase_scenarios(torch, att, smi: str) -> dict:
+    """Config 6 as shipped (the four-family mixture, min_agents 4, the
+    padding mask, K = 4, f32) with kernels.attention=pallas: the CPU
+    path's launches a train iteration; the mixture draw on the card
+    against the CPU's; K eager iterations against one fused dispatch, bit
+    for bit, and a dispatch of replays with no host sync; then ``python
+    -m t2omca_tpu_torch train`` cut in t_max to two dispatches, with its
+    slice rows, launches and times."""
+    import gc
+    import shutil
+    import tempfile
+    import numpy as np
+    from t2omca_tpu_torch import __main__ as cli
+    from t2omca_tpu_torch import prng
+    from t2omca_tpu_torch.config import load_config
+    from t2omca_tpu_torch.run import Experiment, LoopCursor, run_classic
+    from t2omca_tpu_torch.train import superstep as superstep_mod
+    from t2omca_tpu_torch.train.superstep import clone_state
+    from t2omca_tpu_torch.utils.checkpoint import flatten_state
+    root = os.path.dirname(os.path.abspath(__file__))
+    cfg6 = os.path.join(root, SCENARIO_CONFIG)
+    cfg = load_config(cfg6, SCENARIO_OVERRIDES)
+    k, b, t = cfg.superstep, cfg.batch_size_run, cfg.env_args.episode_limit
+    a = cfg.env_args.agv_num
+    lo = cfg.env_args.scenario.min_agents
+    check(k == 4 and cfg.model.dtype == "float32" and lo == 4 and a == 8,
+          f"[scenarios] {SCENARIO_CONFIG} is not config 6 as shipped")
+    # 1. the CPU path's launches a train iteration (the plain versions
+    # counted): lanes, batch and ring cut, T and the model as shipped
+    cut = load_config(cfg6, SCENARIO_OVERRIDES + (
+        "batch_size_run=2", "batch_size=2", "replay.buffer_size=2"))
+    cpu_exp = Experiment.build(cut, device="cpu")
+    cpu_ts = cpu_exp.init_state(0)
+    check(cpu_exp.learner._mask_padded, "[scenarios] padding mask off")
+    restore = counted_plain_launches(att)
+    try:
+        cpu_ts, _, recs = run_classic(cpu_exp, cpu_ts, 1)
+        att.reset_launches()
+        run_classic(cpu_exp, cpu_ts, 1)
+        want_step = dict(att.LAUNCHES)
+    finally:
+        restore()
+    check(recs[0].info is not None and want_step["flash_fwd_res"] > 0,
+          f"[scenarios] the CPU path trained nothing {want_step}")
+    del cpu_exp, cpu_ts
+    # 2. the mixture draw: the card against the CPU on the same keys
+    exp = Experiment.build(cfg)
+    dist = exp.runner.scenario
+    keys = prng.split(prng.PRNGKey(SEED + 70, "cpu"), 4096)
+    env_cpu = type(exp.env)(exp.env.cfg, device="cpu")
+    d_cpu, d_gpu = dist.sample(keys, env_cpu), dist.sample(keys.cuda(),
+                                                           exp.env)
+    diff = [f.name for f in dataclasses.fields(d_cpu)
+            if not torch.equal(getattr(d_gpu, f.name).cpu(),
+                               getattr(d_cpu, f.name))]
+    check(not diff, f"[scenarios] mixture draw CUDA != CPU: {diff}")
+    n_act = d_cpu.n_active
+    fams = np.bincount(d_cpu.family.numpy(), minlength=4)
+    check(int(n_act.min()) == lo and int(n_act.max()) == a
+          and bool((fams > 0).all()),
+          f"[scenarios] draws: n_active {int(n_act.min())}..."
+          f"{int(n_act.max())}, families {fams}")
+    # padded agents act 0 only: one rollout on the card
+    ts0 = exp.init_state(0)
+    rs, batch, _ = exp.runner.run(ts0.learner.params["agent"], ts0.runner)
+    n_lane = rs.env_params.n_active.cpu()
+    pad = torch.arange(a)[None, :] >= n_lane[:, None]        # (B, A)
+    acts = batch.actions.cpu()                                # (B, T, A)
+    check(bool(pad.any()) and bool((acts.transpose(1, 2)[pad] == 0).all())
+          and bool((batch.avail_actions.cpu()[..., 1:].transpose(1, 2)
+                    [pad] == 0).all()),
+          "[scenarios] a padded agent had or took a non-idle action")
+    print(f"[scenarios] config 6 ({b} lanes, {a} AGVs, emb "
+          f"{cfg.model.emb}, mixer {cfg.model.mixer_emb}/"
+          f"{cfg.model.mixer_heads}/{cfg.model.mixer_depth}, T={t}, ring "
+          f"{cfg.replay.buffer_size}, K={k}, f32, pallas): the CPU path "
+          f"launches {want_step} a train iteration; the mixture draw of "
+          f"{len(keys)} lanes equal on the card and the CPU (families "
+          f"{fams.tolist()}, n_active {int(n_act.min())}..."
+          f"{int(n_act.max())}); a rollout's {int(pad.sum())} padded "
+          f"agents of {b * a} had and took action 0 only", flush=True)
+    # 3. K eager iterations against one fused dispatch, from one state
+    sup = exp.superstep_program(k)
+    mirror = {"key": prng.PRNGKey(SEED + 71, "cuda"), "t_env": 0,
+              "episode": 0, "filled": 0}
+    ref = clone_state(ts0)
+    att.reset_launches()
+    t0 = time.perf_counter()
+    ref, cursor, recs = run_classic(exp, ref, k, LoopCursor(
+        key=mirror["key"]))
+    torch.cuda.synchronize()
+    eager_s = time.perf_counter() - t0
+    eager = dict(att.LAUNCHES)
+    att.reset_launches()
+    t0 = time.perf_counter()
+    ts, stats, infos, gated = fused_dispatch(torch, sup, ts0, mirror)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    fused = dict(att.LAUNCHES)
+    check(set(sup.graphs) == {"rollout", "train"},
+          f"[scenarios] graphs {sorted(sup.graphs)}")
+    n_train = sum(gated)
+    check(eager == fused == {n: n_train * v for n, v in want_step.items()}
+          and sup.launches["train"] == want_step,
+          f"[scenarios] launches eager {eager}, fused {fused}, a train "
+          f"replay {sup.launches['train']}, the CPU's {want_step}")
+    x, hx = flatten_state(ts)
+    y, hy = flatten_state(ref)
+    diff = [n for n in x if not torch.equal(x[n], y[n])]
+    check(hx == hy and set(x) == set(y) and not diff,
+          f"[scenarios] fused state differs from {k} eager iterations: "
+          f"{diff[:5]}")
+    check(torch.equal(cursor.key, mirror["key"]), "[scenarios] driver key")
+    for i, rec in enumerate(recs):
+        for f in dataclasses.fields(stats):
+            got = getattr(stats, f.name)[i]
+            check(torch.equal(got.cpu(), getattr(rec.stats, f.name)
+                              .reshape(got.shape).cpu()),
+                  f"[scenarios] stats {f.name} of iteration {i}")
+        if rec.info is not None:
+            bad = [n for n, v in rec.info.items()
+                   if not torch.equal(infos[n][i], v)]
+            check(not bad, f"[scenarios] info of iteration {i}: {bad}")
+    del ref, recs
+    sup.timing = True
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    (ts2, _, infos, _), syncs = count_syncs(
+        torch, lambda: fused_dispatch(torch, sup, ts, mirror))
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    iters = [(e0.elapsed_time(e1), e1.elapsed_time(e2))
+             for e0, e1, e2 in sup.events]
+    sup.timing = False
+    check(not syncs, f"[scenarios] host syncs in a dispatch: {syncs}")
+    check(bool(infos["all_finite"].all()), "[scenarios] non-finite step")
+    print(f"[scenarios] {k} eager run_classic iterations and one fused "
+          f"dispatch from one state, padding mask on: bit-identical "
+          f"({len(x)} leaves, the driver key, stats, infos); launches "
+          f"{fused} ({sup.launches['train']} a train replay = the CPU "
+          f"path's, none a rollout replay); capture rollout "
+          f"{sup.capture_s['rollout']:.2f} + instantiate "
+          f"{sup.instantiate_s['rollout']:.2f} s, train "
+          f"{sup.capture_s['train']:.2f} + {sup.instantiate_s['train']:.2f}"
+          f" s; graph nodes {sup.nodes}; host: {k} eager iterations "
+          f"{eager_s * 1e3:.0f} ms, the first fused dispatch "
+          f"{first_s * 1e3:.0f} ms, a dispatch of replays {host_ms:.0f} ms"
+          f" (no host sync); device time by iteration (rollout + train, "
+          f"ms): " + ", ".join(f"{p:.1f} + {q:.1f}" for p, q in iters)
+          + f" | {smi}", flush=True)
+    capture = {s: (sup.capture_s[s], sup.instantiate_s[s])
+               for s in ("rollout", "train")}
+    sup.close()
+    del sup, ts, ts2, exp, ts0, x, y
+    gc.collect()
+    torch.cuda.empty_cache()
+    # 4. the driver: two K = 4 dispatches through the CLI
+    per = k * b * t
+    tmp = tempfile.mkdtemp(prefix=".chip_smoke_scenarios_", dir=root)
+    calls, unwrap = _timed_dispatches(torch, superstep_mod)
+    try:
+        att.reset_launches()             # ---- the driver path starts here
+        t0 = time.time()
+        try:
+            rc = cli.main(["train", "--config", cfg6, *SCENARIO_OVERRIDES,
+                           f"t_max={2 * per - 1}",
+                           f"local_results_path={tmp}"])
+        finally:
+            unwrap()
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = dict(att.LAUNCHES)    # ---- and ends here
+        check(rc == 0, f"[scenarios] train returned {rc}")
+        check(len(calls) == 2, f"[scenarios] {len(calls)} dispatches")
+        check(launches == {n: 2 * k * v for n, v in want_step.items()},
+              f"[scenarios] driver launches {launches}")
+        rows = _metric_rows(tmp)
+        keys_seen = {r["key"] for r in rows}
+        for prefix in ("", "test_"):
+            fam_rows = {f for f in range(4)
+                        if f"{prefix}slice{f}_n" in keys_seen
+                        and f"{prefix}slice{f}_return_mean" in keys_seen}
+            check(len(fam_rows) >= 3, f"[scenarios] {prefix}slice rows "
+                                      f"for families {sorted(fam_rows)}")
+        for r in rows:
+            v = r["value"]
+            check(all(np.isfinite(v if isinstance(v, list) else [v])),
+                  f"[scenarios] non-finite {r}")
+        spans = [sp for sp in _spans(tmp) if sp.get("event") == "span"
+                 and sp.get("phase") == "dispatch.superstep"]
+        disp_ms = [sp["wall_ms"] for sp in spans]
+        cap = [c[2] for c in calls]
+        inst = [c[3] for c in calls]
+        newest = {}
+        for r in rows:
+            if r["key"].startswith(("slice", "test_slice")):
+                newest[r["key"]] = r["value"]
+        table = ", ".join(
+            f"{f}: n {newest.get(f'slice{f}_n', 0):g} return "
+            f"{newest.get(f'slice{f}_return_mean', float('nan')):.1f} / "
+            f"test n {newest.get(f'test_slice{f}_n', 0):g} return "
+            f"{newest.get(f'test_slice{f}_return_mean', float('nan')):.1f}"
+            for f in range(4))
+        test_ms = [r["value"] for r in rows if r["key"] == "time_test_ms"]
+        print(f"[scenarios] driver: python -m t2omca_tpu_torch train "
+              f"--config {SCENARIO_CONFIG} {' '.join(SCENARIO_OVERRIDES)} "
+              f"t_max={2 * per - 1}: two K={k} dispatches to t_env "
+              f"{2 * per}, launches {launches} (2 x {k} x the CPU path's), "
+              f"{len(rows)} metric rows; slice rows by family (newest "
+              f"cadence): {table}; dispatch host ms "
+              f"{', '.join(f'{x:.0f}' for x in disp_ms)} (the first "
+              f"captures: rollout {cap[0].get('rollout', 0):.2f} + "
+              f"{inst[0].get('rollout', 0):.2f} s, train "
+              f"{cap[0].get('train', 0):.2f} + {inst[0].get('train', 0):.2f}"
+              f" s); test rollouts ms "
+              f"{', '.join(f'{x:.0f}' for x in test_ms)}; whole call "
+              f"{wall:.1f} s", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return {"launches": launches, "want_step": want_step,
+            "capture_s": capture, "eager_s": eager_s, "first_s": first_s,
+            "host_ms": host_ms, "iters_ms": iters,
+            "driver_dispatch_ms": disp_ms, "driver_wall_s": wall}
 
 
 def main() -> int:
@@ -2775,14 +3204,21 @@ def main() -> int:
     lap("loop-dense")
     noisy = phase_loop_noisy(torch, att)
     lap("loop-noisy")
-    driver = phase_driver(torch, att, loop)
+    driver = phase_driver(torch, att, loop, after=lambda models:
+                          phase_artifact(torch, att, models))
     lap("driver")
+    artifact = driver.pop("after")
+    phases["driver"] -= driver["after_s"]
+    phases["artifact"] = driver["after_s"]
+    scenarios = phase_scenarios(torch, att, smi)
+    lap("scenarios")
     loops = {"loop": loop, "sight": sight, "remat": remat,
              "superstep": superstep, "loop_dense": dense,
              "loop_noisy": noisy,
              "driver": {"launches": {
                  k: driver["launches"][k] + driver["launches_resume"][k]
-                 for k in driver["launches"]}}}
+                 for k in driver["launches"]}},
+             "artifact": artifact, "scenarios": scenarios}
 
     def fwd_times(key):
         ms, plain, lib_ms, bound, by = times[key]
@@ -2821,6 +3257,8 @@ def main() -> int:
         "serve_strided_bfloat16": fwd_times(("serve_strided", "bfloat16")),
         "serve_strided_float32": fwd_times(("serve_strided", "float32")),
         "float32": f32_times("flash_fwd"),
+        "config6_mixer_float32": times_bwd[("flash_fwd", "mixer6_k_is_v",
+                                            "float32")],
         "learner_shapes": learner_times("flash_fwd"),
     }]
     sources = {
@@ -2849,6 +3287,8 @@ def main() -> int:
             "shape": head["shape"], "dtype": "bfloat16",
             "max_abs_err_f32": errs_bwd[("agent", "float32")][name],
             "float32": f32_times(name),
+            "config6_mixer_float32": times_bwd[(name, "mixer6_k_is_v",
+                                                "float32")],
             "learner_shapes": learner_times(name),
         })
     tc_of = {"flash_fwd": ("flash_fwd_tc_kernel", "flash_fwd_dmma_kernel"),
@@ -2903,6 +3343,23 @@ def main() -> int:
           f"{driver['restore_load_s']:.2f} s), evaluate "
           f"{driver['eval_episode_ms']:.0f} ms an episode, SIGTERM to exit "
           f"{driver['sigterm_to_exit_s']:.2f} s", flush=True)
+    art = {key: v for key, v in artifact.items() if key != "launches"}
+    print("[summary] artifact (config 3 from [driver]'s checkpoint, "
+          "loaded on the card): " + "; ".join(
+              f"{tag} {dt}: export {v['export_s']:.2f} s, "
+              f"{v['bytes'] / 1e6:.2f} MB, load {v['load_s']:.2f} s, warm "
+              f"p50 n=64 {v['warm_ms'][64]:.2f} ms"
+              for (tag, dt), v in art.items()), flush=True)
+    print(f"[summary] scenarios (config 6, K=4, f32, pallas): capture "
+          f"rollout {scenarios['capture_s']['rollout'][0]:.2f} + "
+          f"{scenarios['capture_s']['rollout'][1]:.2f} s, train "
+          f"{scenarios['capture_s']['train'][0]:.2f} + "
+          f"{scenarios['capture_s']['train'][1]:.2f} s; a dispatch of "
+          f"replays {scenarios['host_ms']:.0f} ms host (eager: "
+          f"{scenarios['eager_s'] * 1e3:.0f} ms for 4 run_classic "
+          f"iterations); the driver's two dispatches "
+          f"{', '.join(f'{x:.0f}' for x in scenarios['driver_dispatch_ms'])}"
+          f" ms host", flush=True)
     print(f"[summary] total {time.perf_counter() - t_start:.1f} s; by phase: "
           + ", ".join(f"{k} {v:.1f} s" for k, v in phases.items()),
           flush=True)

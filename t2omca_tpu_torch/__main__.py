@@ -11,9 +11,10 @@ Examples::
     python -m t2omca_tpu_torch benchmark checkpoint_path=... test_nepisode=32
 
 The run goes on the CUDA card and raises when there is none: the CLI
-has no CPU fallback (a CPU run goes through ``run.run(cfg,
-device="cpu")``). Multi-host initialization is not ported (``dp_devices``
-raises, ``ROADMAP.md`` item 12).
+has no CPU fallback. ``--device cpu`` asks for the CPU by name (as
+``run.run(cfg, device="cpu")`` does in process). Multi-host
+initialization is not ported (``dp_devices`` raises, ``ROADMAP.md`` item
+12).
 """
 
 from __future__ import annotations
@@ -32,6 +33,8 @@ def main(argv=None) -> int:
                         choices=["train", "evaluate", "benchmark"])
     parser.add_argument("--config", default=None,
                         help="YAML/JSON config file")
+    parser.add_argument("--device", default=None,
+                        help="device to run on (default: cuda)")
     parser.add_argument("overrides", nargs="*",
                         help="key=value config overrides")
     # intermixed: the overrides may follow --config (plain parse_args
@@ -43,7 +46,7 @@ def main(argv=None) -> int:
         cfg = cfg.replace(evaluate=True)
     if args.command == "benchmark":
         cfg = cfg.replace(benchmark_mode=True)
-    run(cfg, Logger())
+    run(cfg, Logger(), device=args.device)
     return 0
 
 

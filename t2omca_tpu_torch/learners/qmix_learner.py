@@ -40,10 +40,15 @@ recompute). ``obs.sight`` adds the learning-health probes
 select in ``train``, all on detached tensors under ``torch.no_grad()``,
 so the update is bit-identical with the gate on or off.
 
+A scenario distribution that can pad (``envs/graftworld.
+distribution_can_pad``) turns on the mixer padding mask, a static gate as
+in JAX: the trailing agents that never had a non-idle action available
+enter the mixer with zero Qs, hidden tokens and obs rows.
+
 Not ported (each raises ``NotImplementedError`` naming the ROADMAP
 item): dropout, the dense agent's noise (``noisy-new`` with
-``use_qslice: false``), the padding mask of scenario distributions that
-can pad, the population ``spec`` and the ``qmix_ff``/``vdn`` mixers.
+``use_qslice: false``), the population ``spec`` and the ``qmix_ff``/
+``vdn`` mixers.
 """
 
 from __future__ import annotations
@@ -73,22 +78,6 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to t2omca_tpu_torch yet (ROADMAP.md Queue "
         f"A {item})")
-
-
-def scenario_can_pad(env_cfg, n_agents: int) -> bool:
-    """Can the config's scenario distribution draw ``n_active <
-    n_agents`` (padded agents)? The registry default scenarios never pad;
-    an explicit ``env_args.scenario`` pads through ``min_agents``, an
-    ``n_active`` override or an ``n_active`` range (the JAX package's
-    ``graftworld.distribution_can_pad``)."""
-    sc = env_cfg.scenario
-    if sc.min_agents and sc.min_agents < n_agents:
-        return True
-    if any(name == "n_active" and float(value) < n_agents
-           for name, value in sc.overrides):
-        return True
-    return any(name == "n_active" and float(lo) < n_agents
-               for name, lo, _hi in sc.ranges)
 
 
 # --------------------------------------------------------------- optimizer
@@ -195,9 +184,6 @@ class QMixLearner:
             raise _not_ported("the dense agent's NoisyNet training noise "
                               "(action_selector noisy-new with "
                               "model.use_qslice=false)", "item 2")
-        if scenario_can_pad(cfg.env_args, env_info["n_agents"]):
-            raise _not_ported("the mixer padding mask of a scenario that "
-                              "can pad", "item 11")
         n_entities = cfg.model.n_entities_state or env_info["n_entities"]
         state_entity_mode = "state_entity_feats" in env_info
         if state_entity_mode:
@@ -271,6 +257,17 @@ class QMixLearner:
     def _mixer_qslice(self) -> bool:
         from ..ops.query_slice import mixer_qslice_eligible
         return mixer_qslice_eligible(self.cfg)
+
+    @property
+    def _mask_padded(self) -> bool:
+        """Static gate of the mixer padding mask: True only when the
+        config's scenario distribution can draw ``n_active < n_agents``.
+        A config that cannot pad runs none of the mask's ops."""
+        from ..envs.graftworld import distribution_can_pad
+        from ..envs.registry import make_scenario_distribution
+        return distribution_can_pad(
+            make_scenario_distribution(self.cfg.env_args),
+            self.mac.n_agents)
 
     def _step(self, fn, *args):
         """One unroll step: under ``model.remat`` and autograd, through
@@ -404,7 +401,29 @@ class QMixLearner:
             target_qs, target_hs = self._unroll_agent(
                 target_params["agent"], obs, k_tag, compact_tm)
 
-        chosen = qs[:-1].gather(-1, actions[..., None])[..., 0]  # (T, B, A)
+        # the mixer padding mask: padded agents can never take a non-idle
+        # action and hold the trailing agent slots (EnvParams.agent_mask
+        # is arange < n_active), so the trailing block of agents that
+        # never had a non-idle action available, the bootstrap step
+        # included, marks them from the stored avail alone (dense and
+        # compact storage). Their chosen and target Qs, hidden tokens and
+        # obs rows enter the mixer multiplied by 0; active agents by 1,
+        # which leaves a full-fleet batch bit-identical
+        if self._mask_padded:
+            saw_job = avail[..., 1:].any(dim=-1).any(dim=0)      # (B, A)
+            act_m = saw_job.int().flip(-1).cummax(-1).values.flip(-1) > 0
+
+            def padmask(x):
+                m = act_m.to(x.dtype)
+                return x * (m[None] if x.ndim == 3 else m[None, ..., None])
+
+            hs, target_hs = padmask(hs), padmask(target_hs)
+            if obs is not None:
+                obs = padmask(obs)
+        else:
+            padmask = lambda x: x  # noqa: E731
+
+        chosen = padmask(qs[:-1].gather(-1, actions[..., None])[..., 0])
         # illegal actions are suppressed in the targets; over all T+1
         # steps so the target mixer unrolls from t=0 like the online one
         with torch.no_grad():
@@ -414,6 +433,7 @@ class QMixLearner:
             else:
                 target_max = torch.where(avail, target_qs,
                                          float("-inf")).amax(-1)
+            target_max = padmask(target_max)
             target_q_tot = self._unroll_mixer(
                 target_params["mixer"], target_max, target_hs, state,
                 obs)[1:]

@@ -191,3 +191,29 @@ def normal(key: torch.Tensor, shape: Shape) -> torch.Tensor:
     lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
     u = uniform(key, shape, lo, 1.0)
     return torch.erfinv(u) * f32(np.sqrt(2))
+
+
+def cumsum_f32(p) -> Tuple[float, ...]:
+    """``jnp.cumsum`` of a float32 vector as XLA computes it (a reduce
+    window: each prefix summed left to right from zero, every add rounded
+    to float32) → the prefix sums as Python floats."""
+    acc, out = np.float32(0.0), []
+    for x in np.asarray(p, np.float32).reshape(-1):
+        acc = np.float32(acc + x)
+        out.append(float(acc))
+    return tuple(out)
+
+
+def choice(key: torch.Tensor, n: int, p) -> torch.Tensor:
+    """``jax.random.choice(key, n, shape=(), replace=True, p=p)`` for keys
+    ``(..., 2)`` → int32 indices ``(...)``. ``p`` is a host vector of
+    ``n`` probabilities, taken as float32: ``cum = cumsum(p)``, ``r =
+    cum[-1] · (1 − u)`` for ``u`` uniform in [0, 1), and the index is the
+    left-side ``searchsorted(cum, r)``, the count of prefix sums below
+    ``r``. The prefix sums stay on the host, so the draw makes no host
+    sync and allocates nothing that depends on the data."""
+    cum = cumsum_f32(p)
+    if len(cum) != n:
+        raise ValueError(f"p must have {n} entries, got {len(cum)}")
+    r = (1.0 - uniform(key, ())) * cum[-1]
+    return sum((r > c).to(torch.int32) for c in cum)

@@ -9,24 +9,33 @@
 * **per-request hidden carry** — ``select`` threads the recurrent hidden
   state explicitly; :class:`SessionStore` keys it by session id.
 
-The front end is built in-process from ``(cfg, params, buckets,
-dtype)``. Loading the JAX package's exported artifact needs flax's
-msgpack reader and waits for a later slice, as do the span telemetry and
-the metrics hub of the JAX front end.
+A front end is built in-process from ``(cfg, params, buckets, dtype)``
+(it folds the params), or loaded from a serving artifact that the port
+exported (``ServeFrontend.load``, ``serve/export.py``): the artifact's
+params are folded already, its blob is checked against its SHA-256
+before ``torch.load(weights_only=True)``, the MAC is rebuilt from its
+train config, and each bucket is warmed with one dispatch, so the first
+request does not pay for loading the kernel library or cuBLAS. The JAX
+front end's span telemetry and metrics hub are ``ROADMAP.md`` item 13b.
 """
 
 from __future__ import annotations
 
+import hashlib
+import io
+import json
+import os
 from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from ..config import TrainConfig
-from ..controllers.basic_mac import (MAC_REGISTRY, map_float_leaves,
-                                     torch_dtype)
+from ..config import TrainConfig, from_dict
+from ..controllers.basic_mac import MAC_REGISTRY, torch_dtype
 from ..device import DeviceLike
 from ..envs.registry import make_env
+from ..utils.checkpoint import _rebuild, flatten_state
+from .export import ARTIFACT_FORMAT, FRAMEWORK, _cast_variant
 from .program import build_serve_step
 
 
@@ -62,33 +71,117 @@ def pad_request(obs: np.ndarray, avail: np.ndarray, hidden: np.ndarray,
                                              hidden.dtype)]))
 
 
+def _build_mac(cfg: TrainConfig, device: DeviceLike):
+    env_info = make_env(cfg.env_args).get_env_info()
+    return MAC_REGISTRY[cfg.mac].build(cfg, env_info, device), env_info
+
+
 class ServeFrontend:
     """Greedy serving over a MAC rebuilt from ``cfg``. ``params`` is the
     agent state dict (train dtype, e.g. from ``BasicMAC.init_params`` or
     ``convert.agent_state_from_flax``); ``dtype`` picks the param
     variant ("float32" or "bfloat16": floating leaves cast after the
     acting fold). Runs on ``cuda`` unless ``device`` says otherwise.
-    One dispatcher thread per front end."""
+    :meth:`load` builds one from an exported artifact instead. One
+    dispatcher thread per front end."""
 
     def __init__(self, cfg: TrainConfig, params, buckets: Sequence[int],
                  dtype: str = "float32", device: DeviceLike = None) -> None:
-        env_info = make_env(cfg.env_args).get_env_info()
-        self.mac = MAC_REGISTRY[cfg.mac].build(cfg, env_info, device)
-        self.device = self.mac.device
+        mac, env_info = _build_mac(cfg, device)
+        params = {k: v.to(mac.device) for k, v in params.items()}
+        acting = mac.prepare_acting_params(params, dtype=mac.dtype)
+        self._setup(mac, env_info, _cast_variant(acting, dtype), buckets,
+                    dtype)
+
+    def _setup(self, mac, env_info: dict, params, buckets: Sequence[int],
+               dtype: str) -> None:
+        """Bind the MAC and the acting params of one variant (folded and
+        cast already)."""
+        self.mac = mac
+        self.device = mac.device
         self.dtype = dtype
         self.buckets: List[int] = sorted(int(b) for b in buckets)
         if not self.buckets or self.buckets[0] < 1:
             raise ValueError(f"buckets must be >= 1, got {buckets}")
-        self.n_agents = self.mac.n_agents
+        self.n_agents = mac.n_agents
         self.obs_dim = env_info["obs_shape"]
         self.n_actions = env_info["n_actions"]
-        self.emb = self.mac.emb
-        vd = torch_dtype(dtype)
-        params = {k: v.to(self.device) for k, v in params.items()}
-        acting = self.mac.prepare_acting_params(params,
-                                                dtype=self.mac.dtype)
-        self.params = map_float_leaves(acting, lambda x: x.to(vd))
-        self._step = build_serve_step(self.mac)
+        self.emb = mac.emb
+        self.params = params
+        self._step = build_serve_step(mac)
+
+    # ------------------------------------------------------------- load
+
+    @classmethod
+    def load(cls, artifact_dir: str, dtype: str = "float32",
+             device: DeviceLike = None) -> "ServeFrontend":
+        """Load an artifact of ``serve/export.py``'s layout on ``device``
+        (``cuda`` unless named). ``dtype`` picks the param variant, which
+        is not folded again. One batch a bucket is dispatched before the
+        front end is returned."""
+        with open(os.path.join(artifact_dir, "meta.json")) as f:
+            meta = json.load(f)
+        fmt = meta.get("format", 0)
+        if fmt > ARTIFACT_FORMAT:
+            raise ValueError(
+                f"serve artifact {artifact_dir} has format v{fmt}, newer "
+                f"than this build's v{ARTIFACT_FORMAT} — upgrade the "
+                f"framework to load it")
+        if meta.get("framework") != FRAMEWORK:
+            raise ValueError(
+                f"serve artifact {artifact_dir} was written by "
+                f"{meta.get('framework') or 'the JAX package'!r}, not "
+                f"{FRAMEWORK!r}: export the checkpoint with python -m "
+                f"{FRAMEWORK}.serve export")
+        entry = meta.get("params", {}).get(dtype)
+        if entry is None:
+            raise ValueError(
+                f"artifact {artifact_dir} ships no {dtype!r} param variant "
+                f"(has: {sorted(meta.get('params', {}))})")
+        with open(os.path.join(artifact_dir, entry["file"]), "rb") as f:
+            blob = f.read()
+        digest = hashlib.sha256(blob).hexdigest()
+        if digest != entry.get("sha256"):
+            raise ValueError(
+                f"param blob {entry['file']} fails its integrity check "
+                f"({digest[:12]}… != recorded "
+                f"{str(entry.get('sha256'))[:12]}…) — re-export the "
+                f"artifact")
+        flat = torch.load(io.BytesIO(blob), map_location="cpu",
+                          weights_only=True)
+        del blob
+
+        cfg = from_dict(meta["train_config"])
+        mac, env_info = _build_mac(cfg, device)
+        if (mac.n_agents != meta["n_agents"]
+                or env_info["obs_shape"] != meta["obs_dim"]
+                or env_info["n_actions"] != meta["n_actions"]):
+            raise ValueError(
+                f"artifact {artifact_dir} meta disagrees with its own "
+                f"train_config rebuild (agents/obs/actions "
+                f"{meta['n_agents']}/{meta['obs_dim']}/{meta['n_actions']}"
+                f" vs {mac.n_agents}/{env_info['obs_shape']}/"
+                f"{env_info['n_actions']}) — corrupt meta.json?")
+        # the variant's tree from the MAC's meta tensors: its paths,
+        # shapes and dtypes, with nothing drawn or computed
+        template = _cast_variant(mac.prepare_acting_params(
+            dict(mac.agent.named_parameters()), dtype=mac.dtype), dtype)
+        want, _ = flatten_state(template)
+        bad = sorted(k for k in set(want) | set(flat)
+                     if k not in want or k not in flat
+                     or (flat[k].shape, flat[k].dtype)
+                     != (want[k].shape, want[k].dtype))
+        if bad:
+            raise ValueError(
+                f"artifact {artifact_dir} {dtype} params do not match the "
+                f"model of its train_config: {len(bad)} leaves differ "
+                f"(first: {bad[0]})")
+        params = _rebuild(template, lambda path, x: flat[path].to(
+            mac.device) if isinstance(x, torch.Tensor) else x)
+        fe = cls.__new__(cls)
+        fe._setup(mac, env_info, params, meta["buckets"], dtype)
+        fe.warmup()
+        return fe
 
     def _validate(self, obs, avail, hidden) -> None:
         a, d, na = self.n_agents, self.obs_dim, self.n_actions

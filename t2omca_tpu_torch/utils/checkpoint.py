@@ -390,7 +390,12 @@ def _check_obs_layout(meta: dict, target: Any, dirname: str) -> None:
 
 
 def _read_tensors(dirname: str, verify: bool, map_location,
-                  mmap: bool = False) -> Dict[str, torch.Tensor]:
+                  mmap: bool = False, prefix: Optional[str] = None
+                  ) -> Dict[str, torch.Tensor]:
+    """``state.pt``'s tensors; with ``prefix``, only the leaves under it,
+    keyed by the rest of their path and copied out of the file (with
+    ``mmap`` only their pages are read: the serving export takes the
+    agent's few MB out of a multi-GB state this way)."""
     state_path = os.path.join(dirname, STATE_FILE)
     if verify:
         meta = read_meta(dirname)
@@ -403,8 +408,12 @@ def _read_tensors(dirname: str, verify: bool, map_location,
                 f"torn or corrupted; resume from an older step "
                 f"(find_checkpoint skips invalid checkpoints "
                 f"automatically)")
-    return torch.load(state_path, map_location=map_location,
-                      weights_only=True, mmap=mmap)
+    tensors = torch.load(state_path, map_location=map_location,
+                         weights_only=True, mmap=mmap)
+    if prefix is None:
+        return tensors
+    return {k[len(prefix):]: v.clone() for k, v in tensors.items()
+            if k.startswith(prefix)}
 
 
 def _restore_leaves(template: Any, tensors: Dict[str, torch.Tensor],

@@ -18,12 +18,16 @@ pending ``RolloutStats`` is summed there (one sum per terminal key, in
 numpy's float32 pairwise order: :func:`np_sum_f32`, so every sum is the
 number the JAX accumulator's ``np.sum`` gives), and one ``.cpu()`` copy
 of one flat tensor (the per-episode returns and those sums of every
-pending rollout) is the fold's only device→host transfer. The JAX
-accumulator's per-scenario slice rows need episodes of more than one
-scenario family; the port's env has only the fixed scenario (the
-uniform and mixture kinds are ``ROADMAP.md`` item 11), so this
-accumulator keeps no slices, and the JAX one logs none for such runs.
-Population (``pop<i>_*``) rows are item 11 too.
+pending rollout, then each rollout's per-episode family ids and
+``SLICE_KEYS`` values) is the fold's only device→host transfer.
+
+Per-scenario slices (graftworld): the fold sums each family's episodes
+on the host from that copy, as the JAX accumulator does (numpy float32
+sums of ``ret[sel]``, accumulated in Python floats), and a flush logs
+``<prefix>slice<fam>_n``, ``_return_mean`` and ``_<key>_mean`` rows only
+when the flushed episodes span more than one family, so a single-
+scenario run keeps its stream unchanged. Population (``pop<i>_*``) rows
+are ``ROADMAP.md`` item 11's second step.
 """
 
 from __future__ import annotations
@@ -44,6 +48,11 @@ TERMINAL_INFO_KEYS = (
     "task_completion_rate", "task_completion_delay",
     "deadline_miss_rate",
 )
+
+#: per-slice keys (graftworld per-scenario eval): return plus the
+#: generalization-relevant rates
+SLICE_KEYS = ("conflict_ratio", "task_completion_rate",
+              "deadline_miss_rate")
 
 #: numpy's pairwise-summation leaf size (``PW_BLOCKSIZE``) and its
 #: iterator's buffer size (a reduction's inner loop sees at most this
@@ -133,6 +142,9 @@ class _Pending:
     returns: torch.Tensor        # (n,) f32
     sums: torch.Tensor           # (len(keys),) f32
     keys: Tuple[str, ...]
+    #: (1 + len(SLICE_KEYS), n) f32: the family ids, then the per-episode
+    #: values of SLICE_KEYS
+    slices: torch.Tensor
 
 
 class StatsAccumulator:
@@ -157,6 +169,8 @@ class StatsAccumulator:
         self._eps_val = 0.0         # cached host value
         self._returns: List[float] = []   # folded per-episode returns
         self._stats = defaultdict(float)  # folded terminal-info sums
+        # family id -> {n, return, <SLICE_KEYS sums>}
+        self._slices = defaultdict(lambda: defaultdict(float))
 
     def push(self, rollout_stats) -> None:
         """A rollout's ``(B,)`` stats, or a K-iteration dispatch's stacked
@@ -166,7 +180,10 @@ class StatsAccumulator:
                      if getattr(rollout_stats, k, None) is not None)
         rows = torch.stack([getattr(rollout_stats, k).reshape(-1)
                             .to(torch.float32) for k in keys])
-        self._pending.append(_Pending(ret, np_sum_f32(rows), keys))
+        slices = torch.stack([rollout_stats.scenario.reshape(-1).float()]
+                             + [getattr(rollout_stats, k).reshape(-1).float()
+                                for k in SLICE_KEYS])
+        self._pending.append(_Pending(ret, np_sum_f32(rows), keys, slices))
         self._eps_ref = rollout_stats.epsilon
         # episode count is static shape info — reading it syncs nothing
         self.n_episodes += int(
@@ -180,16 +197,21 @@ class StatsAccumulator:
         if not self._pending:
             return
         self.fetches += 1
-        flat = torch.cat([t for p in self._pending
-                          for t in (p.returns, p.sums)]).cpu().numpy()
+        flat = torch.cat([t.reshape(-1) for p in self._pending
+                          for t in (p.returns, p.sums, p.slices)]
+                         ).cpu().numpy()
         at = 0
         for p in self._pending:
             n = p.returns.numel()
-            self._returns.extend(float(x) for x in flat[at:at + n])
+            ret = flat[at:at + n]
+            self._returns.extend(float(x) for x in ret)
             at += n
             for k in p.keys:
                 self._stats[k] += float(flat[at])
                 at += 1
+            rows = flat[at:at + p.slices.numel()].reshape(-1, n)
+            at += p.slices.numel()
+            self._fold_slices(ret, rows[0].astype(np.int64), rows[1:])
         # the most recent push's epsilon (a stacked push's LAST row); the
         # port's epsilon is a host value already
         eps = np.asarray(torch.as_tensor(self._eps_ref).cpu()) \
@@ -197,6 +219,18 @@ class StatsAccumulator:
         self._eps_val = float(np.mean(eps.reshape(-1)[-1:]))
         self._eps_ref = None
         self._pending.clear()
+
+    def _fold_slices(self, ret: np.ndarray, fam: np.ndarray,
+                     vals: np.ndarray) -> None:
+        """Per-family sums of one rollout's episodes, as the JAX fold
+        forms them: float32 numpy sums of each family's entries."""
+        for f in np.unique(fam):
+            sel = fam == f
+            sl = self._slices[int(f)]
+            sl["n"] += float(sel.sum())
+            sl["return"] += float(ret[sel].sum())
+            for k, v in zip(SLICE_KEYS, vals):
+                sl[k] += float(v[sel].sum())
 
     @property
     def epsilon(self) -> float:
@@ -212,7 +246,9 @@ class StatsAccumulator:
         return self._eps_val
 
     def flush(self, logger, t_env: int, prefix: str = "") -> None:
-        """Log ``return_mean`` + every ``<k>_mean`` and clear."""
+        """Log ``return_mean`` + every ``<k>_mean``, then the
+        ``<prefix>slice<fam>_*`` rows when more than one scenario family
+        was seen, and clear."""
         self._fold()                              # ONE host round-trip
         if self._returns:
             logger.log_stat(prefix + "return_mean",
@@ -220,6 +256,17 @@ class StatsAccumulator:
         n = max(self.n_episodes, 1)
         for k, v in self._stats.items():
             logger.log_stat(prefix + k + "_mean", v / n, t_env)
+        if len(self._slices) > 1:
+            for fam in sorted(self._slices):
+                sl = self._slices[fam]
+                sn = max(sl["n"], 1.0)
+                tag = f"{prefix}slice{fam}_"
+                logger.log_stat(tag + "n", sl["n"], t_env)
+                logger.log_stat(tag + "return_mean", sl["return"] / sn,
+                                t_env)
+                for k in SLICE_KEYS:
+                    logger.log_stat(tag + k + "_mean", sl[k] / sn, t_env)
         self._returns.clear()
         self._stats.clear()
+        self._slices.clear()
         self.n_episodes = 0

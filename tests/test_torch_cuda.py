@@ -277,15 +277,17 @@ def test_flash_backward_shared_kv_and_strided_views(cuda_device):
     ((16, 1, 4, 65, 256), False, None, "negative"),    # pad-key trap, Tq 4
     ((4, 2, 268, 131, 64), False, None, "negative"),   # pad-key trap, Tq 268
     ((4, 2, 40, 40, 8), True, "all_masked_row", None),
+    ((32, 1, 22, 19, 32), False, None, None),          # config 6 mixer, D 32
+    ((32, 1, 22, 19, 32), False, None, "k_is_v"),      # as the mixer calls it
 ], ids=["agent", "mixer", "agent_k_is_v", "mixer_k_is_v", "serve_strided",
         "d12_causal", "causal_per_head", "negative_agent", "negative_mixer",
-        "all_masked_row"])
+        "all_masked_row", "mixer6_d32", "mixer6_d32_k_is_v"])
 def test_f32_kernels_at_their_edges(cuda_device, shape, causal, mask, extra):
     """The f32 K1 and K1 + residuals (FP64 tensor cores), K2 and K3
     (3xTF32 on the tensor cores) against the plain versions at the f32
     tolerances where their tiling, staging and arithmetic have edges: Tq
-    4, 65 and 268 and Tk 65 and 131 (no multiple of 16), D 8, 12, 64 and
-    256, k and v one tensor (staged once), the serve path's strided (B, T,
+    4, 22, 65 and 268 and Tk 19, 65 and 131 (no multiple of 16), D 8, 12,
+    32 (config 6's mixer), 64 and 256, k and v one tensor (staged once), the serve path's strided (B, T,
     H, D) views, causal with a per-head mask (rows with one real key,
     where dP - Delta cancels), all-negative logits (a zero-filled pad key
     would win the row max and give exp(-m)/l > 1) and the all-masked row
@@ -700,3 +702,77 @@ def test_superstep_graphs_replay_the_eager_iterations(cuda_device):
     assert again is ts
     for k, v in flatten_state(again)[0].items():
         assert v.data_ptr() == ptrs[k] and torch.equal(v, once[k]), k
+
+
+# ------------------------------------------- serving artifact, scenarios
+
+@pytest.mark.cuda
+def test_serve_artifact_loads_on_cuda(cuda_device, tmp_path):
+    """A checkpoint of a small model exported on the card and loaded on
+    it: the f32 variant's actions and hiddens equal an in-memory front end
+    built from the same agent leaves, bit for bit; with
+    ``use_qslice=false`` and ``pallas`` a dispatch launches K1 once a
+    block; a tampered blob is refused."""
+    import numpy as np
+    from t2omca_tpu_torch.config import from_dict
+    from t2omca_tpu_torch.run import Experiment
+    from t2omca_tpu_torch.serve.export import export_artifact
+    from t2omca_tpu_torch.serve.frontend import ServeFrontend
+    from t2omca_tpu_torch.utils.checkpoint import save_checkpoint
+    d = {"batch_size_run": 2, "batch_size": 2,
+         "env_args": {"agv_num": 4, "mec_num": 2, "num_channels": 2,
+                      "episode_limit": 4},
+         "model": {"emb": 16, "heads": 2, "depth": 2, "mixer_emb": 16,
+                   "mixer_heads": 2, "mixer_depth": 1},
+         "replay": {"buffer_size": 4}}
+    cfg = from_dict(d)
+    exp = Experiment.build(cfg, device=cuda_device)
+    ts = exp.init_state(0)
+    save_checkpoint(str(tmp_path / "models"), 8, ts)
+    agent = {k: v.clone() for k, v in ts.learner.params["agent"].items()}
+    rng = np.random.default_rng(0)
+    for tag, over in (("qslice", {}),
+                      ("dense", {"use_qslice": False})):
+        c = from_dict(dict(d, model=dict(d["model"], **over),
+                           kernels={"attention": "pallas"}))
+        art = str(tmp_path / tag)
+        export_artifact(c, str(tmp_path / "models"), art, buckets=(1, 4))
+        fe = ServeFrontend.load(art, device=cuda_device)
+        mem = ServeFrontend(c, agent, (1, 4), device=cuda_device)
+        obs = rng.standard_normal((4, 4, fe.obs_dim)).astype(np.float32)
+        avail = rng.random((4, 4, fe.n_actions)) < 0.7
+        avail[..., 0] = True
+        port.reset_launches()
+        a1, h1 = fe.select(obs, avail)
+        assert port.LAUNCHES["flash_fwd"] == (0 if tag == "qslice" else 2)
+        a2, h2 = mem.select(obs, avail)
+        assert (a1 == a2).all() and (h1 == h2).all()
+        ServeFrontend.load(art, dtype="bfloat16", device=cuda_device)
+    blob = bytearray(open(tmp_path / "dense" / "params_float32.pt",
+                          "rb").read())
+    blob[-20] ^= 1
+    open(tmp_path / "dense" / "params_float32.pt", "wb").write(bytes(blob))
+    with pytest.raises(ValueError, match="integrity"):
+        ServeFrontend.load(str(tmp_path / "dense"), device=cuda_device)
+
+
+@pytest.mark.cuda
+def test_mixture_draw_on_cuda_equals_cpu(cuda_device):
+    """Config 6's mixture (four families, min_agents 4) sampled from the
+    same lane keys on the card and on the CPU: every EnvParams leaf
+    equal."""
+    import dataclasses
+    from t2omca_tpu_torch import prng
+    from t2omca_tpu_torch.config import EnvConfig, ScenarioConfig
+    from t2omca_tpu_torch.envs.graftworld import make_distribution
+    from t2omca_tpu_torch.envs.registry import make_env
+    dist = make_distribution(ScenarioConfig(kind="mixture", min_agents=4))
+    cfg = EnvConfig(agv_num=8, mec_num=2, num_channels=2)
+    keys = prng.split(prng.PRNGKey(5, "cpu"), 256)
+    cpu = dist.sample(keys, make_env(cfg, device="cpu"))
+    gpu = dist.sample(keys.to(cuda_device), make_env(cfg,
+                                                     device=cuda_device))
+    for f in dataclasses.fields(cpu):
+        assert torch.equal(getattr(gpu, f.name).cpu(),
+                           getattr(cpu, f.name)), f.name
+    assert len(set(cpu.family.tolist())) == 4

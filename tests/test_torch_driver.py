@@ -348,7 +348,8 @@ def test_benchmark_command_sets_evaluate_and_csv(monkeypatch, tmp_path):
     ``load_config`` builds; ``evaluate`` and ``benchmark`` set their
     flags."""
     seen = []
-    monkeypatch.setattr(cli, "run", lambda cfg, logger: seen.append(cfg))
+    monkeypatch.setattr(cli, "run",
+                        lambda cfg, logger, device=None: seen.append(cfg))
     path = os.path.join(os.path.dirname(__file__), "..", "configs",
                         "config3_tpu_northstar.yaml")
     over = ["kernels.attention=pallas", "obs.sight.enabled=false",

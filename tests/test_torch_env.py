@@ -42,7 +42,8 @@ from t2omca_tpu_torch.config import EnvConfig
 from t2omca_tpu_torch.convert import state_from_jax, tensor_from_jax
 from t2omca_tpu_torch.envs import normalization as tnorm
 from t2omca_tpu_torch.envs.critic import critic
-from t2omca_tpu_torch.envs.graftworld import FixedScenario, make_distribution
+from t2omca_tpu_torch.envs.graftworld import (FAMILY_IDS, FixedScenario,
+                                              make_distribution)
 from t2omca_tpu_torch.envs.mec_offload import (EnvParams, EnvState,
                                                MultiAgvOffloadingEnv,
                                                StepDraws, StepInfo)
@@ -303,18 +304,26 @@ def test_normalization_matches_jax():
 
 
 def test_scenarios_and_registry():
-    """The fixed kind samples; the uniform and mixture kinds raise naming
-    ROADMAP item 11; ``compact_obs`` of a reset state equals the jitted
-    JAX one exactly, and the sequential normalizer has no compact form."""
+    """Every kind builds and samples: the fixed kind, and the registry's
+    uniform (surge) and mixture keys, each lane's family among the
+    distribution's own; ``compact_obs`` of a reset state equals the
+    jitted JAX one exactly, and the sequential normalizer has no compact
+    form."""
     cfg = EnvConfig(agv_num=4, mec_num=2, num_channels=2)
     assert scenario_config(cfg).kind == "fixed"
     assert isinstance(make_distribution(scenario_config(cfg)),
                       FixedScenario)
-    for key in ("multi_agv_surge", "scenarios"):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            make_distribution(scenario_config(
-                dataclasses.replace(cfg, key=key)))
     tenv = make_env(cfg, device="cpu")
+    lane_keys = pkey(jax.random.split(jax.random.PRNGKey(1), 8))
+    for key, kind in (("multi_agv_surge", "uniform"),
+                      ("scenarios", "mixture")):
+        dist = make_distribution(scenario_config(
+            dataclasses.replace(cfg, key=key)))
+        assert type(dist).__name__ == kind.capitalize() + "Scenario"
+        sp = dist.sample(lane_keys, tenv)
+        assert sp.n_active.shape == (8,) and sp.compute_scale.shape == (8, 4)
+        ids = {FAMILY_IDS[f] for f in dist.families()}
+        assert set(sp.family.tolist()) <= ids
     tp = FixedScenario(family="interference").sample(
         pkey(jax.random.split(jax.random.PRNGKey(0), 2)), tenv)
     assert float(tp.gain_scale[0]) == pytest.approx(0.7)

@@ -196,7 +196,7 @@ def test_train_info_zeros_matches_train_info():
 @pytest.mark.parametrize("over,match", [
     ({"mixer": "vdn"}, "mixer 'vdn'"),
     ({"model.dropout": 0.1}, "dropout"),
-    ({"env_args.scenario": {"min_agents": 2}}, "padding mask"),
+    ({"mixer": "qmix_ff"}, "mixer 'qmix_ff'"),
     ({"action_selector": "noisy-new", "model.use_qslice": False},
      "dense agent's NoisyNet"),
 ])

@@ -7,6 +7,8 @@ Bit-exact: ``PRNGKey``, ``split``, ``fold_in``, the 32-bit ``bits``,
 ``u · span + minval`` into one FMA, which the port computes in float64
 and rounds once), ``bernoulli`` and ``randint`` (the two-draw modular
 form), for single keys and for batched keys against ``jax.vmap``.
+``choice`` (shape ``()``, ``replace=True``, a ``p``: the float32
+cumsum, ``r = cum[-1] · (1 − u)`` and the left-side search) too.
 ``gumbel`` and ``normal`` go through ``log`` / ``erfinv``, whose float32
 results differ from XLA's in the last bits: ``gumbel`` by a few ulp
 (measured up to 2.4e-7), held at rtol 1e-6 / atol 1e-6; ``normal`` by
@@ -138,3 +140,31 @@ def test_prngkey_needs_a_device_or_cpu_named(monkeypatch):
         prng.PRNGKey(0)
     with pytest.raises(OverflowError):
         prng.PRNGKey(2 ** 31, device="cpu")
+
+
+def test_choice_is_bit_exact():
+    """``prng.choice`` against ``jax.random.choice(replace=True, p=...)``
+    for batched keys: weights that do not sum to 1 (as given, and
+    normalized the mixture's way), ties from zero weights (the left side
+    never picks a zero-weight index after a positive one), a single
+    entry, eagerly and jitted."""
+    from t2omca_tpu_torch.envs.graftworld import mixture_probs
+    keys = jax.random.split(jax.random.PRNGKey(11), 2048)
+    tk = port_key(keys)
+    for w in ([0.2, 0.3, 0.9], [1e-3, 0.0, 2.5e-3, 0.0], [5.0],
+              [0.0, 0.0, 1.0, 0.0, 3.0], [1 / 3, 1 / 3, 1 / 3]):
+        n = len(w)
+        pj = jnp.asarray(w, jnp.float32)
+        for p in (w, mixture_probs(tuple(w), n)):
+            want_jit = jax.jit(jax.vmap(
+                lambda k, p=p: jax.random.choice(
+                    k, n, p=jnp.asarray(p, jnp.float32))))(keys)
+            want = jax.vmap(lambda k, p=p: jax.random.choice(
+                k, n, p=jnp.asarray(p, jnp.float32)))(keys)
+            got = prng.choice(tk, n, p).numpy()
+            np.testing.assert_array_equal(got, np.asarray(want_jit))
+            np.testing.assert_array_equal(got, np.asarray(want))
+        np.testing.assert_array_equal(mixture_probs(tuple(w), n),
+                                      np.asarray(pj / pj.sum()))
+    with pytest.raises(ValueError, match="3 entries"):
+        prng.choice(tk, 3, [0.5, 0.5])
