@@ -35,6 +35,30 @@ failed check ends the script with a non-zero exit):
              1, 7, 64 and 150 rows and a 3-turn session; legal actions,
              finite hidden, launch counts, and at f32 agreement with the
              query-slice path
+   population  configs/config7_population.yaml as shipped (4 members over
+             config 6: the lr grid, per-member seeds, the scenario salt,
+             K = 4, f32) with kernels.attention=pallas: one dispatch that
+             captures every member's graphs on its own stream and pool,
+             then a dispatch of replays with the members overlapped
+             against the same dispatch with the members run one after
+             another, each synced (P solo dispatches), from one state,
+             bit for bit (params, Adam, rings, priorities, runners,
+             stats, infos), with no host sync and P x 4 x a train
+             replay's launches; host ms, each member's device ms an
+             iteration, capture seconds, peak and reserved memory,
+             experiments_per_sec against serialized_experiments_per_sec
+             and their ratio population_speedup; a seed_stride=0 pair
+             (T cut to 20) bit-identical to each other; then python -m
+             t2omca_tpu_torch train cut in t_max to two dispatches with
+             a save (its test cadence cut to the first) and the live
+             plane on 9465: the launches, pop<i>_*
+             rows for every member, the sight-pop<i>-* checks on
+             /healthz, the population checkpoint restored by a resume
+             bit for bit, obs learning's member table; and a PBT variant
+             (T cut to 20, one dispatch, a flush before the save) that
+             logs pbt_copies. It runs before the first profiler session:
+             with CUPTI attached, each graph replay costs ~60 ms of host
+             time and the members' launches serialize
 5. profile   device time of one max-bucket dispatch by kernel, f32 and
              bf16 (torch.profiler), after the launch counts are read
 6. kernels-bwd  K1 + residuals, K2 and K3 against their plain versions
@@ -93,15 +117,16 @@ failed check ends the script with a non-zero exit):
    superstep the fused superstep (Experiment.superstep_program) at config
              3's width on [loop]'s experiment and state (1024 lanes, ring
              2048, K = 4, bf16, pallas, PER, obs.sight on): K eager
-             run_classic iterations and the process's first fused
-             dispatch (one eager warm-up iteration, the capture of the
-             rollout + insert and the train graphs, K - 1 replays) from
-             one state, bit for
+             run_classic iterations and the program's first fused
+             dispatch (the capture of the rollout + insert and the train
+             graphs, then K replays; [population] warmed the process's
+             stages up) from one state, bit for
              bit (learner, ring, priorities, runner, counters, the driver
              key, each iteration's stats and info) with the same kernel
              launches; a dispatch of replays with no host sync (CUDA sync
              debug mode), the state at the same addresses, its host time
-             and each iteration's device time; a profiled dispatch: the
+             and each iteration's device time; a profiled iteration (one
+             replay of each graph): the
              device busy share and the flash kernels a train replay from
              the profiler's rows beside LAUNCHES; capture and instantiate
              seconds, graph nodes, peak memory with the graphs' pool
@@ -1145,8 +1170,9 @@ def phase_profile_train(torch, buffer, ring, cfg, info):
     k1, k2 = prng.split(prng.PRNGKey(SEED + 13, "cuda")).unbind(0)
     ts, _ = train_iter(ts, k1, 1000)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # the device rows are all that is read: no CPU activity, whose ~200 k
+    # op events cost more to trace and fold than the step
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         train_iter(ts, k2, 2000)
         torch.cuda.synchronize()
@@ -1938,11 +1964,11 @@ def fused_dispatch(torch, sup, ts, mirror):
 def phase_superstep(torch, att, exp, ts, smi: str) -> dict:
     """The fused superstep (``Experiment.superstep_program``) as captured
     CUDA graphs at config 3's width: K eager ``run_classic`` iterations
-    against the process's first fused dispatch from the same state (one
-    eager warm-up iteration, the captures, K - 1 replays; bit for bit),
-    then a dispatch of replays timed (host time, each iteration's device
-    time, no host sync, the state's addresses kept) and a profiled one
-    (busy share, kernels a replay)."""
+    against the program's first fused dispatch from the same state (the
+    captures, then K replays; bit for bit), then a dispatch of replays
+    timed (host time, each iteration's device time, no host sync, the
+    state's addresses kept) and one iteration of replays profiled (busy
+    share, kernels a replay)."""
     import gc
     from torch.profiler import ProfilerActivity, profile
     from t2omca_tpu_torch import prng
@@ -1981,10 +2007,10 @@ def phase_superstep(torch, att, exp, ts, smi: str) -> dict:
     check(eager == want, f"[superstep] eager launches {eager} != {want}")
     gc.collect()
     torch.cuda.empty_cache()
-    # 2. ... against the process's first fused dispatch from the state:
-    # its first iteration runs both stages eagerly (the warm-up), the
-    # second captures them, the other K - 1 replay the graphs (the
-    # launches of the fused dispatches are counted from here)
+    # 2. ... against the program's first fused dispatch from the state:
+    # it captures both stages (the process warmed them up in
+    # [population]) and replays the graphs (the launches of the fused
+    # dispatches are counted from here)
     att.reset_launches()
     t0 = time.perf_counter()
     ts, stats, infos, gated = fused_dispatch(torch, sup, ts, mirror)
@@ -2041,16 +2067,20 @@ def phase_superstep(torch, att, exp, ts, smi: str) -> dict:
                          flatten_state(ts)[0].items()} == ptrs,
           "[superstep] a state tensor moved between dispatches")
     check(bool(infos["all_finite"].all()), "[superstep] non-finite step")
-    # 4. one profiled dispatch: device busy share, kernels a replay
+    launches = dict(att.LAUNCHES)        # ---- the fused path ends here
+    check(launches == {name: 2 * n for name, n in want.items()},
+          f"[superstep] launches of 2 fused dispatches {launches}")
+    # 4. one iteration of replays profiled (the rollout graph, then the
+    # train graph, as a dispatch replays them; a whole dispatch's 1.2 M
+    # trace events took minutes to fold): device busy share, kernels a
+    # replay
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        fused_dispatch(torch, sup, ts, mirror)
+        sup.graphs["rollout"].replay()
+        sup.graphs["train"].replay()
         torch.cuda.synchronize()
         prof_ms = (time.perf_counter() - t0) * 1e3
-    launches = dict(att.LAUNCHES)        # ---- the fused path ends here
-    check(launches == {name: 3 * n for name, n in want.items()},
-          f"[superstep] launches of 3 fused dispatches {launches}")
     rows = device_rows(prof)
     busy = sum(x[0] for x in rows)
     device_launches = sum(x[1] for x in rows)
@@ -2058,7 +2088,7 @@ def phase_superstep(torch, att, exp, ts, smi: str) -> dict:
     flash = {name: sum(x[1] for x in rows if body in x[2])
              for name, body in zip(("flash_fwd", "flash_bwd_dkv",
                                     "flash_bwd_dq"), BF16_TC_KERNELS)}
-    per_replay = {name: n / k for name, n in flash.items()}
+    per_replay = dict(flash)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     reserved = torch.cuda.max_memory_reserved() / 2 ** 30
     nodes = {s: sup.nodes.get(s) for s in ("rollout", "train")}
@@ -2076,18 +2106,19 @@ def phase_superstep(torch, att, exp, ts, smi: str) -> dict:
           flush=True)
     print(f"[superstep] dispatch host times: {k} eager run_classic "
           f"iterations {eager_s * 1e3:.0f} ms; the first fused dispatch "
-          f"(one eager iteration, the captures, {k - 1} replays) "
+          f"(the captures, {k} replays) "
           f"{first_s * 1e3:.0f} ms; a dispatch of replays "
           f"{host_ms:.0f} ms to return ({wall_ms:.0f} ms to the device's "
           f"end); device time "
           f"by iteration (rollout + train, ms): "
           + ", ".join(f"{x:.1f} + {y:.1f}" for x, y in iters)
           + f"; host syncs inside the dispatch: {len(syncs)}", flush=True)
-    print(f"[superstep] profiled dispatch: host {prof_ms:.0f} ms, device "
+    print(f"[superstep] profiled iteration (one rollout and one train "
+          f"replay): host {prof_ms:.0f} ms, device "
           f"busy {busy:.0f} ms ({100 * busy / prof_ms:.1f}%), idle "
           f"{100 * (1 - busy / prof_ms):.1f}%; {device_launches} device "
           f"kernels and copies in the trace; flash kernels a train replay "
-          f"(profiler rows / {k}) {per_replay} against LAUNCHES "
+          f"(profiler rows) {per_replay} against LAUNCHES "
           f"{sup.launches['train']}; peak memory over the dispatches of "
           f"replays {peak:.2f} GiB allocated, {reserved:.2f} GiB reserved "
           f"(the graphs' pool included) | "
@@ -3137,6 +3168,368 @@ def phase_scenarios(torch, att, smi: str) -> dict:
             "driver_dispatch_ms": disp_ms, "driver_wall_s": wall}
 
 
+POPULATION_CONFIG = "configs/config7_population.yaml"
+POPULATION_OVERRIDES = ("kernels.attention=pallas",)
+POPULATION_PORT = 9465
+#: a config 6 train replay's launches (the mixer's alone, f32, D = 32),
+#: which [scenarios] counts again from the CPU path
+CONFIG6_STEP = {"flash_fwd": 302, "flash_fwd_res": 300, "flash_bwd_dq": 300,
+                "flash_bwd_dkv": 300}
+#: [population]'s variants cut T (and so their captures) to this: the
+#: seed_stride=0 pair and the PBT run
+VARIANT_T = 20
+
+
+def pop_rows(torch, prog, mirror):
+    """The population driver's host mirror for one dispatch of ``prog``
+    (``mirror``: the P keys, t_env, episode, filled; advanced here) → (the
+    (P, K, 2) keys, the gates, t_env0)."""
+    from t2omca_tpu_torch import prng
+    cfg = prog.exp.cfg
+    rows, gated = [], []
+    for _ in range(prog.k):
+        mirror["episode"] += cfg.batch_size_run
+        mirror["filled"] = min(mirror["filled"] + cfg.batch_size_run,
+                               cfg.replay.buffer_size)
+        g = (mirror["filled"] >= cfg.batch_size
+             and mirror["episode"] >= cfg.accumulated_episodes)
+        gated.append(g)
+        row = []
+        for m, key in enumerate(mirror["keys"]):
+            if g:
+                mirror["keys"][m], k_s = prng.split(key).unbind(0)
+                row.append(k_s)
+            else:
+                row.append(torch.zeros_like(key))
+        rows.append(torch.stack(row))
+    t0 = mirror["t_env"]
+    mirror["t_env"] += (prog.k * cfg.batch_size_run
+                        * cfg.env_args.episode_limit)
+    return torch.stack(rows, dim=1), gated, t0
+
+
+def _pop_snapshot(torch, pts, stats, infos) -> dict:
+    """Every tensor of the members' states, the stats and the infos, as
+    clones keyed by path."""
+    from t2omca_tpu_torch.utils.checkpoint import flatten_state
+    out = {}
+    for m, t in enumerate(pts):
+        out.update({f"ts.{m}.{k}": v.clone()
+                    for k, v in flatten_state(t)[0].items()})
+    out.update({f"stats.{k}": v.clone()
+                for k, v in flatten_state(stats)[0].items()})
+    out.update({f"info.{k}": v.clone() for k, v in infos.items()})
+    return out
+
+
+def phase_population(torch, att, smi: str, want_step=None) -> dict:
+    """Config 7 as shipped (4 members over config 6, the lr grid, per-member
+    seeds, the scenario salt, K = 4, f32) with kernels.attention=pallas:
+    one population dispatch of replays with the members on their own
+    streams, bit for bit against the same members run one after another
+    (each synced: P solo dispatches), with no host sync and exact
+    launches; its times against the serial ones; a seed_stride=0 pair
+    bit-identical to each other; then ``python -m t2omca_tpu_torch
+    train`` cut in t_max to two dispatches (pop<i>_* rows, the
+    sight-pop<i>-* checks on /healthz, the population checkpoint and a
+    bit-exact resume from it, ``obs learning``'s member table) and a PBT
+    variant that logs pbt_copies."""
+    import contextlib
+    import gc
+    import io
+    import shutil
+    import tempfile
+    import numpy as np
+    from t2omca_tpu_torch import __main__ as cli
+    from t2omca_tpu_torch import population as pop
+    from t2omca_tpu_torch.config import load_config, sanity_check
+    from t2omca_tpu_torch.obs import pulse as pulse_mod
+    from t2omca_tpu_torch.obs.sight import learning_main
+    from t2omca_tpu_torch.run import Experiment, run
+    from t2omca_tpu_torch.train.superstep import clone_state
+    from t2omca_tpu_torch.utils import checkpoint as ckpt
+    from t2omca_tpu_torch.utils.logging import Logger
+    root = os.path.dirname(os.path.abspath(__file__))
+    cfg7 = os.path.join(root, POPULATION_CONFIG)
+    cfg = load_config(cfg7, POPULATION_OVERRIDES)
+    p, k = cfg.population.size, cfg.superstep
+    b, t = cfg.batch_size_run, cfg.env_args.episode_limit
+    check(p == 4 and k == 4 and cfg.model.dtype == "float32"
+          and len(cfg.population.lr) == 4 and cfg.population.scenario_salt
+          and not cfg.population.pbt.enabled,
+          f"[population] {POPULATION_CONFIG} is not config 7 as shipped")
+    want_step = want_step or CONFIG6_STEP
+    # the sync debug mode's one-time prototype notice would read as a sync
+    # where this phase is the process's first to count them
+    count_syncs(torch, lambda: None)
+    # 1. one dispatch that captures every member, then a dispatch of
+    # replays with the members overlapped, against the same members one
+    # after another, from one state
+    exp = Experiment.build(cfg)
+    pts, spec = pop.init_population(exp, cfg)
+    prog = exp.population_superstep_program(k)
+    mirror = {"keys": pop.member_keys(cfg, "cuda"), "t_env": 0,
+              "episode": 0, "filled": 0}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    # the first dispatch captures every member (a process that ran no
+    # fused stage yet warms them up eagerly first, and captures at the
+    # next)
+    for _ in range(2):
+        keys, gated, t_env0 = pop_rows(torch, prog, mirror)
+        pts, _, infos = prog(pts, keys, t_env0, gated, spec)
+        if all(set(m.graphs) == {"rollout", "train"}
+               for m in prog.members):
+            break
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    check(all(set(m.graphs) == {"rollout", "train"}
+              and m.launches["train"] == want_step for m in prog.members),
+          f"[population] members captured "
+          f"{[sorted(m.graphs) for m in prog.members]}, a train replay "
+          f"launching {[m.launches.get('train') for m in prog.members]}")
+    start = [clone_state(x) for x in pts]
+    keys, gated, t_env0 = pop_rows(torch, prog, mirror)
+    runs = {}
+    for mode in ("overlap", "serial", "overlap2"):
+        prog.adopt([clone_state(x) for x in start])
+        prog.timing = mode == "overlap"
+        torch.cuda.synchronize()
+        att.reset_launches()
+        t0 = time.perf_counter()
+        call = lambda: prog(pts, keys, t_env0, gated, spec,  # noqa: E731
+                            serial=mode.startswith("serial"))
+        if mode == "overlap":
+            (pts, stats, infos), syncs = count_syncs(torch, call)
+            host_ms = (time.perf_counter() - t0) * 1e3
+        else:
+            pts, stats, infos = call()
+        torch.cuda.synchronize()
+        runs[mode] = {"s": time.perf_counter() - t0,
+                      "launches": dict(att.LAUNCHES)}
+        if mode == "overlap":
+            iters = [[(e0.elapsed_time(e1), e1.elapsed_time(e2))
+                      for e0, e1, e2 in m.events] for m in prog.members]
+            check(not syncs, f"[population] host syncs in a dispatch: "
+                             f"{syncs}")
+        if mode in ("overlap", "serial"):
+            runs[mode]["snap"] = _pop_snapshot(torch, pts, stats, infos)
+    prog.timing = False
+    want = {n: p * sum(gated) * v for n, v in want_step.items()}
+    check(all(r["launches"] == want for r in runs.values()),
+          f"[population] launches {[r['launches'] for r in runs.values()]}"
+          f", want {want} (P x {sum(gated)} x a train replay)")
+    a, c = runs["overlap"]["snap"], runs["serial"]["snap"]
+    diff = [n for n in a if not torch.equal(a[n], c[n])]
+    check(set(a) == set(c) and not diff,
+          f"[population] overlapped members differ from serial: {diff[:5]}")
+    check(bool(a["info.all_finite"].all()), "[population] non-finite step")
+    lr = [round(x, 6) for x in spec.lr_scale.tolist()]
+    overlap_s = min(runs["overlap"]["s"], runs["overlap2"]["s"])
+    serial_s = runs["serial"]["s"]
+    eps_ps, ser_ps = p * k / overlap_s, p * k / serial_s
+    dev_ms = [sum(x + y for x, y in m) / len(m) for m in iters]
+    cap = [(m.capture_s["rollout"] + m.capture_s["train"],
+            m.instantiate_s["rollout"] + m.instantiate_s["train"])
+           for m in prog.members]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    reserved = torch.cuda.memory_reserved() / 2 ** 30
+    print(f"[population] config 7 (P={p}, lr_scale {lr}, {b} lanes, T={t}, "
+          f"K={k}, f32, pallas): the first dispatch (captures) "
+          f"{first_s * 1e3:.0f} ms; a dispatch of replays with the members "
+          f"overlapped bit-identical to the members run one after another "
+          f"({len(a)} tensors: params, Adam, rings, priorities, runners, "
+          f"stats, infos), no host sync, launches {runs['overlap']['launches']}"
+          f"; host {host_ms:.0f} ms, to the device's end "
+          f"{runs['overlap']['s'] * 1e3:.0f} / "
+          f"{runs['overlap2']['s'] * 1e3:.0f} ms against serial "
+          f"{runs['serial']['s'] * 1e3:.0f} ms: experiments_per_sec "
+          f"{eps_ps:.3f}, serialized_experiments_per_sec {ser_ps:.3f}, "
+          f"population_speedup {eps_ps / ser_ps:.3f}; device ms a member "
+          f"iteration (overlapped) "
+          + ", ".join(f"{x:.0f}" for x in dev_ms)
+          + "; by iteration (rollout + train) of member 0: "
+          + ", ".join(f"{x:.1f} + {y:.1f}" for x, y in iters[0])
+          + "; capture + instantiate s a member: "
+          + ", ".join(f"{x:.2f} + {y:.2f}" for x, y in cap)
+          + f"; peak {peak:.2f} GiB allocated, {reserved:.2f} GiB reserved"
+          f" | {smi}", flush=True)
+    result = {"first_s": first_s, "host_ms": host_ms,
+              "overlap_s": [runs["overlap"]["s"], runs["overlap2"]["s"]],
+              "serial_s": [runs["serial"]["s"]],
+              "experiments_per_sec": eps_ps,
+              "serialized_experiments_per_sec": ser_ps,
+              "population_speedup": eps_ps / ser_ps,
+              "member_iteration_ms": dev_ms, "iters_ms": iters,
+              "capture_s": cap, "peak_gib": peak, "reserved_gib": reserved}
+    prog.close()
+    del prog, pts, start, runs, a, c, stats, infos, exp
+    gc.collect()
+    torch.cuda.empty_cache()
+    # 2. seed_stride=0 without a grid or salt: two identical members
+    pc = dataclasses.replace(cfg.population, size=2, seed_stride=0, lr=(),
+                             scenario_salt=False)
+    cfg0 = sanity_check(cfg.replace(population=pc, env_args=dataclasses
+                                    .replace(cfg.env_args,
+                                             episode_limit=VARIANT_T)))
+    exp0 = Experiment.build(cfg0)
+    pts0, spec0 = pop.init_population(exp0, cfg0)
+    prog0 = exp0.population_superstep_program(k)
+    mirror = {"keys": pop.member_keys(cfg0, "cuda"), "t_env": 0,
+              "episode": 0, "filled": 0}
+    for _ in range(2):
+        keys, gated, t_env0 = pop_rows(torch, prog0, mirror)
+        pts0, stats0, infos0 = prog0(pts0, keys, t_env0, gated, spec0)
+    torch.cuda.synchronize()
+    one = _pop_snapshot(torch, pts0[:1], stats0, infos0)
+    two = _pop_snapshot(torch, pts0[1:], stats0, infos0)
+    same = [n for n in one if n.startswith("ts.")
+            and not torch.equal(one[n], two[n])]
+    same += [n for n, v in list(ckpt.flatten_state(stats0)[0].items())
+             + list(infos0.items()) if not torch.equal(v[0], v[1])]
+    check(not same, f"[population] seed_stride=0 members differ: {same[:5]}")
+    print(f"[population] seed_stride=0, no grid, no salt (P=2, T="
+          f"{VARIANT_T}, two K={k} dispatches): the members bit-identical "
+          f"({len(one)} tensors each)", flush=True)
+    prog0.close()
+    del prog0, pts0, exp0, one, two
+    gc.collect()
+    torch.cuda.empty_cache()
+    # 3. the CLI: config 7 cut in t_max to two dispatches (one save) and
+    # its test cadence to the first
+    per = k * b * t
+    tmp = tempfile.mkdtemp(prefix=".chip_smoke_population_", dir=root)
+    scraper = _Scraper(POPULATION_PORT)
+    close = pulse_mod.PulseHandle.close
+
+    def read_then_close(handle):
+        scraper.scrape()
+        close(handle)
+
+    try:
+        out1 = os.path.join(tmp, "train")
+        pulse_mod.PulseHandle.close = read_then_close
+        att.reset_launches()             # ---- the driver path starts here
+        t0 = time.time()
+        try:
+            with scraper:
+                rc = cli.main(["train", "--config", cfg7,
+                               *POPULATION_OVERRIDES, f"t_max={2 * per - 1}",
+                               f"test_interval={2 * per}",
+                               f"obs.pulse_port={POPULATION_PORT}",
+                               f"local_results_path={out1}"])
+        finally:
+            pulse_mod.PulseHandle.close = close
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = dict(att.LAUNCHES)    # ---- and ends here
+        check(rc == 0, f"[population] train returned {rc}")
+        check(launches == {n: 2 * p * k * v for n, v in want_step.items()},
+              f"[population] driver launches {launches}")
+        rows = _metric_rows(out1)
+        keys_seen = {r["key"] for r in rows}
+        for m in range(p):
+            need = {f"pop{m}_{x}" for x in (
+                "return_mean", "task_completion_rate_mean", "loss",
+                "grad_norm", "sight_per_ess")} | {f"test_pop{m}_return_mean"}
+            check(need <= keys_seen, f"[population] member {m} lacks "
+                                     f"{sorted(need - keys_seen)}")
+        for r in rows:
+            v = r["value"]
+            check(all(np.isfinite(v if isinstance(v, list) else [v])),
+                  f"[population] non-finite {r}")
+        check(scraper.health, "[population] /healthz never answered")
+        code, health = scraper.health[-1]
+        sight_checks = sorted(n for n in health["checks"]
+                              if n.startswith("sight-"))
+        check(len(sight_checks) == 5 * p and all(
+            n.startswith(tuple(f"sight-pop{m}-" for m in range(p)))
+            for n in sight_checks),
+            f"[population] /healthz sight checks {sight_checks}")
+        models = _one_dir(os.path.join(out1, "models", "*"))
+        saved = ckpt.find_checkpoint(models)
+        check(saved is not None, "[population] no checkpoint")
+        meta = ckpt.read_meta(saved[0])
+        check(meta["topology"]["population"] == p
+              and len(meta["driver"]["keys"]) == p,
+              f"[population] checkpoint stamp {meta['topology']}")
+        # the resume: run() from the checkpoint with t_max below its step
+        # restores and returns the state (no dispatch), every tensor
+        # equal to the file's and the spec the grid
+        flat = torch.load(os.path.join(saved[0], ckpt.STATE_FILE),
+                          weights_only=True)
+        t1 = time.time()
+        ps = run(load_config(cfg7, POPULATION_OVERRIDES + (
+            f"t_max={saved[1] - 1}", f"checkpoint_path={models}",
+            f"local_results_path={os.path.join(tmp, 'resume')}")),
+            Logger())
+        resume_s = time.time() - t1
+        got = ckpt.flatten_state(ps)[0]
+        bad = [n for n in flat if not torch.equal(got[n].cpu(), flat[n])]
+        check(set(got) == set(flat) and not bad
+              and all(x.runner.t_env == saved[1] for x in ps.ts)
+              and torch.equal(ps.spec.lr_scale, spec.lr_scale),
+              f"[population] resume differs from the checkpoint: {bad[:5]}")
+        del ps, got, flat
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc_l = learning_main(_one_dir(os.path.join(out1, "qmix*")))
+        table = buf.getvalue()
+        check(rc_l == 0 and f"population members ({p}" in table
+              and all(f"pop{m}" in table for m in range(p)),
+              "[population] obs learning rendered no member table")
+        spans = [sp for sp in _spans(out1) if sp.get("event") == "span"
+                 and sp.get("phase") == "dispatch.superstep"]
+        disp_ms = [sp["wall_ms"] for sp in spans]
+        test_ms = [r["value"] for r in rows if r["key"] == "time_test_ms"]
+        newest = {}
+        for r in rows:
+            newest[r["key"]] = r["value"]
+        print(f"[population] driver: python -m t2omca_tpu_torch train "
+              f"--config {POPULATION_CONFIG} "
+              f"{' '.join(POPULATION_OVERRIDES)} t_max={2 * per - 1} "
+              f"test_interval={2 * per}: two "
+              f"dispatches to t_env {2 * per}, launches {launches} (2 x "
+              f"{p} x {k} x a train replay), {len(rows)} metric rows, "
+              f"return by member "
+              + ", ".join(f"{newest[f'pop{m}_return_mean']:.1f}"
+                          for m in range(p))
+              + f"; /healthz {code} {health['status']} with "
+              f"{len(sight_checks)} sight-pop<i>-* checks; checkpoint at "
+              f"{saved[1]} ({meta['bytes'] / 1e6:.1f} MB, population "
+              f"{p}) resumed bit-exact in {resume_s:.1f} s; obs learning's "
+              f"member table rendered; dispatch host ms "
+              f"{', '.join(f'{x:.0f}' for x in disp_ms)}; test cadences ms "
+              f"{', '.join(f'{x:.0f}' for x in test_ms)}; whole call "
+              f"{wall:.1f} s", flush=True)
+        # 4. PBT through the CLI: one dispatch (T cut), a flush and then
+        # a save at its end
+        per_v = k * b * VARIANT_T
+        out2 = os.path.join(tmp, "pbt")
+        rc = cli.main(["train", "--config", cfg7, *POPULATION_OVERRIDES,
+                       "population.pbt.enabled=true",
+                       f"env_args.episode_limit={VARIANT_T}",
+                       f"t_max={per_v - 1}", f"runner_log_interval={per_v}",
+                       f"save_model_interval={per_v}",
+                       f"local_results_path={out2}"])
+        check(rc == 0, f"[population] the PBT run returned {rc}")
+        pbt = [r for r in _metric_rows(out2) if r["key"] == "pbt_copies"]
+        check(len(pbt) == 1 and pbt[0]["value"] == 1,
+              f"[population] pbt_copies rows {pbt}")
+        print(f"[population] PBT (population.pbt.enabled=true, T="
+              f"{VARIANT_T}, one dispatch, runner_log_interval = "
+              f"save_model_interval = {per_v}): pbt_copies "
+              f"{pbt[0]['value']:g} at t_env {pbt[0]['t']}", flush=True)
+        result.update({"launches": launches, "driver_dispatch_ms": disp_ms,
+                       "driver_test_ms": test_ms, "driver_wall_s": wall,
+                       "resume_s": resume_s})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return result
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3174,6 +3567,11 @@ def main() -> int:
     lap("kernels")
     launches, fes, requests = phase_serve(torch, att)
     lap("serve")
+    # before the first torch.profiler session: CUPTI stays attached after
+    # one, and each replay of a captured graph then costs ~60 ms of host
+    # time instead of ~3, which serializes the members' launches
+    population = phase_population(torch, att, smi)
+    lap("population")
     for dt in ("float32", "bfloat16"):
         phase_profile(torch, fes[dt], requests, dt)
     del fes
@@ -3212,13 +3610,17 @@ def main() -> int:
     phases["artifact"] = driver["after_s"]
     scenarios = phase_scenarios(torch, att, smi)
     lap("scenarios")
+    check(scenarios["want_step"] == CONFIG6_STEP,
+          f"[population] counted against {CONFIG6_STEP}, but the CPU path "
+          f"launches {scenarios['want_step']} a config 6 train iteration")
     loops = {"loop": loop, "sight": sight, "remat": remat,
              "superstep": superstep, "loop_dense": dense,
              "loop_noisy": noisy,
              "driver": {"launches": {
                  k: driver["launches"][k] + driver["launches_resume"][k]
                  for k in driver["launches"]}},
-             "artifact": artifact, "scenarios": scenarios}
+             "artifact": artifact, "scenarios": scenarios,
+             "population": population}
 
     def fwd_times(key):
         ms, plain, lib_ms, bound, by = times[key]
@@ -3327,7 +3729,7 @@ def main() -> int:
           f"ms host, {superstep['wall_ms']:.0f} ms to the device's end "
           f"(eager: {superstep['eager_s'] * 1e3:.0f} ms for {SUPERSTEP_K} "
           f"run_classic iterations); device busy "
-          f"{100 * superstep['busy_share']:.1f}% of a profiled dispatch; "
+          f"{100 * superstep['busy_share']:.1f}% of a profiled iteration; "
           f"peak {superstep['peak_gib']:.2f} GiB allocated, "
           f"{superstep['reserved_gib']:.2f} GiB reserved", flush=True)
     print(f"[summary] driver (config 3 via python -m t2omca_tpu_torch, one "
@@ -3360,6 +3762,18 @@ def main() -> int:
           f"iterations); the driver's two dispatches "
           f"{', '.join(f'{x:.0f}' for x in scenarios['driver_dispatch_ms'])}"
           f" ms host", flush=True)
+    print(f"[summary] population (config 7, P=4, K=4, f32, pallas): a "
+          f"dispatch of replays with the members overlapped "
+          f"{population['host_ms']:.0f} ms host, "
+          f"{min(population['overlap_s']) * 1e3:.0f} ms to the device's end"
+          f" against {min(population['serial_s']) * 1e3:.0f} ms serial: "
+          f"experiments_per_sec {population['experiments_per_sec']:.3f}, "
+          f"serialized_experiments_per_sec "
+          f"{population['serialized_experiments_per_sec']:.3f}, "
+          f"population_speedup {population['population_speedup']:.3f}; "
+          f"the driver's two dispatches "
+          f"{', '.join(f'{x:.0f}' for x in population['driver_dispatch_ms'])}"
+          f" ms host; peak {population['peak_gib']:.2f} GiB", flush=True)
     print(f"[summary] total {time.perf_counter() - t_start:.1f} s; by phase: "
           + ", ".join(f"{k} {v:.1f} s" for k, v in phases.items()),
           flush=True)

@@ -25,6 +25,11 @@ Differences from the JAX package, by design:
   PER's β is a device scalar: the host computes it in XLA's float32 form
   (``per_beta``) and either fills one here or hands one in (``beta=``),
   so a captured sampler reads the current value.
+* A population member's PER exponent (``alpha=``, a () f32 device tensor
+  of its program) replaces the buffer's ``alpha`` at the insert stamp
+  and the priority feedback, the two places that write ``p^alpha``; the
+  sampler reads the stored values. A Python float would be a constant of
+  a captured graph, and PBT changes a member's exponent.
 
 Compact entity storage (``compact_obs=True``) keeps ``obs`` as a
 ``CompactEntityObs``: the entity feature rows, the serving MEC's index as
@@ -215,29 +220,32 @@ class ReplayBuffer:
         return (state.insert_pos + torch.arange(b, device=self.device)
                 ) % self.capacity
 
-    def _insert_priority(self, state: BufferState) -> torch.Tensor:
+    def _insert_priority(self, state: BufferState, alpha=None
+                         ) -> torch.Tensor:
         """Stored priority of freshly inserted episodes: the raw running
-        max here, pre-exponentiated by the prioritized subclass."""
+        max here, pre-exponentiated by the prioritized subclass (with
+        ``alpha``, a population member's exponent, where given)."""
+        del alpha
         return state.max_priority
 
     def _ring_advance(self, state: BufferState, idx: torch.Tensor,
-                      b: int) -> BufferState:
+                      b: int, alpha=None) -> BufferState:
         """Bookkeeping shared by both insert paths: the cursor and fill
         advance on the device, the new slots are stamped at the running
         max priority (in place)."""
         state.priorities.index_put_(
-            (idx,), self._insert_priority(state).expand(b))
+            (idx,), self._insert_priority(state, alpha).expand(b))
         return dataclasses.replace(
             state,
             insert_pos=(state.insert_pos + b) % self.capacity,
             episodes_in_buffer=torch.clamp(state.episodes_in_buffer + b,
                                            max=self.capacity))
 
-    def insert_episode_batch(self, state: BufferState, batch: EpisodeBatch
-                             ) -> BufferState:
+    def insert_episode_batch(self, state: BufferState, batch: EpisodeBatch,
+                             alpha=None) -> BufferState:
         """Ring-insert ``B`` episodes, overwriting the oldest when full;
         the storage and priorities are written in place (see the module
-        docstring)."""
+        docstring). ``alpha``: a population member's PER exponent."""
         b = batch.batch_size
         idx = self._ring_slots(state, b)
         put = lambda dst, src: dst.index_copy_(
@@ -245,10 +253,10 @@ class ReplayBuffer:
         for f in dataclasses.fields(EpisodeBatch):
             obs_map(put, getattr(state.storage, f.name),
                     getattr(batch, f.name))
-        return self._ring_advance(state, idx, b)
+        return self._ring_advance(state, idx, b, alpha)
 
-    def insert_time_major(self, state: BufferState, tm: TimeMajorEpisodes
-                          ) -> BufferState:
+    def insert_time_major(self, state: BufferState, tm: TimeMajorEpisodes,
+                          alpha=None) -> BufferState:
         """Ring-insert straight from the rollout's time-major ``(T, B,
         ...)`` stacks and bootstrap step: ONE scatter per leaf, row ``(t,
         b)`` to ring element ``(slots[b], t)``, with no ``(B, T+1, ...)``
@@ -275,7 +283,7 @@ class ReplayBuffer:
         put_t(st.reward, tm.reward)
         put_t(st.terminated, tm.terminated)
         st.filled.index_fill_(0, idx, True)
-        return self._ring_advance(state, idx, b)
+        return self._ring_advance(state, idx, b, alpha)
 
     def can_sample(self, state: BufferState, batch_size: int
                    ) -> torch.Tensor:
@@ -307,9 +315,9 @@ class ReplayBuffer:
 
     def update_priorities(self, state: BufferState, idx: torch.Tensor,
                           priorities: torch.Tensor,
-                          valid: Optional[torch.Tensor] = None
+                          valid: Optional[torch.Tensor] = None, alpha=None
                           ) -> BufferState:
-        del idx, priorities, valid
+        del idx, priorities, valid, alpha
         return state                      # uniform: nothing to update
 
 
@@ -323,8 +331,10 @@ class PrioritizedReplayBuffer(ReplayBuffer):
     beta0: float = 0.4
     t_max: int = 1
 
-    def _insert_priority(self, state: BufferState) -> torch.Tensor:
-        return state.max_priority ** self.alpha
+    def _insert_priority(self, state: BufferState, alpha=None
+                         ) -> torch.Tensor:
+        return state.max_priority ** (self.alpha if alpha is None
+                                      else alpha)
 
     def per_beta(self, t_env) -> float:
         """β at ``t_env`` on the host, in the float32 form XLA gives the
@@ -368,15 +378,16 @@ class PrioritizedReplayBuffer(ReplayBuffer):
 
     def update_priorities(self, state: BufferState, idx: torch.Tensor,
                           priorities: torch.Tensor,
-                          valid: Optional[torch.Tensor] = None
+                          valid: Optional[torch.Tensor] = None, alpha=None
                           ) -> BufferState:
         """Feed RAW ``|TD| + 1e-6`` back for the sampled episodes (Q9),
-        stored as ``p^alpha``. ``valid`` (a () bool tensor) is the
+        stored as ``p^alpha`` (``alpha``: a population member's exponent,
+        else the buffer's). ``valid`` (a () bool tensor) is the
         non-finite guard: when False the write puts back the episodes'
         existing values and the running max stays, with no host sync. The
         priorities are written in place; the running max is a new
         tensor."""
-        pa = priorities ** self.alpha
+        pa = priorities ** (self.alpha if alpha is None else alpha)
         new_max = torch.maximum(state.max_priority, priorities.max())
         if valid is not None:
             pa = torch.where(valid, pa, state.priorities[idx])

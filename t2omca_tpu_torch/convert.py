@@ -1,6 +1,8 @@
 """Carry weights from flax param trees (agent, mixer, the learner's pair)
 to the port's state dicts, and the JAX package's carried states (keys,
-env and runner states, replay buffers) to the port's dataclasses.
+env and runner states, replay buffers) to the port's dataclasses; a JAX
+population's ``(P,)``-stacked learner and runner states split into the
+port's P member states (``member_states_from_jax``).
 
 Input: the JAX package's agent variables as nested dicts of numpy arrays
 (``{"params": {"feat_embedding": {"kernel", "bias"}, "transformer":
@@ -155,6 +157,37 @@ def learner_state_from_jax(ls, device: DeviceLike = None):
         params=tree(ls.params), target_params=tree(ls.target_params),
         opt_state=opt, train_steps=tensor_from_jax(ls.train_steps, dev),
         last_target_update=tensor_from_jax(ls.last_target_update, dev))
+
+
+def unstack_member(tree, m: int):
+    """Member ``m`` of a ``(P,)``-stacked JAX tree (a population's state:
+    dataclasses, named tuples, tuples, lists, dicts of arrays): every array
+    leaf indexed at ``m``, every other leaf (a static ``gamma``) as it
+    is."""
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return type(tree)(**{f.name: unstack_member(getattr(tree, f.name), m)
+                             for f in dataclasses.fields(tree)})
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(unstack_member(x, m) for x in tree))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(unstack_member(x, m) for x in tree)
+    if isinstance(tree, dict):
+        return {k: unstack_member(v, m) for k, v in tree.items()}
+    if hasattr(tree, "shape") and hasattr(tree, "dtype"):
+        return np.asarray(tree)[m]
+    return tree
+
+
+def member_states_from_jax(learner, runner, device: DeviceLike = None):
+    """A JAX population's ``(P,)``-stacked ``LearnerState`` and
+    ``RunnerState`` → the port's P ``(LearnerState, RunnerState)`` pairs,
+    member by member (``population.init_population`` builds the port's
+    members one at a time; this starts them from JAX's)."""
+    from .runners.parallel_runner import RunnerState
+    p = int(np.asarray(learner.train_steps).shape[0])
+    return [(learner_state_from_jax(unstack_member(learner, m), device),
+             state_from_jax(RunnerState, unstack_member(runner, m), device))
+            for m in range(p)]
 
 
 def _walk(node):

@@ -21,8 +21,10 @@ draws under ``jax.vmap`` from key ``b``. Three kinds:
 Every sample carries its family id in ``EnvParams.family``; the runner
 puts it into ``RolloutStats.scenario`` and the stats accumulator reports
 the ``slice<fam>_*`` rows from it. ``distribution_can_pad`` is the static
-gate of the learner's mixer padding mask. The population's per-member
-key (``member_scenario_key``) is ``ROADMAP.md`` item 11's second step.
+gate of the learner's mixer padding mask. Under a population with
+``population.scenario_salt``, each member folds its index into the
+sampler key (``member_scenario_key``), so members draw different
+instances of the same distribution.
 """
 
 from __future__ import annotations
@@ -229,6 +231,15 @@ def make_distribution(scn):
             weights=tuple(scn.weights))
     raise ValueError(f"unknown scenario kind {kind!r}; "
                      f"valid: fixed/uniform/mixture")
+
+
+def member_scenario_key(key: torch.Tensor, member: int) -> torch.Tensor:
+    """The population member's scenario sampler key
+    (``population.scenario_salt``): ``fold_in(key, member)``, a fold and
+    never a split, as the runner's own scenario salt. Off by default:
+    ``fold_in(key, 0)`` is not the identity, so member 0 would stop
+    matching the solo run's scenario draws."""
+    return prng.fold_in(key, member)
 
 
 def distribution_can_pad(dist, n_agents: int) -> bool:

@@ -45,10 +45,16 @@ distribution_can_pad``) turns on the mixer padding mask, a static gate as
 in JAX: the trailing agents that never had a non-idle action available
 enter the mixer with zero Qs, hidden tokens and obs rows.
 
+A population member's ``spec`` (``population.py``) scales the update
+after Adam by its ``lr_scale``, ``u * lr_scale``, as JAX scales optax's
+update tree; the ``lr`` baked into the functional Adam stays the config's
+(``(-lr·x)·s`` and ``-(lr·s)·x`` differ in the last bit). ``lr_scale`` is
+a device scalar of the member's program, so PBT can change it under
+capture.
+
 Not ported (each raises ``NotImplementedError`` naming the ROADMAP
 item): dropout, the dense agent's noise (``noisy-new`` with
-``use_qslice: false``), the population ``spec`` and the ``qmix_ff``/
-``vdn`` mixers.
+``use_qslice: false``) and the ``qmix_ff``/``vdn`` mixers.
 """
 
 from __future__ import annotations
@@ -496,10 +502,10 @@ class QMixLearner:
         otherwise). ``info["grad_norm"]`` is the pre-clip norm; when the
         loss or the gradients are not finite (``info["all_finite"]``
         False) params and optimizer state pass through unchanged, and
-        ``train_steps`` still counts the call."""
+        ``train_steps`` still counts the call. ``spec``: a population
+        member's knobs, of which the learner reads ``lr_scale`` (a () f32
+        tensor, or a float) to scale the update (module docstring)."""
         del t_env
-        if spec is not None:
-            raise _not_ported("the population spec", "item 11")
         if self.needs_rngs and key is None:
             raise ValueError("QMixLearner.train needs a PRNG key when "
                              "action_selector is noisy-new (the noise is "
@@ -527,6 +533,9 @@ class QMixLearner:
 
         clipped = clip_by_global_norm(grads, norm, cfg.grad_norm_clip)
         updates, opt_state = optimizer_update(cfg, clipped, ls.opt_state)
+        if spec is not None:
+            scale = torch.as_tensor(spec.lr_scale, device=self.device)
+            updates = _tree_map(lambda u: u * scale.to(u.dtype), updates)
         new_params = _tree_map(lambda p, u: p.detach() + u, params, updates)
         # the guard: a tripped step is a no-op on params AND optimizer
         # state (a NaN gradient would poison Adam's moments for good)

@@ -29,9 +29,11 @@ the torch parameter names (``transformer.*`` of the agent is flax's
 norms reduce each group with one multi-tensor kernel
 (``torch._foreach_norm``) instead of a per-leaf sum of squares, equal to
 rounding; the histogram index is written in XLA's form (the chain of
-constant factors folded into one float32 factor, ``xla_float.fold``);
-and the population monitor (``PopulationSightMonitor``) waits for the
-population (``ROADMAP.md`` item 11): ``make_monitor`` raises for it.
+constant factors folded into one float32 factor, ``xla_float.fold``).
+A population (``make_monitor(population=P)``) gets
+:class:`PopulationSightMonitor`: one ``SightMonitor`` a member over the
+same fetch, each reading its member's row of the ``(P,)``-leading
+leaves.
 
 The host half and the CLI compute with numpy and the standard library
 (they touch no device).
@@ -373,7 +375,7 @@ class SightMonitor:
         self.logger = logger
         self.rec = rec
         #: population member index: set by the population's monitor
-        #: when P > 1 (ROADMAP.md item 11) — logged stat keys gain a
+        #: when P > 1 — logged stat keys gain a
         #: ``pop<i>_`` prefix and /healthz checks register as
         #: ``sight-pop<i>-<detector>``; None (solo runs, and the P=1
         #: population for metric-stream parity) keeps today's names
@@ -558,20 +560,56 @@ class SightMonitor:
                                    self.status[name]["detail"]))
 
 
+class PopulationSightMonitor:
+    """One :class:`SightMonitor` a population member over the same
+    log-cadence fetch: the fetched train-info leaves carry a leading
+    ``(P,)`` member axis, and each member's row feeds its own windowed
+    detectors (host-side numpy indexing, no device traffic).
+
+    At P > 1 a member's stats log as ``pop<i>_sight_*``, its ``/healthz``
+    checks register as ``sight-pop<i>-<detector>`` and its trips report as
+    ``pop<i>:<detector>``; at P = 1 the one member keeps the solo names,
+    so a one-member population logs the solo run's stream."""
+
+    def __init__(self, sight_cfg, population: int, logger=None, rec=None):
+        self.population = int(population)
+        self.members = [
+            SightMonitor(sight_cfg, logger=logger, rec=rec,
+                         member=(m if self.population > 1 else None))
+            for m in range(self.population)]
+
+    def observe(self, info: dict, t_env: int) -> List[str]:
+        newly: List[str] = []
+        for m, mon in enumerate(self.members):
+            sliced = {}
+            for k, v in info.items():
+                a = np.asarray(v)
+                sliced[k] = a[m] if a.ndim else a
+            newly.extend(mon.observe(sliced, t_env))
+        return newly
+
+    def report(self) -> dict:
+        return {"population": self.population,
+                "members": [mon.report() for mon in self.members]}
+
+    def wire_pulse(self, hub) -> None:
+        for mon in self.members:
+            mon.wire_pulse(hub)
+
+
 def make_monitor(obs_cfg, logger=None, rec=None, population: int = 0
-                 ) -> Optional[SightMonitor]:
+                 ) -> Optional[object]:
     """Driver constructor: None unless ``obs.sight.enabled`` (the off
     state — the driver's loop stays one ``if sight_mon is not None`` away
-    from unchanged). A population (``population > 0``) raises: its
-    per-member monitor waits for the population (``ROADMAP.md`` item
-    11)."""
+    from unchanged). ``population=P`` returns the per-member
+    :class:`PopulationSightMonitor` over the ``(P,)``-leading fetched
+    leaves."""
     sg = getattr(obs_cfg, "sight", None)
     if sg is None or not getattr(sg, "enabled", False):
         return None
     if population:
-        raise NotImplementedError(
-            "the population's per-member sight monitor is not ported yet "
-            "(ROADMAP.md Queue A item 11)")
+        return PopulationSightMonitor(sg, population, logger=logger,
+                                      rec=rec)
     return SightMonitor(sg, logger=logger, rec=rec)
 
 

@@ -15,7 +15,11 @@ for iterations that train.
 ``Experiment.superstep_program(k)`` is the fused program of K iterations
 (``train/superstep.py``: captured CUDA graphs on the card, its stage
 functions eagerly on a CPU device), bit-identical to K iterations of
-``run_classic``.
+``run_classic``. ``Experiment.population_superstep_program(k)`` runs K
+iterations of every member of a population (``population.size = P``,
+``population.py``) a call: one fused program a member, the members on
+their own CUDA streams; ``population_rollout_program()`` is the greedy
+test rollout of every member.
 
 ``run`` is the user's entry (``python -m t2omca_tpu_torch train|evaluate|
 benchmark``): results directory, ``metrics.jsonl``, the span recorder,
@@ -35,6 +39,18 @@ or the CPU); the degradation ladder (K→1, restore, abort); with
 ``obs.sight.enabled`` the learning-health detectors (``obs/sight.py``)
 over the log cadence's one fetch of the train info.
 
+Under a population (JAX ``run_sequential``'s population branch) the loop
+holds the P member states and the ``PopulationSpec``: every dispatch is
+one call of the population program (even at ``superstep: 1``; the K→1
+rung rebuilds it at K = 1), the driver keeps P key streams split like the
+solo one from the one gate mirror, the stats and info carry a leading
+``(P,)`` axis (``pop<i>_*`` rows at P > 1, the across-member mean under
+the aggregate names), a step counts as finite only if every member's
+was, the test cadence runs each member's greedy rollout, checkpoints and
+watchdog stamps hold a ``PopState``, and with ``population.pbt.enabled``
+PBT runs after each cadence save (``population.pbt_step``, the
+``pbt_copies`` row and the ``pbt`` flight mark).
+
 Where the port differs from the JAX driver:
 
 * **The fused program writes its state in place** (JAX donates it): a
@@ -52,10 +68,10 @@ Where the port differs from the JAX driver:
   seeded with ``seed``, or handed in (``learner_params=``, e.g. carried
   across from flax with ``convert.py``).
 
-Left out, to later slices: the population (item 11), data parallelism
-and Sebulba (item 12) and per-program device time (``obs.program_trace``:
-item 13b; a pulse trace capture is a ``torch.profiler`` Chrome trace).
-Each raises naming its item.
+Left out, to later slices: data parallelism, Sebulba and the population
+across them or under another size at restore (item 12), and per-program
+device time (``obs.program_trace``: item 13b; a pulse trace capture is a
+``torch.profiler`` Chrome trace). Each raises naming its item.
 """
 
 from __future__ import annotations
@@ -71,6 +87,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from . import population as pop
 from . import prng
 from .components.episode_buffer import (PrioritizedReplayBuffer,
                                         ReplayBuffer)
@@ -87,7 +104,7 @@ from .ops.query_slice import entity_store_eligible
 from .runners.episode_runner import EpisodeRunner
 from .runners.parallel_runner import RUNNER_REGISTRY
 from .train.program import TrainState, build_train_iter
-from .train.superstep import SuperstepProgram
+from .train.superstep import PopulationProgram, SuperstepProgram
 from .utils import resilience, watchdog
 from .utils.checkpoint import (CheckpointFormatError, find_checkpoint,
                                load_checkpoint, load_learner_state,
@@ -137,8 +154,8 @@ class Experiment:
                               "(the port has threefry2x32)")
         if cfg.replay.buffer_cpu_only:
             raise _not_ported("replay.buffer_cpu_only", "item 9")
-        if cfg.population.size or cfg.sebulba.actor_devices:
-            raise _not_ported("the population and Sebulba", "items 11, 12")
+        if cfg.sebulba.actor_devices:
+            raise _not_ported("Sebulba (sebulba.actor_devices)", "item 12")
         env = make_env(cfg.env_args, device)
         env_info = env.get_env_info()
         mac = MAC_REGISTRY[cfg.mac].build(cfg, env_info, device)
@@ -198,6 +215,36 @@ class Experiment:
         stacked_infos)``, the JAX program's arguments plus the host
         mirror's gates."""
         return SuperstepProgram(self, k)
+
+    def population_superstep_program(self, k: int) -> PopulationProgram:
+        """→ the population's fused program of ``k`` iterations
+        (``train/superstep.py`` ``PopulationProgram``): ``pop(pts, keys,
+        t_env0, gated, spec) -> (pts', stats, infos)`` with ``(P, K, 2)``
+        keys and ``(P, ...)``-leading outputs. A neutral one-member
+        population runs the solo program without the spec seams, as JAX
+        does."""
+        return PopulationProgram(self, k,
+                                 neutral=pop.spec_is_neutral(self.cfg))
+
+    def population_rollout_program(self):
+        """→ ``pop_test(pts) -> (runner states, stats)``: the greedy test
+        rollout of each member, eagerly, one after another (JAX vmaps
+        ``run_raw(test_mode=True)``, without the spec seams); the stats
+        stacked on a leading ``(P,)`` axis."""
+        runner = self.runner
+
+        def pop_test(pts):
+            outs = [runner.run_raw(t.learner.params["agent"], t.runner,
+                                   test_mode=True) for t in pts]
+            first = outs[0][2]
+            stats = type(first)(**{
+                f.name: torch.stack([torch.as_tensor(getattr(o[2], f.name),
+                                                     device=self.device)
+                                     for o in outs])
+                for f in dataclasses.fields(first)})
+            return [o[0] for o in outs], stats
+
+        return pop_test
 
 
 @dataclasses.dataclass
@@ -279,23 +326,35 @@ def run_classic(exp: Experiment, ts: TrainState, n_iterations: int,
 _Stamp = namedtuple("_Stamp", ["ts", "key"])
 
 
-def _key_meta(key: torch.Tensor) -> dict:
-    """The driver key as ``meta.json`` stores it."""
+def _key_meta(key) -> dict:
+    """The driver key as ``meta.json`` stores it (a population's P keys
+    under ``keys``)."""
+    if isinstance(key, list):
+        return {"keys": [[int(x) for x in k.tolist()] for k in key]}
     return {"key": [int(x) for x in key.tolist()]}
 
 
-def _key_from_meta(meta: dict, device) -> Optional[torch.Tensor]:
-    key = meta.get("driver", {}).get("key")
+def _key_from_meta(meta: dict, device, population: int = 0):
+    """The checkpointed driver key, or a population's P keys; None where
+    the checkpoint holds none of that form (a single-member checkpoint
+    lifted into a population starts from ``member_keys``)."""
+    drv = meta.get("driver", {})
+    if population:
+        keys = drv.get("keys")
+        if keys is None or len(keys) != population:
+            return None
+        return [torch.tensor(k, dtype=torch.int64, device=device)
+                for k in keys]
+    key = drv.get("key")
     return (None if key is None else
             torch.tensor(key, dtype=torch.int64, device=device))
+
 
 
 def _check_driver_scope(cfg: TrainConfig) -> None:
     """Raise for what the port's driver does not have yet."""
     if cfg.dp_devices:
         raise _not_ported("dp_devices (the data-parallel mesh)", "item 12")
-    if cfg.population.size:
-        raise _not_ported("the population", "item 11")
     if cfg.sebulba.actor_devices:
         raise _not_ported("Sebulba (sebulba.actor_devices)", "item 12")
 
@@ -470,8 +529,9 @@ def run(cfg: TrainConfig, logger: Optional[Logger] = None,
     """Top-level entry (reference ``run``): the unique token and sinks,
     then train (or evaluate and exit). Runs on ``cuda`` unless ``device``
     names another (raises when no card is present and none was named).
-    ``learner_params`` (``{"agent": ..., "mixer": ...}``) replaces the
-    seeded initial params, e.g. weights carried across from flax."""
+    ``learner_params`` (``{"agent": ..., "mixer": ...}``, or under a
+    population a list of P such pairs, one a member) replaces the seeded
+    initial params, e.g. weights carried across from flax."""
     logger = logger or Logger()
     cfg = sanity_check(cfg)
     _check_driver_scope(cfg)
@@ -499,10 +559,15 @@ def run(cfg: TrainConfig, logger: Optional[Logger] = None,
 
 def run_sequential(exp: Experiment, logger: Logger, results_dir: str,
                    rec=None, learner_params=None) -> TrainState:
-    """The train loop (reference ``run_sequential``) on ``exp``'s device."""
+    """The train loop (reference ``run_sequential``) on ``exp``'s device.
+    → the final ``TrainState``, or under a population the
+    ``population.PopState`` of the members and the spec."""
     cfg = exp.cfg
     _check_driver_scope(cfg)
     log = logger.console_logger
+    # the population axis (population.py): P member states and the spec;
+    # P = 0 leaves the loop below as it was
+    P = pop.population_size(cfg)
     if rec is None:
         rec = obs_spans.make_recorder(cfg.obs, results_dir)
     device = exp.device
@@ -511,36 +576,74 @@ def run_sequential(exp: Experiment, logger: Logger, results_dir: str,
     mw = obs_memwatch.make_memwatch(cfg.obs, rec=rec)
     mw.snapshot("startup", t_env=0)
     # the learning-health monitor: None when obs.sight is off
-    sight_mon = obs_sight.make_monitor(cfg.obs, logger=logger, rec=rec)
+    sight_mon = obs_sight.make_monitor(cfg.obs, logger=logger, rec=rec,
+                                       population=P)
 
     found = None
     if cfg.checkpoint_path:
         found = find_checkpoint(cfg.checkpoint_path, cfg.load_step)
         if found is None:
             log.info(f"no checkpoint found in {cfg.checkpoint_path}")
-    ts = exp.init_state(cfg.seed, learner_params=learner_params)
+    spec = None
+    if P:
+        ts, spec = pop.init_population(exp, cfg, learner_params)
+        log.info(f"population of {P} members per dispatch (seeds "
+                 f"{pop.member_seeds(cfg)}, pbt="
+                 f"{'on' if cfg.population.pbt.enabled else 'off'})")
+    else:
+        ts = exp.init_state(cfg.seed, learner_params=learner_params)
     rollout, insert, train_iter = exp.programs()
+
+    def _build_superstep(k):
+        return (exp.population_superstep_program(k) if P
+                else exp.superstep_program(k))
+
     # the fused superstep (config.superstep, docs/SPEC.md §8): K > 1
-    # swaps the three-program iteration for one fused dispatch of K
+    # swaps the three-program iteration for one fused dispatch of K; a
+    # population always dispatches its program, even at K = 1
     K = cfg.superstep if superstep_eligible(cfg) else 1
-    superstep = exp.superstep_program(K) if K > 1 else None
+    pop_test = None
+    if P:
+        K = max(cfg.superstep, 1)
+        superstep = _build_superstep(K)
+        pop_test = exp.population_rollout_program()
+        log.info(f"population superstep: {P} members x {K} iterations "
+                 f"per dispatch")
+    else:
+        superstep = _build_superstep(K) if K > 1 else None
     if cfg.superstep > 1 and K == 1:
         log.info("superstep requested but ineligible (buffer_cpu_only "
                  "keeps the three-program path)")
-    elif K > 1:
+    elif K > 1 and not P:
         log.info(f"fused superstep: {K} iterations per dispatch")
-    key = prng.PRNGKey(cfg.seed + 1, device)
+    # one driver key chain, or one a member (each split as the solo one)
+    key = (pop.member_keys(cfg, device) if P
+           else prng.PRNGKey(cfg.seed + 1, device))
+
+    def _ckpt_state():
+        """What checkpoints and watchdog stamps hold: the state, or a
+        population's ``PopState`` (the spec is PBT's and resumes with
+        the members it shaped)."""
+        return pop.PopState(ts=ts, spec=spec) if P else ts
+
+    def _set_t_env(state, step):
+        return dataclasses.replace(state, runner=dataclasses.replace(
+            state.runner, t_env=step))
 
     t_env = 0
     # ---- resume (Q13: t_env cursor restored; the driver key too) -------
     if found is not None:
         dirname, step = found
-        # find_checkpoint already hashed this candidate
-        ts = load_checkpoint(dirname, ts, verify=False)
+        # find_checkpoint already hashed this candidate; a single-member
+        # checkpoint lifts into a population (utils/checkpoint.py)
+        restored = load_checkpoint(dirname, _ckpt_state(), verify=False)
+        if P:
+            ts = [_set_t_env(t, step) for t in restored.ts]
+            spec = restored.spec
+        else:
+            ts = _set_t_env(restored, step)
         t_env = step
-        ts = dataclasses.replace(ts, runner=dataclasses.replace(
-            ts.runner, t_env=step))
-        saved_key = _key_from_meta(read_meta(dirname), device)
+        saved_key = _key_from_meta(read_meta(dirname), device, P)
         if saved_key is not None:
             key = saved_key
         log.info(f"resumed from {dirname} at t_env={step}")
@@ -561,6 +664,9 @@ def run_sequential(exp: Experiment, logger: Logger, results_dir: str,
     kit = _DriverKit(cfg=cfg, res=res, log=log, rec=rec, mw=mw,
                      sight_mon=sight_mon, guard=guard, model_dir=model_dir,
                      save_lock=save_lock)
+    # the pre-dispatch state a watchdog stamp holds, as a checkpoint
+    # would (a PopState under a population)
+    _stamp = lambda: _Stamp(_ckpt_state(), key)   # noqa: E731
     kit.t_env_fn = lambda: t_env
     _persist_flight = kit.persist_flight
     _acquire_save_lock = kit.acquire_save_lock
@@ -590,10 +696,12 @@ def run_sequential(exp: Experiment, logger: Logger, results_dir: str,
     # holds the one-time warm-up and would log a throughput outlier
     last_T = t_env
     n_test_runs = max(1, cfg.test_nepisode // cfg.batch_size_run)
-    test_quota = n_test_runs * cfg.batch_size_run        # Q10
+    # Q10; a population tests all P members a cadence, so the quota of
+    # the accumulator's total episodes scales by P
+    test_quota = n_test_runs * cfg.batch_size_run * max(P, 1)
     train_infos = []
-    train_acc = StatsAccumulator()
-    test_acc = StatsAccumulator()
+    train_acc = StatsAccumulator(population=P)
+    test_acc = StatsAccumulator(population=P)
     last_runner_log_t = t_env
     last_anim_t = -cfg.animation_interval - 1
     er_rs = None
@@ -604,7 +712,7 @@ def run_sequential(exp: Experiment, logger: Logger, results_dir: str,
                  batch_size_run=cfg.batch_size_run,
                  episode_limit=cfg.env_args.episode_limit,
                  batch_size=cfg.batch_size, superstep=K,
-                 host_buffer=False, population=0, scenario="fixed")
+                 host_buffer=False, population=P, scenario="fixed")
     # per-stage device barriers for honest attribution; tracing implies
     # them (an un-synced trace window would capture enqueue, not work)
     sync_stages = cfg.profile_stages or bool(cfg.profile_dir)
@@ -618,8 +726,10 @@ def run_sequential(exp: Experiment, logger: Logger, results_dir: str,
     # ring fill by min(+B, capacity); the host tracks them, and the loop
     # waits on the device only at its cadences and the run-ahead bound
     steps_per_rollout = cfg.batch_size_run * cfg.env_args.episode_limit
-    episode = int(ts.episode)
-    buffer_filled = int(ts.buffer.episodes_in_buffer)
+    lead = ts[0] if P else ts
+    episode = int(lead.episode)
+    buffer_filled = int(lead.buffer.episodes_in_buffer)
+    del lead
     buffer_capacity = exp.buffer.capacity
     inflight = deque()              # device events of recent dispatches
 
@@ -629,20 +739,24 @@ def run_sequential(exp: Experiment, logger: Logger, results_dir: str,
         restore rung). The driver key runs on, as in the JAX driver."""
         nonlocal ts, t_env, episode, buffer_filled, train_infos
         nonlocal last_test_t, last_log_t, last_runner_log_t, last_save_t
-        nonlocal nonfinite_streak, train_acc
-        ts = load_checkpoint(dirname, ts, verify=False)
-        ts = dataclasses.replace(ts, runner=dataclasses.replace(
-            ts.runner, t_env=step))
+        nonlocal nonfinite_streak, train_acc, spec
+        restored = load_checkpoint(dirname, _ckpt_state(), verify=False)
+        if P:
+            ts = [_set_t_env(t, step) for t in restored.ts]
+            spec = restored.spec
+            lead = ts[0]
+        else:
+            ts = lead = _set_t_env(restored, step)
         t_env = step
-        episode = int(ts.episode)
-        buffer_filled = int(ts.buffer.episodes_in_buffer)
+        episode = int(lead.episode)
+        buffer_filled = int(lead.buffer.episodes_in_buffer)
         inflight.clear()
         train_infos = []
         nonfinite_streak = 0
         # pending stats belong to the rolled-back computation; the fetch
         # tally is cumulative and survives
         fetches = train_acc.fetches
-        train_acc = StatsAccumulator()
+        train_acc = StatsAccumulator(population=P)
         train_acc.fetches = fetches
         last_test_t = last_log_t = t_env
         last_runner_log_t = last_save_t = t_env
@@ -672,7 +786,9 @@ def run_sequential(exp: Experiment, logger: Logger, results_dir: str,
             K = 1
             if superstep is not None:
                 superstep.close()
-            superstep = None
+            # a population goes on through its program, rebuilt at K = 1
+            # (the classic path has no population)
+            superstep = _build_superstep(1) if P else None
             logger.log_stat("superstep_k", 1, t_env)
             if pulse is not None:
                 pulse.set("superstep_k", 1)
@@ -698,7 +814,7 @@ def run_sequential(exp: Experiment, logger: Logger, results_dir: str,
     def _sync_point(phase, fn):
         """One blocking sync/fetch boundary, stamped with the loop's
         CURRENT state."""
-        return kit.sync_point(phase, fn, _Stamp(ts, key))
+        return kit.sync_point(phase, fn, _stamp())
 
     def _save_topology():
         return {"loop": "classic", "superstep": K,
@@ -732,7 +848,7 @@ def run_sequential(exp: Experiment, logger: Logger, results_dir: str,
             # the signal handler only sets a flag; the orderly exit
             # happens here, at a dispatch boundary where ts is complete
             resilience.fire("driver.iteration", t_env=t_env, guard=guard,
-                            state=ts, key=key)
+                            state=_ckpt_state(), key=key)
             if guard.triggered:
                 break
             if pulse is not None:
@@ -749,7 +865,12 @@ def run_sequential(exp: Experiment, logger: Logger, results_dir: str,
                 # train: it splits the driver key only for those, as the
                 # classic loop does, and keeps their info rows. Committed
                 # only after the dispatch succeeds
-                ep2, fill2, key2 = episode, buffer_filled, key
+                # Under a population `key` is a list of P member streams:
+                # the gate mirror is computed once and each member's
+                # stream splits as the solo one does (member 0's is the
+                # solo run's)
+                ep2, fill2 = episode, buffer_filled
+                key2 = list(key) if P else key
                 key_rows, gated = [], []
                 for _ in range(K):
                     ep2 += cfg.batch_size_run
@@ -758,15 +879,29 @@ def run_sequential(exp: Experiment, logger: Logger, results_dir: str,
                     g = (fill2 >= cfg.batch_size
                          and ep2 >= cfg.accumulated_episodes)
                     gated.append(g)
-                    if g:
+                    if P:
+                        row = []
+                        for m in range(P):
+                            if g:
+                                key2[m], k_s = prng.split(key2[m]).unbind(0)
+                                row.append(k_s)
+                            else:
+                                row.append(torch.zeros_like(key2[m]))
+                        key_rows.append(torch.stack(row))
+                    elif g:
                         key2, k_sample = prng.split(key2).unbind(0)
                         key_rows.append(k_sample)
                     else:
                         key_rows.append(torch.zeros_like(key2))
 
                 def _fused(ts=ts, key_rows=key_rows, gated=gated):
-                    out = superstep(ts, torch.stack(key_rows), t_env,
-                                    gated)
+                    if P:
+                        # (P, K, 2): each member reads its own (K,) rows
+                        out = superstep(ts, torch.stack(key_rows, dim=1),
+                                        t_env, gated, spec)
+                    else:
+                        out = superstep(ts, torch.stack(key_rows), t_env,
+                                        gated)
                     if sync_stages:
                         _sync_device()
                     return out
@@ -782,8 +917,11 @@ def run_sequential(exp: Experiment, logger: Logger, results_dir: str,
                     continue
                 key, episode, buffer_filled = key2, ep2, fill2
                 t_env += K * steps_per_rollout
-                train_infos.extend({k: v[i] for k, v in infos.items()}
-                                   for i, g in enumerate(gated) if g)
+                # a population's infos lead with the (P,) member axis,
+                # the K sub-iterations next
+                train_infos.extend(
+                    {k: (v[:, i] if P else v[i]) for k, v in infos.items()}
+                    for i, g in enumerate(gated) if g)
             else:
                 # ------------ rollout (no grad by construction) ----------
                 def _roll(ts=ts):
@@ -798,7 +936,7 @@ def run_sequential(exp: Experiment, logger: Logger, results_dir: str,
                 try:
                     with timer.stage("rollout"):
                         ts, stats = _dispatch("dispatch.rollout", _roll,
-                                              _Stamp(ts, key))
+                                              _stamp())
                 except watchdog.DispatchFailed as df:
                     _dispatch_ladder(df)
                     continue
@@ -819,8 +957,7 @@ def run_sequential(exp: Experiment, logger: Logger, results_dir: str,
                     try:
                         with timer.stage("train"):
                             ts, info = _dispatch("dispatch.train",
-                                                 _train_once,
-                                                 _Stamp(ts, key))
+                                                 _train_once, _stamp())
                     except watchdog.DispatchFailed as df:
                         _dispatch_ladder(df)
                         continue
@@ -876,13 +1013,18 @@ def run_sequential(exp: Experiment, logger: Logger, results_dir: str,
                             # greedy rollouts on the training runner state:
                             # the same carried envs and key chain
                             def _test_roll(ts=ts):
+                                if P:
+                                    # every member's greedy rollout
+                                    return pop_test(ts)
                                 rs, _, s = rollout(
                                     ts.learner.params["agent"], ts.runner,
                                     test_mode=True)
                                 return rs, s
                             rs, s = _dispatch("dispatch.test", _test_roll,
-                                              _Stamp(ts, key))
-                            ts = dataclasses.replace(ts, runner=rs)
+                                              _stamp())
+                            ts = ([dataclasses.replace(t, runner=r)
+                                   for t, r in zip(ts, rs)] if P else
+                                  dataclasses.replace(ts, runner=rs))
                             _sync_point("fetch.test_stats",
                                         lambda s=s: test_acc.push(s))
                             # Q10: flush only on the exact rounded quota
@@ -894,7 +1036,7 @@ def run_sequential(exp: Experiment, logger: Logger, results_dir: str,
                 except watchdog.DispatchFailed as df:
                     # drop the partial cadence: a sub-quota leftover would
                     # miss the exact-quota flush on every later cadence
-                    test_acc = StatsAccumulator()
+                    test_acc = StatsAccumulator(population=P)
                     _dispatch_ladder(df, can_degrade=False)
                     continue
                 last_test_t = t_env
@@ -924,12 +1066,12 @@ def run_sequential(exp: Experiment, logger: Logger, results_dir: str,
                 # timeout sized for one save must not be eaten by attempt
                 # 1's failure + backoff
                 def _save_once():
-                    with _watched("checkpoint.save", _Stamp(ts, key)):
+                    with _watched("checkpoint.save", _stamp()):
                         if not _acquire_save_lock("save cadence"):
                             return None
                         try:
                             return save_checkpoint(
-                                model_dir, t_env, ts,
+                                model_dir, t_env, _ckpt_state(),
                                 topology=_save_topology(),
                                 driver=_key_meta(key))
                         finally:
@@ -945,6 +1087,21 @@ def run_sequential(exp: Experiment, logger: Logger, results_dir: str,
                     mw.snapshot("checkpoint.save", t_env=t_env)
                     # advance the cadence only on a real save
                     last_save_t = t_env
+                    if P and cfg.population.pbt.enabled:
+                        # PBT at save boundaries only, after the save:
+                        # the checkpoint holds the population before it.
+                        # The ranking is the accumulator's per-member
+                        # return EMA, host state that is not checkpointed
+                        ts, spec, pbt_info = pop.pbt_step(
+                            cfg, ts, spec, train_acc.member_return_ema,
+                            t_env)
+                        if pbt_info is not None:
+                            logger.log_stat("pbt_copies",
+                                            len(pbt_info["copied"]), t_env)
+                            rec.mark("pbt", t_env=t_env, **pbt_info)
+                            log.info(f"population PBT: exploited "
+                                     f"{pbt_info['copied']} at "
+                                     f"t_env={t_env}")
 
             # ---------------- log cadence -------------------------------
             if (t_env - last_log_t) >= cfg.log_interval:
@@ -958,19 +1115,23 @@ def run_sequential(exp: Experiment, logger: Logger, results_dir: str,
                         last = train_infos[-1]
                         keys = LOG_KEYS + tuple(
                             sorted(k for k in last if k.startswith("sight_")))
+                        flags = torch.stack([i["all_finite"]
+                                             for i in train_infos]).float()
                         flat = torch.cat(
-                            [torch.stack([i["all_finite"]
-                                          for i in train_infos]).float()]
+                            [flags.reshape(-1)]
                             + [last[k].float().reshape(-1)
                                for k in keys]).cpu().numpy()
-                        n = len(train_infos)
+                        n = flags.numel()
                         out, at = {}, n
                         for k in keys:
                             size = last[k].numel()
                             out[k] = flat[at:at + size].reshape(
                                 last[k].shape)
                             at += size
-                        return flat[:n] > 0.5, out
+                        # (n, P) member flags under a population: a step
+                        # is finite only if every member's update was
+                        return (flat[:n].reshape(len(train_infos), -1)
+                                > 0.5).all(axis=1), out
                     try:
                         flags, last = _sync_point("fetch.train_infos",
                                                   _fetch_infos)
@@ -998,7 +1159,18 @@ def run_sequential(exp: Experiment, logger: Logger, results_dir: str,
                             f"{nonfinite_streak}, total={nonfinite_total}); "
                             f"parameter updates were skipped")
                     for k in LOG_KEYS:
-                        logger.log_stat(k, float(last[k]), t_env)
+                        if P:
+                            # the aggregate row is the members' mean, a
+                            # pop<i>_ row each at P > 1 (P = 1 keeps the
+                            # solo stream)
+                            v = np.asarray(last[k], np.float64)
+                            logger.log_stat(k, float(v.mean()), t_env)
+                            if P > 1:
+                                for m in range(P):
+                                    logger.log_stat(f"pop{m}_{k}",
+                                                    float(v[m]), t_env)
+                        else:
+                            logger.log_stat(k, float(last[k]), t_env)
                     if sight_mon is not None:
                         # the detector pass over the SAME fetched info
                         # (the monitor logs the sight_* stats); a fresh
@@ -1025,8 +1197,8 @@ def run_sequential(exp: Experiment, logger: Logger, results_dir: str,
                                 f"training diverged: {nonfinite_streak} "
                                 f"consecutive non-finite train steps at "
                                 f"t_env={t_env} (last loss="
-                                f"{float(last['loss'])}, grad_norm="
-                                f"{float(last['grad_norm'])}), and "
+                                f"{float(np.mean(last['loss']))}, grad_norm="
+                                f"{float(np.mean(last['grad_norm']))}), and "
                                 + (f"restore limit reached (resilience."
                                    f"max_restores={res.max_restores})"
                                    if found is not None else
@@ -1124,7 +1296,7 @@ def run_sequential(exp: Experiment, logger: Logger, results_dir: str,
                     with deadline:
                         save_to = watchdog.retry_call(
                             lambda: save_checkpoint(
-                                model_dir, t_env, ts,
+                                model_dir, t_env, _ckpt_state(),
                                 topology=_save_topology(),
                                 driver=_key_meta(key)),
                             attempts=1 + res.dispatch_retries,
@@ -1147,7 +1319,7 @@ def run_sequential(exp: Experiment, logger: Logger, results_dir: str,
     else:
         log.info("Finished Training")
     rec.close()
-    return ts
+    return _ckpt_state()
 
 
 def evaluate_sequential(exp: Experiment, logger: Logger, results_dir: str,

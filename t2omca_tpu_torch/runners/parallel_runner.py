@@ -30,6 +30,11 @@ epsilons as a device vector instead (the host fills it from the same
 schedule, so the bits are the same): the fused superstep's captured
 rollout reads its current values from there, and ``t_env`` stays a host
 mirror that the caller advances.
+Under a population (``population.py``) two seams carry a member's knobs:
+``eps_scale`` multiplies the host epsilons in float32 (``epsilons``), the
+correctly rounded product that JAX's device multiply gives, and
+``member`` (with ``population.scenario_salt``) folds the member index
+into the scenario sampler key (``envs/graftworld.member_scenario_key``).
 The env returns the observation in the form the rollout reads
 (``obs_form``): compact alone under the default stack, so the dense
 ``(B, A, A·F)`` obs is never built, as XLA drops it from the JAX rollout.
@@ -43,6 +48,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from .. import prng
@@ -50,6 +56,7 @@ from ..components.episode_buffer import (CompactEntityObs,
                                         TimeMajorEpisodes, obs_map)
 from ..config import TrainConfig
 from ..controllers.basic_mac import BasicMAC, torch_dtype
+from ..envs.graftworld import member_scenario_key
 from ..envs.mec_offload import EnvParams, EnvState, MultiAgvOffloadingEnv
 from ..envs.normalization import (RewardScaleState, reset_reward_scale,
                                   scale_reward)
@@ -121,11 +128,16 @@ class ParallelRunner:
     def scenario(self):
         return make_scenario_distribution(self.cfg.env_args)
 
-    def _sample_scenarios(self, key: torch.Tensor) -> EnvParams:
-        """One ``EnvParams`` per lane from the salted side key."""
-        keys = prng.split(prng.fold_in(key, _SCENARIO_SALT),
-                          self.batch_size)
-        return self.scenario.sample(keys, self.env)
+    def _sample_scenarios(self, key: torch.Tensor, member=None
+                          ) -> EnvParams:
+        """One ``EnvParams`` per lane from the salted side key; ``member``
+        (a population member's index, under ``population.scenario_salt``)
+        folds into it too."""
+        k = prng.fold_in(key, _SCENARIO_SALT)
+        if member is not None:
+            k = member_scenario_key(k, member)
+        return self.scenario.sample(prng.split(k, self.batch_size),
+                                    self.env)
 
     def init_state(self, key: torch.Tensor) -> RunnerState:
         """Initial env states with fresh norms; ``env_args.seed`` folds
@@ -144,36 +156,48 @@ class ParallelRunner:
             env_params=env_params)
 
     def run(self, params, rs: RunnerState, test_mode: bool = False,
-            capture: bool = False):
+            capture: bool = False, eps_scale=None, member=None):
         """One synchronous batched episode → (runner state', episode
         batch ``(B, T(+1), ...)``, stats[, viz]). ``viz`` (with
         ``capture``): ``{"pos", "mec_index", "acks", "actions", "reward",
         "info"}`` of ``(T, B, ...)`` tensors, ``info`` a ``StepInfo`` of
         every step."""
-        out = self.run_raw(params, rs, test_mode, capture)
+        out = self.run_raw(params, rs, test_mode, capture,
+                           eps_scale=eps_scale, member=member)
         return (out[0], out[1].to_batch()) + tuple(out[2:])
 
-    def epsilons(self, t_env: int) -> torch.Tensor:
+    def epsilons(self, t_env: int, eps_scale=None) -> torch.Tensor:
         """The ``(T,)`` float32 epsilons of a training rollout that starts
         at ``t_env``, on the host: step ``t`` at ``t_env + t·B``, the
         schedule's elementwise float32 arithmetic on all T at once (the
-        values the step loop computes one by one)."""
+        values the step loop computes one by one). ``eps_scale`` (a
+        population member's float32 scale) multiplies them in numpy
+        float32: one correctly rounded product each, the value of JAX's
+        ``eps * eps_scale`` on the device."""
         t = t_env + self.batch_size * torch.arange(
             self.env.cfg.episode_limit)
         eps = torch.as_tensor(self.mac.selector.epsilon(t, False))
-        return eps.float().expand(t.shape).contiguous()
+        eps = eps.float().expand(t.shape).contiguous()
+        if eps_scale is None:
+            return eps
+        return torch.from_numpy(eps.numpy() * np.float32(eps_scale))
 
     def run_raw(self, params, rs: RunnerState, test_mode: bool = False,
-                capture: bool = False, eps: torch.Tensor = None):
+                capture: bool = False, eps: torch.Tensor = None,
+                eps_scale=None, member=None):
         """``run`` before the episode-batch assembly: → (runner state',
         ``TimeMajorEpisodes``, stats[, viz]). ``eps`` (``(T,)`` f32 on the
-        device, ``epsilons(rs.t_env)``'s values) replaces the host
-        epsilon of each training step."""
+        device, ``epsilons(rs.t_env, eps_scale)``'s values) replaces the
+        host epsilon of each training step; without it, ``eps_scale``
+        scales the host epsilons. ``member``: the scenario salt of a
+        population member (module docstring)."""
         env, b, t_len = self.env, self.batch_size, self.env.cfg.episode_limit
+        if eps is None and eps_scale is not None and not test_mode:
+            eps = self.epsilons(rs.t_env, eps_scale).to(rs.key.device)
         eps_steps = eps
         key, k_reset, k_scan = prng.split(rs.key, 3).unbind(-2)
         params = self.mac.prepare_acting_params(params)
-        env_params = self._sample_scenarios(rs.key)
+        env_params = self._sample_scenarios(rs.key, member)
         form = self.obs_form
         env_states, obs, gstate, avail = env.reset(
             prng.split(k_reset, b), rs.env_states.norm, env_params,

@@ -39,19 +39,23 @@ def build_train_iter(buffer, learner, cfg):
     step whose loss or gradients are not finite writes back the sampled
     episodes' existing priorities (``valid=``), so NaN never enters the
     ring. With ``obs.sight`` and PER the info also carries the
-    post-update priorities' entropy."""
+    post-update priorities' entropy. ``spec`` (a population member's
+    knobs: ``lr_scale`` and ``per_alpha``, () f32 device tensors) reaches
+    the learner's update and the priority feedback's exponent."""
 
     def train_iter(ts: TrainState, key: torch.Tensor, t_env,
-                   beta: Optional[torch.Tensor] = None):
+                   beta: Optional[torch.Tensor] = None, spec=None):
         k_sample, k_learn = prng.split(key).unbind(-2)
         batch, idx, weights = buffer.sample(ts.buffer, k_sample,
                                             cfg.batch_size, t_env,
                                             beta=beta)
         learner_state, info = learner.train(ts.learner, batch, weights,
-                                            t_env, ts.episode, k_learn)
+                                            t_env, ts.episode, k_learn,
+                                            spec=spec)
         buf = buffer.update_priorities(
             ts.buffer, idx, info["td_errors_abs"] + 1e-6,          # Q9
-            valid=info["all_finite"])
+            valid=info["all_finite"],
+            alpha=None if spec is None else spec.per_alpha)
         # the PER-health read over the post-update priorities (no-op
         # unless obs.sight and prioritized replay)
         info = sight.maybe_buffer_info(cfg, info, buf)

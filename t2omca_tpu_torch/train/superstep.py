@@ -59,6 +59,21 @@ adds it at each replay, so the counts stay "launches since reset".
 Capture runs with ``capture_error_mode="thread_local"``: the watchdog,
 the live plane's HTTP thread and memwatch may call the CUDA API from
 their own threads meanwhile.
+
+**The population** (``population.py``; JAX vmaps the same program over a
+``(P,)`` axis) is :class:`PopulationProgram`: one ``SuperstepProgram`` a
+member, built from the same ``Experiment``, each with its own bound state,
+its own graphs, pool and CUDA stream, and its own static inputs: the
+member's ``lr_scale`` and PER exponent as device scalars (filled from the
+spec before each dispatch, so PBT's changes reach the replays), its
+epsilon scale applied to the host epsilons it copies in, its index as the
+scenario salt. A dispatch enqueues each member's K iterations on the
+member's stream, after that stream waits for the caller's, and the
+caller's stream then waits for every member's: the members' launch-bound
+graphs overlap on the card. Each member captures on its own stream, so
+cuBLAS gives each its own workspace, and into its own pool, so no two
+graphs that may run at once share memory. The outputs that cross from a
+member's stream to the caller's are marked with ``record_stream``.
 """
 
 from __future__ import annotations
@@ -66,6 +81,8 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import time
+from contextlib import nullcontext
+from types import SimpleNamespace
 from typing import Dict, List, Optional, Sequence
 
 import torch
@@ -166,11 +183,16 @@ class SuperstepProgram:
     (``graph_nodes`` per stage). With ``timing`` set on a CUDA device,
     ``events`` holds three CUDA events a sub-iteration of the last call
     (before its rollout, after it, after its train step), recorded on
-    the stream with no synchronize."""
+    the stream with no synchronize.
+
+    ``member`` (a population member's index) turns on the spec seams
+    (``set_spec``, the module docstring); ``stream`` (a CUDA stream) is the
+    stream it captures on, else torch's default capture stream."""
 
     timing = False
 
-    def __init__(self, exp, k: int):
+    def __init__(self, exp, k: int, member: Optional[int] = None,
+                 stream=None):
         cfg = exp.cfg
         if cfg.replay.buffer_cpu_only:
             raise ValueError(
@@ -187,6 +209,18 @@ class SuperstepProgram:
         self._eps = torch.zeros(t_len, device=dev)
         self._key = torch.zeros(2, dtype=torch.int64, device=dev)
         self._beta = torch.zeros((), device=dev)
+        self.member, self.stream = member, stream
+        self._spec = None
+        self._eps_scale = None
+        self._salt = None
+        if member is not None:
+            self._spec = SimpleNamespace(
+                lr_scale=torch.ones((), device=dev),
+                per_alpha=torch.full((), float(cfg.replay.per_alpha),
+                                     device=dev))
+            self._eps_scale = 1.0
+            if cfg.population.scenario_salt:
+                self._salt = member
         self.state: Optional[TrainState] = None
         self.graphs: Dict[str, object] = {}
         self.outputs: Dict[str, object] = {}
@@ -203,15 +237,19 @@ class SuperstepProgram:
     def _rollout(self, ts: TrainState):
         exp = self.exp
         rs, tm, stats = exp.runner.run_raw(ts.learner.params["agent"],
-                                           ts.runner, eps=self._eps)
-        buf = exp.buffer.insert_time_major(ts.buffer, tm)
+                                           ts.runner, eps=self._eps,
+                                           member=self._salt)
+        buf = exp.buffer.insert_time_major(
+            ts.buffer, tm,
+            alpha=None if self._spec is None else self._spec.per_alpha)
         _copy_into(ts, dataclasses.replace(
             ts, runner=rs, buffer=buf,
             episode=ts.episode + exp.cfg.batch_size_run))
         return stats
 
     def _train(self, ts: TrainState):
-        new, info = self._train_iter(ts, self._key, 0, beta=self._beta)
+        new, info = self._train_iter(ts, self._key, 0, beta=self._beta,
+                                     spec=self._spec)
         _copy_into(ts, new)
         return info
 
@@ -237,9 +275,13 @@ class SuperstepProgram:
             self.pool = torch.cuda.graph_pool_handle()
         g, kept = _new_graph()
         before = dict(attention.LAUNCHES)
+        # the capture begins with a device synchronize: wait here, so the
+        # capture's seconds leave out the work queued before it (another
+        # member's replays)
+        torch.cuda.synchronize(self.device)
         try:
             t0 = time.perf_counter()
-            with torch.cuda.graph(g, pool=self.pool,
+            with torch.cuda.graph(g, pool=self.pool, stream=self.stream,
                                   capture_error_mode="thread_local"):
                 out = fn(self.state)
                 t1 = time.perf_counter()
@@ -261,6 +303,17 @@ class SuperstepProgram:
         self.graphs[name], self.outputs[name] = g, out
 
     # ------------------------------------------------------------ driving
+
+    def set_spec(self, lr_scale: float, eps_scale: float,
+                 per_alpha: float) -> None:
+        """A population member's knobs for the next call: fills of its
+        device scalars (on the current stream, no sync) and the host
+        epsilon scale."""
+        if self._spec is None:
+            raise ValueError("set_spec on a program built without a member")
+        self._spec.lr_scale.fill_(lr_scale)
+        self._spec.per_alpha.fill_(per_alpha)
+        self._eps_scale = eps_scale
 
     def adopt(self, ts: TrainState) -> TrainState:
         """Bind the program to ``ts`` (the first call), or copy ``ts``'s
@@ -290,7 +343,8 @@ class SuperstepProgram:
         self.consumed = False
         ts = self.adopt(ts)
         spr = cfg.batch_size_run * cfg.env_args.episode_limit
-        eps = torch.stack([exp.runner.epsilons(ts.runner.t_env + i * spr)
+        eps = torch.stack([exp.runner.epsilons(ts.runner.t_env + i * spr,
+                                               self._eps_scale)
                            for i in range(k)])
         if self.graphed:
             eps = eps.pin_memory()
@@ -329,3 +383,99 @@ class SuperstepProgram:
             for f in dataclasses.fields(stats[0])})
         return ts, stacked, {key: torch.stack([i[key] for i in infos])
                              for key in infos[0]}
+
+
+class PopulationProgram:
+    """``pop(pts, keys, t_env0, gated, spec) -> (pts', stats, infos)``: K
+    iterations of every member of a population (the module docstring).
+    ``pts`` holds the P member states, ``keys`` the ``(P, K, 2)`` train
+    keys (each member's stream split as the solo driver splits its one),
+    ``t_env0`` and ``gated`` the one host mirror of the counters, which
+    evolve identically across members, ``spec`` the ``PopulationSpec``
+    whose values the members read. → the members' bound states, the ``(P,
+    K, B)`` ``RolloutStats`` stack and the ``(P, K, ...)`` info stacks,
+    the layout of JAX's ``population_superstep_program``.
+
+    ``neutral`` (a one-member population with no grid, salt or PBT) builds
+    its one member without the spec seams: the solo program exactly.
+    ``serial=True`` runs the members one after another, each finished
+    before the next starts (what P solo dispatches do), the check that the
+    overlap changes no bit."""
+
+    def __init__(self, exp, k: int, neutral: bool = False):
+        p = int(exp.cfg.population.size)
+        if p < 1:
+            raise ValueError("population_superstep_program needs "
+                             "population.size >= 1")
+        if neutral and p != 1:
+            raise ValueError("only a one-member population is neutral")
+        self.exp, self.k, self.device = exp, k, exp.device
+        self.graphed = self.device.type == "cuda"
+        self.members = [
+            SuperstepProgram(exp, k, member=None if neutral else m,
+                             stream=(torch.cuda.Stream(self.device)
+                                     if self.graphed else None))
+            for m in range(p)]
+
+    @property
+    def consumed(self) -> bool:
+        """Whether the last call began to write any member's state."""
+        return any(m.consumed for m in self.members)
+
+    @property
+    def timing(self) -> bool:
+        return self.members[0].timing
+
+    @timing.setter
+    def timing(self, on: bool) -> None:
+        for m in self.members:
+            m.timing = on
+
+    def adopt(self, pts: Sequence[TrainState]) -> List[TrainState]:
+        """Each member's ``SuperstepProgram.adopt``: → the bound states."""
+        if len(pts) != len(self.members):
+            raise ValueError(f"{len(pts)} member states for a population "
+                             f"of {len(self.members)}")
+        return [m.adopt(t) for m, t in zip(self.members, pts)]
+
+    def close(self) -> None:
+        for m in self.members:
+            m.close()
+
+    def __call__(self, pts: Sequence[TrainState], keys: torch.Tensor,
+                 t_env0: int, gated: Sequence[bool], spec=None,
+                 serial: bool = False):
+        p = len(self.members)
+        if len(pts) != p or keys.shape[0] != p:
+            raise ValueError(f"population of {p}: {len(pts)} states, keys "
+                             f"{tuple(keys.shape)}")
+        caller = (torch.cuda.current_stream(self.device) if self.graphed
+                  else None)
+        outs = []
+        for m, (prog, ts) in enumerate(zip(self.members, pts)):
+            ctx = (torch.cuda.stream(prog.stream) if self.graphed
+                   else nullcontext())
+            with ctx:
+                if self.graphed:
+                    prog.stream.wait_stream(caller)
+                    keys.record_stream(prog.stream)
+                if spec is not None and prog.member is not None:
+                    prog.set_spec(*spec.scalars(m))
+                ts, stats, infos = prog(ts, keys[m], t_env0, gated)
+                if self.graphed:
+                    for t in (list(flatten_state(stats)[0].values())
+                              + list(infos.values())):
+                        t.record_stream(caller)
+            if self.graphed and serial:
+                prog.stream.synchronize()
+            outs.append((ts, stats, infos))
+        if self.graphed:
+            for prog in self.members:
+                caller.wait_stream(prog.stream)
+        first = outs[0][1]
+        stats = type(first)(**{
+            f.name: torch.stack([getattr(o[1], f.name) for o in outs])
+            for f in dataclasses.fields(first)})
+        infos = {key: torch.stack([o[2][key] for o in outs])
+                 for key in outs[0][2]}
+        return [o[0] for o in outs], stats, infos

@@ -30,8 +30,19 @@ published by one atomic ``rename``; ``find_checkpoint`` verifies each
 candidate by its digest and *skips back* to the newest valid step;
 ``prune_checkpoints`` bounds disk (newest K + every Nth step). Single
 writer per checkpoint directory (the driver's token-unique
-``models/<token>/``), one process. Per-host shards, multi-host gathers,
-population lifts and elastic restore are ``ROADMAP.md`` items 11 and 12.
+``models/<token>/``), one process.
+
+**Populations** (format 2): a ``population.PopState`` checkpoints as its
+members' leaves under ``ts.<i>.`` and the spec under ``spec.``, with
+``population: P`` in the topology stamp. A single-member checkpoint (any
+format 1 checkpoint, and format 2 without a population) restored into a
+population template is lifted (JAX's ``_lift_population``): every member
+starts from the restored state, member 0 is the restored run, each member
+``m >= 1`` has its rollout key re-salted with ``fold_in(key, m)`` (a
+verbatim copy would make the members draw the same trajectories), and the
+spec is the template's (the config's grids). Restoring under another P
+(JAX's elastic reshape), per-host shards, multi-host gathers and elastic
+restore across topologies are ``ROADMAP.md`` item 12.
 
 ``LAST_TIMES`` holds the byte count and host seconds of the most recent
 save (device→host copy, write + fsync, hash) and of the most recent
@@ -51,12 +62,14 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
+from .. import prng
 from . import resilience
 
 logger = logging.getLogger(__name__)
 
-#: bump when the checkpointed layout changes incompatibly
-FORMAT_VERSION = 1
+#: bump when the checkpointed layout changes incompatibly (2: the
+#: population layout)
+FORMAT_VERSION = 2
 STATE_FILE = "state.pt"
 META_FILE = "meta.json"
 
@@ -142,9 +155,19 @@ def map_tensors(state: Any, fn) -> Any:
                     if isinstance(x, torch.Tensor) else x)
 
 
+def _members(state: Any) -> Optional[list]:
+    """A population state's member states (``population.PopState``:
+    ``ts`` a list beside a ``spec``), else None."""
+    ts = getattr(state, "ts", None)
+    return ts if hasattr(state, "spec") and isinstance(ts, list) else None
+
+
 def _obs_layout(state: Any) -> Optional[str]:
     """'compact' | 'dense' | None (no replay ring in the state)."""
     from ..components.episode_buffer import CompactEntityObs
+    members = _members(state)
+    if members:
+        state = members[0]
     buf = getattr(state, "buffer", None)
     if buf is None:
         return None
@@ -161,10 +184,12 @@ def _state_device(state: Any) -> torch.device:
 def _topology_stamp(state: Any, extra: Optional[dict] = None) -> dict:
     """The ``meta.json`` topology stamp: the writing run's shape, so a
     resume under another shape can be told apart."""
+    members = _members(state)
     stamp = {"device": _state_device(state).type,
              "device_count": (torch.cuda.device_count()
                               if torch.cuda.is_available() else 0),
-             "process_count": 1, "population": None,
+             "process_count": 1,
+             "population": None if members is None else len(members),
              "format": FORMAT_VERSION}
     if extra:
         stamp.update(extra)
@@ -462,21 +487,56 @@ def _restore_leaves(template: Any, tensors: Dict[str, torch.Tensor],
     return _rebuild(template, leaf)
 
 
+def _lift_population(target: Any, tensors: Dict[str, torch.Tensor],
+                     host: Dict[str, Any], dirname: str) -> Any:
+    """A single-member checkpoint restored into the population template
+    ``target`` (the module docstring): every member from the one state,
+    each with tensors of its own, members ``m >= 1`` with their rollout
+    key re-salted by ``fold_in(key, m)``; the spec stays the template's."""
+    members = []
+    for m, template in enumerate(_members(target)):
+        st = _restore_leaves(template, tensors, host, dirname,
+                             "train-state")
+        if m:
+            st = map_tensors(st, torch.clone)
+            runner = getattr(st, "runner", None)
+            if runner is not None and hasattr(runner, "key"):
+                runner.key = prng.fold_in(runner.key, m)
+        members.append(st)
+    return dataclasses.replace(target, ts=members)
+
+
 def load_checkpoint(dirname: str, target: Any, verify: bool = True) -> Any:
     """Restore into a template of the same structure (``target``: a
-    ``TrainState`` of the configured shapes; its tensors' devices are
-    where the restored ones land). The sidecar turns a replay-layout
-    mismatch into a precise config instruction before ``state.pt`` is
-    read, and its checksum turns silent corruption into
+    ``TrainState`` of the configured shapes, or a ``population.PopState``
+    of them; its tensors' devices are where the restored ones land). A
+    single-member checkpoint restored into a population template is lifted
+    (the module docstring). The sidecar turns a replay-layout mismatch or
+    a population of another size into a precise config instruction before
+    ``state.pt`` is read, and its checksum turns silent corruption into
     :class:`CheckpointIntegrityError`. Callers that just selected
     ``dirname`` via :func:`find_checkpoint` already paid the SHA-256
     pass there and may set ``verify=False``."""
     meta = read_meta(dirname)
     _check_obs_layout(meta, target, dirname)
+    saved_p = (meta.get("topology") or {}).get("population")
+    members = _members(target)
+    want_p = None if members is None else len(members)
+    if saved_p is not None and saved_p != want_p:
+        raise ValueError(
+            f"checkpoint {dirname} holds a population of {saved_p} "
+            f"members but the config builds "
+            + ("no population" if want_p is None else f"{want_p}")
+            + f" — set population.size={saved_p} to resume it (restoring "
+            f"under another population size is ROADMAP.md Queue A item 12)")
     t0 = time.perf_counter()
     tensors = _read_tensors(dirname, verify, _state_device(target))
-    restored = _restore_leaves(target, tensors, meta.get("host", {}),
-                               dirname, "train-state")
+    host = meta.get("host", {})
+    if want_p is not None and saved_p is None:
+        restored = _lift_population(target, tensors, host, dirname)
+    else:
+        restored = _restore_leaves(target, tensors, host, dirname,
+                                   "train-state")
     LAST_TIMES.update({"load_s": time.perf_counter() - t0})
     return restored
 

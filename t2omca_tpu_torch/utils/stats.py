@@ -26,8 +26,16 @@ on the host from that copy, as the JAX accumulator does (numpy float32
 sums of ``ret[sel]``, accumulated in Python floats), and a flush logs
 ``<prefix>slice<fam>_n``, ``_return_mean`` and ``_<key>_mean`` rows only
 when the flushed episodes span more than one family, so a single-
-scenario run keeps its stream unchanged. Population (``pop<i>_*``) rows
-are ``ROADMAP.md`` item 11's second step.
+scenario run keeps its stream unchanged.
+
+A population (``StatsAccumulator(population=P)``, ``population.py``)
+pushes stats with a leading ``(P,)`` member axis. The same fold also sums
+each member's episodes (numpy's float32 sum of the member's slice, on the
+device, in the same one copy), and a flush at P > 1 logs
+``<prefix>pop<i>_return_mean`` and ``_<key>_mean`` for
+``POP_MEMBER_KEYS``; at every P it refreshes ``member_return_ema``, PBT's
+ranking. The aggregate rows are over all members' episodes, and the
+logged ``epsilon`` is member 0's, as in JAX; P = 1 keeps the solo stream.
 """
 
 from __future__ import annotations
@@ -53,6 +61,11 @@ TERMINAL_INFO_KEYS = (
 #: generalization-relevant rates
 SLICE_KEYS = ("conflict_ratio", "task_completion_rate",
               "deadline_miss_rate")
+
+#: per-member keys of the population's ``pop<i>_*`` rows (with
+#: ``pop<i>_return_mean``)
+POP_MEMBER_KEYS = ("task_completion_rate", "conflict_ratio",
+                   "deadline_miss_rate")
 
 #: numpy's pairwise-summation leaf size (``PW_BLOCKSIZE``) and its
 #: iterator's buffer size (a reduction's inner loop sees at most this
@@ -145,6 +158,9 @@ class _Pending:
     #: (1 + len(SLICE_KEYS), n) f32: the family ids, then the per-episode
     #: values of SLICE_KEYS
     slices: torch.Tensor
+    #: under a population: (P,) member return sums, then the terminal
+    #: keys' member sums (len(keys) · P, key-major); else empty
+    members: torch.Tensor
 
 
 class StatsAccumulator:
@@ -159,8 +175,15 @@ class StatsAccumulator:
     #: on the device when ``runner_log_interval`` spans many rollouts
     FOLD_EVERY = 64
 
-    def __init__(self):
+    def __init__(self, population: int = 0):
         self.n_episodes = 0
+        #: P > 0: pushed stats carry a leading (P,) member axis
+        self.population = population
+        #: per-member return EMA across flushes (PBT's ranking); None
+        #: until the member has flushed once
+        self.member_return_ema: List = [None] * max(population, 0)
+        # member id -> {n, return, <TERMINAL_INFO_KEYS sums>}
+        self._members = defaultdict(lambda: defaultdict(float))
         #: device→host round-trips this accumulator has performed (folds
         #: + mid-interval epsilon reads), logged as ``stat_fetches``
         self.fetches = 0
@@ -183,7 +206,12 @@ class StatsAccumulator:
         slices = torch.stack([rollout_stats.scenario.reshape(-1).float()]
                              + [getattr(rollout_stats, k).reshape(-1).float()
                                 for k in SLICE_KEYS])
-        self._pending.append(_Pending(ret, np_sum_f32(rows), keys, slices))
+        p = self.population
+        members = (torch.cat([np_sum_f32(ret.reshape(p, -1)),
+                              np_sum_f32(rows.reshape(len(keys) * p, -1))])
+                   if p else ret.new_zeros(0))
+        self._pending.append(_Pending(ret, np_sum_f32(rows), keys, slices,
+                                      members))
         self._eps_ref = rollout_stats.epsilon
         # episode count is static shape info — reading it syncs nothing
         self.n_episodes += int(
@@ -198,7 +226,7 @@ class StatsAccumulator:
             return
         self.fetches += 1
         flat = torch.cat([t.reshape(-1) for p in self._pending
-                          for t in (p.returns, p.sums, p.slices)]
+                          for t in (p.returns, p.sums, p.slices, p.members)]
                          ).cpu().numpy()
         at = 0
         for p in self._pending:
@@ -212,10 +240,23 @@ class StatsAccumulator:
             rows = flat[at:at + p.slices.numel()].reshape(-1, n)
             at += p.slices.numel()
             self._fold_slices(ret, rows[0].astype(np.int64), rows[1:])
-        # the most recent push's epsilon (a stacked push's LAST row); the
-        # port's epsilon is a host value already
+            if self.population:
+                pop = self.population
+                msum = flat[at:at + p.members.numel()]
+                at += p.members.numel()
+                for m in range(pop):
+                    mem = self._members[m]
+                    mem["n"] += float(n // pop)
+                    mem["return"] += float(msum[m])
+                    for i, k in enumerate(p.keys):
+                        mem[k] += float(msum[pop + i * pop + m])
+        # the most recent push's epsilon (a stacked push's LAST row; member
+        # 0's under a population); the port's epsilon is a host value
+        # already
         eps = np.asarray(torch.as_tensor(self._eps_ref).cpu()) \
             if self._eps_ref is not None else np.asarray(self._eps_val)
+        if self.population and self._eps_ref is not None:
+            eps = eps[0]
         self._eps_val = float(np.mean(eps.reshape(-1)[-1:]))
         self._eps_ref = None
         self._pending.clear()
@@ -241,6 +282,8 @@ class StatsAccumulator:
         if self._eps_ref is not None:
             self.fetches += 1
             eps = np.asarray(torch.as_tensor(self._eps_ref).cpu())
+            if self.population:
+                eps = eps[0]
             self._eps_val = float(eps.reshape(-1)[-1])
             self._eps_ref = None
         return self._eps_val
@@ -256,6 +299,23 @@ class StatsAccumulator:
         n = max(self.n_episodes, 1)
         for k, v in self._stats.items():
             logger.log_stat(prefix + k + "_mean", v / n, t_env)
+        if self.population:
+            for m in sorted(self._members):
+                mem = self._members[m]
+                if not mem.get("n"):
+                    continue
+                mn = max(mem["n"], 1.0)
+                r = mem["return"] / mn
+                ema = self.member_return_ema[m]
+                self.member_return_ema[m] = (
+                    r if ema is None else 0.7 * ema + 0.3 * r)
+                if self.population > 1:
+                    tag = f"{prefix}pop{m}_"
+                    logger.log_stat(tag + "return_mean", r, t_env)
+                    for k in POP_MEMBER_KEYS:
+                        if k in mem:
+                            logger.log_stat(tag + k + "_mean",
+                                            mem[k] / mn, t_env)
         if len(self._slices) > 1:
             for fam in sorted(self._slices):
                 sl = self._slices[fam]
@@ -268,5 +328,6 @@ class StatsAccumulator:
                     logger.log_stat(tag + k + "_mean", sl[k] / sn, t_env)
         self._returns.clear()
         self._stats.clear()
+        self._members.clear()
         self._slices.clear()
         self.n_episodes = 0

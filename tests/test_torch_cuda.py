@@ -776,3 +776,118 @@ def test_mixture_draw_on_cuda_equals_cpu(cuda_device):
         assert torch.equal(getattr(gpu, f.name).cpu(),
                            getattr(cpu, f.name)), f.name
     assert len(set(cpu.family.tolist())) == 4
+
+
+# ------------------------------------------------------------ the population
+
+def _population(cuda_device, p, **pop):
+    """A population of ``p`` on ``_loop_cfg``'s small widths (the default
+    stack, PER, pallas, K = 2) with its program and mirror."""
+    import dataclasses
+    from t2omca_tpu_torch import population as popmod
+    from t2omca_tpu_torch.config import sanity_check
+    from t2omca_tpu_torch.run import Experiment
+    cfg = _loop_cfg(use_entity_tables=True)
+    cfg = sanity_check(dataclasses.replace(
+        cfg, superstep=2, population=dataclasses.replace(
+            cfg.population, size=p, **pop)))
+    exp = Experiment.build(cfg, device=cuda_device)
+    pts, spec = popmod.init_population(exp, cfg)
+    prog = exp.population_superstep_program(2)
+    mirror = {"keys": popmod.member_keys(cfg, cuda_device), "t_env": 0,
+              "episode": 0, "filled": 0}
+    return exp, pts, spec, prog, mirror
+
+
+def _pop_dispatch(exp, prog, pts, spec, mirror, serial=False):
+    """One population dispatch the driver's way (one gate mirror, each
+    member's key split as the solo one) → (pts', stats, infos, gates)."""
+    from t2omca_tpu_torch import prng
+    cfg = exp.cfg
+    rows, gated = [], []
+    for _ in range(prog.k):
+        mirror["episode"] += cfg.batch_size_run
+        mirror["filled"] = min(mirror["filled"] + cfg.batch_size_run,
+                               cfg.replay.buffer_size)
+        gated.append(mirror["filled"] >= cfg.batch_size)
+        row = []
+        for m, key in enumerate(mirror["keys"]):
+            if gated[-1]:
+                mirror["keys"][m], k_s = prng.split(key).unbind(0)
+                row.append(k_s)
+            else:
+                row.append(torch.zeros_like(key))
+        rows.append(torch.stack(row))
+    out = prog(pts, torch.stack(rows, 1), mirror["t_env"], gated, spec,
+               serial=serial)
+    mirror["t_env"] += (prog.k * cfg.batch_size_run
+                        * cfg.env_args.episode_limit)
+    return out + (gated,)
+
+
+def _snapshot(pts, stats, infos):
+    from t2omca_tpu_torch.utils.checkpoint import flatten_state
+    out = {f"{m}.{k}": v.clone() for m, t in enumerate(pts)
+           for k, v in flatten_state(t)[0].items()}
+    out.update({f"stats.{k}": v.clone()
+                for k, v in flatten_state(stats)[0].items()})
+    out.update({f"info.{k}": v.clone() for k, v in infos.items()})
+    return out
+
+
+@pytest.mark.cuda
+def test_population_overlapped_replay_equals_serial(cuda_device):
+    """Three members with an lr, epsilon and PER-exponent grid and the
+    scenario salt, each replaying its own graphs on its own stream: a
+    dispatch with the members overlapped is bit-identical to the same
+    dispatch with the members run one after another (each synced), from
+    one state (params, Adam, rings, priorities, runners, stats, infos),
+    and makes no host sync."""
+    from t2omca_tpu_torch.train.superstep import clone_state
+    exp, pts, spec, prog, mirror = _population(
+        cuda_device, 3, lr=(1e-4, 5e-4, 2e-3), eps_scale=(1.0, 0.5, 2.0),
+        per_alpha=(0.4, 0.6, 0.9), scenario_salt=True)
+    for _ in range(3):          # warm-up where needed, captures, replays
+        pts, _, _, _ = _pop_dispatch(exp, prog, pts, spec, mirror)
+    assert all(set(m.graphs) == {"rollout", "train"} for m in prog.members)
+    assert len({m.stream.cuda_stream for m in prog.members}) == 3
+    start, at = [clone_state(t) for t in pts], dict(
+        mirror, keys=list(mirror["keys"]))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = _pop_dispatch(exp, prog, pts, spec, mirror)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    overlapped = _snapshot(*out[:3])
+    assert bool(out[2]["all_finite"].all())
+    serial = _snapshot(*_pop_dispatch(exp, prog, start, spec, at,
+                                      serial=True)[:3])
+    assert set(overlapped) == set(serial)
+    for k, v in overlapped.items():
+        assert torch.equal(v, serial[k]), k
+
+
+@pytest.mark.cuda
+def test_population_dispatch_launch_counts(cuda_device):
+    """A P = 2 dispatch of replays launches each kernel P times a gated
+    sub-iteration's train replay, and a train replay launches what one
+    eager train step launches."""
+    from t2omca_tpu_torch.kernels import attention as att
+    from t2omca_tpu_torch.run import run_classic
+    exp, pts, spec, prog, mirror = _population(cuda_device, 2)
+    for _ in range(3):
+        pts, _, _, _ = _pop_dispatch(exp, prog, pts, spec, mirror)
+    att.reset_launches()
+    pts, _, _, gated = _pop_dispatch(exp, prog, pts, spec, mirror)
+    torch.cuda.synchronize()
+    got = dict(att.LAUNCHES)
+    ts = exp.init_state(5)
+    ts, _, _ = run_classic(exp, ts, 1)
+    att.reset_launches()
+    run_classic(exp, ts, 1)
+    torch.cuda.synchronize()
+    step = dict(att.LAUNCHES)
+    assert step["flash_bwd_dkv"] > 0 and all(gated)
+    assert got == {k: 2 * len(gated) * v for k, v in step.items()}
+    assert all(m.launches["train"] == step for m in prog.members)

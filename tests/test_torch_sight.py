@@ -381,13 +381,22 @@ def test_monitor_matches_jax_on_one_stream():
 
 
 def test_make_monitor_gates_and_refuses_a_population():
+    """Off is None, on is a ``SightMonitor``, and a population gets the
+    per-member ``PopulationSightMonitor`` (it raised before the population
+    was ported; ``tests/test_torch_population.py`` holds it against
+    JAX's): one monitor a member, named ``pop<i>`` at P > 1 and as the solo
+    run at P = 1."""
     from types import SimpleNamespace
     off = SimpleNamespace(sight=SightConfig())
     on = SimpleNamespace(sight=SightConfig(enabled=True))
     assert sight.make_monitor(off) is None
+    assert sight.make_monitor(off, population=2) is None
     assert isinstance(sight.make_monitor(on), sight.SightMonitor)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        sight.make_monitor(on, population=2)
+    for p in (1, 3):
+        mon = sight.make_monitor(on, population=p)
+        assert isinstance(mon, sight.PopulationSightMonitor)
+        assert [m.member for m in mon.members] == (
+            [None] if p == 1 else [0, 1, 2])
 
 
 def _stdout(fn, *a):
