@@ -175,6 +175,19 @@ failed check ends the script with a non-zero exit):
              rows, K1 launches a dispatch; the f32 actions and hiddens
              equal an in-memory front end's from the same agent leaves,
              and a tampered blob is refused
+   fleet     the serving fleet (serve/fleet.py) over [artifact]'s
+             dense pallas artifact, 2 engines on their own CUDA streams:
+             requests of 1, 7, 64 and 150 rows and a 3-turn session
+             through fleet.select equal to one front end bit for bit, K1
+             launches exact across the engine threads, the per-size
+             p50; a rolling refresh to [driver]'s first checkpoint (equal
+             to an in-memory front end of its agent leaves afterwards),
+             serve refresh's dry run, a checkpoint of another width
+             refused while serving; JAX's bench_serve_chaos schedule
+             (8 s of bursty Pareto traffic, engine 0 killed, a refresh
+             to a missing checkpoint, engine 1 hung): nothing
+             unresolved, the refresh refused, both engines serving at the
+             end, legal actions, K1 launches exact by dtype
 11. scenarios  configs/config6_scenarios.yaml as shipped (the four-
              family mixture, min_agents 4, the mixer padding mask, K = 4,
              f32) with kernels.attention=pallas: the CPU path's launches
@@ -188,11 +201,21 @@ failed check ends the script with a non-zero exit):
              t2omca_tpu_torch train cut in t_max to two dispatches: the
              launches, slice<fam>_* rows for at least three families in
              train and test, the dispatch times, the capture seconds
+   report    python -m t2omca_tpu_torch train (a subprocess) on config 6
+             with T cut to 30, obs.program_trace and a profile_dir window
+             over the third of four K = 4 dispatches: device_times.json
+             with the superstep and the two kernel rows (their events K
+             train replays' launches), obs report and obs timeline exit
+             0; the host time of the dispatches before and after the
+             window (CUPTI's cost)
 12. summary  the kernels JSON line, the card line, the result line
 
 Run from the repository root: ``python3 chip_smoke.py``. The last line
 is ``{"ok": true, "device": {...}}``; it is printed only when every
-phase passed.
+phase passed. The script sets ``TEARDOWN_CUPTI=1`` for itself (unless the
+caller set it), so the phases after its first profiler session measure
+without CUPTI's per-launch callbacks; [report]'s training subprocess
+runs without it.
 """
 
 from __future__ import annotations
@@ -274,10 +297,14 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 
 def device_rows(prof, n_iter: int = 1) -> list:
     """[(device ms per iteration, launches per iteration, name)] of every
-    kernel and copy in a torch.profiler trace, by self device time."""
+    kernel and copy in a torch.profiler trace, by self device time. The
+    program ranges (``obs/device_time.PROGRAMS``: ``record_function``
+    annotations, which the profiler also lays on the device's timeline
+    over their kernels) are not kernels and are left out."""
+    from t2omca_tpu_torch.obs.device_time import PROGRAMS
     rows = []
     for e in prof.key_averages():
-        if not str(e.device_type).endswith("CUDA"):
+        if not str(e.device_type).endswith("CUDA") or e.key in PROGRAMS:
             continue
         us = getattr(e, "self_device_time_total", None)
         if us is None:
@@ -2377,8 +2404,9 @@ def phase_driver(torch, att, loop: dict, after=None) -> dict:
     """The training driver through ``python -m t2omca_tpu_torch``'s
     ``main``: config 3 uncut (one K = 4 dispatch, the test, save and log
     cadences), an exact resume, a SIGTERM'd subprocess and evaluate.
-    ``after(models_dir)`` runs on the resumed run's checkpoint directory
-    before it is deleted; its result is ``result["after"]`` and its
+    ``after(models_dir, first_agent)`` runs on the resumed run's
+    checkpoint directory and a checkpoint of the first run's agent leaves
+    before they are deleted; its result is ``result["after"]`` and its
     seconds ``result["after_s"]``."""
     import gc
     import glob
@@ -2625,6 +2653,12 @@ def phase_driver(torch, att, loop: dict, after=None) -> dict:
         del saved
         gc.collect()
         torch.cuda.empty_cache()
+        # the first checkpoint's agent leaves, for what runs after the
+        # phase (a refresh target), before its 2.7 GB go
+        first_agent = os.path.join(tmp, "first_agent")
+        ckpt.save_checkpoint(first_agent, found[1], {"learner": {"params": {
+            "agent": ckpt._read_tensors(found[0], False, "cpu", mmap=True,
+                                        prefix="learner.params.agent.")}}})
         shutil.rmtree(model_dir, ignore_errors=True)   # free the disk early
         resumed_models = _one_dir(os.path.join(out2, "models", "*"))
 
@@ -2769,7 +2803,7 @@ def phase_driver(torch, att, loop: dict, after=None) -> dict:
         result["eval_episode_ms"] = per_ep * 1e3
         if after is not None:
             t0 = time.perf_counter()
-            result["after"] = after(resumed_models)
+            result["after"] = after(resumed_models, first_agent)
             result["after_s"] = time.perf_counter() - t0
     finally:
         logs.close()
@@ -2787,14 +2821,16 @@ ARTIFACT_VARIANTS = {
 }
 
 
-def phase_artifact(torch, att, model_dir: str) -> dict:
+def phase_artifact(torch, att, model_dir: str, then=None) -> dict:
     """[driver]'s config 3 checkpoint exported through ``python -m
     t2omca_tpu_torch.serve export`` (its ``main``) as shipped and with
     the dense agent on K1, each loaded with ``ServeFrontend.load`` on the
     card in f32 and bf16: export seconds, bytes a variant, load seconds,
     first-request and warm p50 at each request size, K1 launches a
     dispatch; the f32 actions equal an in-memory front end's built from
-    the same checkpoint's agent leaves, and a tampered blob is refused."""
+    the same checkpoint's agent leaves, and a tampered blob is refused.
+    ``then(artifact_dirs)`` (``{tag: dir}``) runs before they are
+    deleted; its result is ``result["then"]``."""
     import shutil
     import tempfile
     import numpy as np
@@ -2906,13 +2942,382 @@ def phase_artifact(torch, att, model_dir: str) -> dict:
             except ValueError as e:
                 refused = "integrity" in str(e)
             check(refused, f"[artifact] {tag}: a tampered blob loaded")
+            # the intact blob back, for what runs after this phase
+            with open(bad, "r+b") as f:
+                f.seek(os.path.getsize(bad) // 2)
+                f.write(byte)
         print(f"[artifact] checkpoint t_env {t_env}: f32 actions and "
               f"hiddens of each loaded front end equal an in-memory one "
               f"built from the checkpoint's agent leaves (150 rows); a "
               f"tampered blob is refused", flush=True)
+        if then is not None:
+            result["then"] = then({tag: os.path.join(tmp, tag)
+                                   for tag in ARTIFACT_VARIANTS})
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
         torch.cuda.empty_cache()
+    return result
+
+
+#: the chaos leg of [fleet]: JAX's ``bench_serve_chaos`` schedule
+#: (``bench.py``) over this many seconds of open-loop arrivals
+CHAOS_SECONDS = 8.0
+
+
+def _legal(avail, actions) -> bool:
+    import numpy as np
+    n, a = actions.shape
+    return bool(avail[np.arange(n)[:, None], np.arange(a)[None],
+                      actions].all())
+
+
+def phase_fleet(torch, att, art: str, over, first_ckpt: str,
+                profiled: bool) -> dict:
+    """The serving fleet (``serve/fleet.py``) over [artifact]'s dense
+    pallas artifact at the north-star widths: 2 engines, each on its own
+    stream. Clean: requests of 1, 7, 64 and 150 rows and a 3-turn session
+    through ``fleet.select``, f32 actions and hiddens equal to one front
+    end's bit for bit, K1's launches exact across both engine threads
+    (depth a dispatch), the per-size p50. Refresh: both engines rolled to
+    [driver]'s first checkpoint (the artifact holds the resumed one's
+    params), then equal to an in-memory front end of its agent leaves; the
+    ``serve refresh`` CLI says compatible; a checkpoint of another width
+    is refused while the fleet serves. Chaos: JAX's ``bench_serve_chaos``
+    schedule (bursty Pareto traffic, engine 0 killed, a refresh to a
+    checkpoint that does not exist, engine 1 hung): every request
+    resolved, the refresh refused, both engines serving at the end, every
+    ok result's actions legal, K1's launches exact over the window (a bf16
+    rung served through bf16 K1 if it fired)."""
+    import shutil
+    import tempfile
+    import numpy as np
+    from t2omca_tpu_torch.config import load_config
+    from t2omca_tpu_torch.serve.frontend import ServeFrontend
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    cfg = load_config(os.path.join(root, DRIVER_CONFIG), over)
+    with open(os.path.join(art, "meta.json")) as f:
+        meta = json.load(f)
+    rng = np.random.default_rng(SEED + 95)
+    one = ServeFrontend.load(art)
+    a, od, na = one.n_agents, one.obs_dim, one.n_actions
+    check((a, cfg.model.emb, cfg.model.depth) == (64, 256, 2)
+          and not cfg.model.use_qslice
+          and cfg.kernels.attention == "pallas",
+          "[fleet] the artifact is not the north-star dense pallas one")
+
+    def request(n):
+        obs = rng.standard_normal((n, a, od)).astype(np.float32)
+        avail = rng.random((n, a, na)) < 0.6
+        avail[..., 0] = True
+        return obs, avail
+
+    tmp = tempfile.mkdtemp(prefix=".chip_smoke_fleet_", dir=root)
+    try:
+        return _fleet_legs(torch, att, art, cfg, meta, one, request, tmp,
+                           first_ckpt, profiled, t_phase)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
+def _fleet_legs(torch, att, art, cfg, meta, one, request, tmp, first_ckpt,
+                profiled, t_phase) -> dict:
+    """[fleet]'s three legs (``phase_fleet``)."""
+    import contextlib
+    import io
+    import threading
+    import numpy as np
+    from t2omca_tpu_torch.config import from_dict
+    from t2omca_tpu_torch.run import Experiment
+    from t2omca_tpu_torch.serve import __main__ as serve_cli
+    from t2omca_tpu_torch.serve.export import AGENT_PREFIX
+    from t2omca_tpu_torch.serve.fleet import FleetConfig, ServeFleet
+    from t2omca_tpu_torch.serve.frontend import ServeFrontend
+    from t2omca_tpu_torch.utils import resilience
+    from t2omca_tpu_torch.utils.checkpoint import (_read_tensors,
+                                                   find_checkpoint,
+                                                   save_checkpoint)
+    rng = np.random.default_rng(SEED + 96)
+    depth, bmax = cfg.model.depth, meta["buckets"][-1]
+    # no hedging in the clean leg: a hedge dispatches a request twice,
+    # and the launch count below is exact
+    fleet = ServeFleet(art, n_engines=2, cfg=FleetConfig(
+        poll_s=0.005, hedge_after_s=3600.0)).start()
+    try:
+        # ---- 1. clean ----------------------------------------------------
+        check(fleet.serving_engines() == 2, f"[fleet] {fleet.stats()}")
+        streams = [e.stream for e in fleet.engines]
+        check(all(s is not None for s in streams)
+              and streams[0] != streams[1]
+              and all(s != torch.cuda.current_stream() for s in streams),
+              "[fleet] the engines do not have streams of their own")
+        reqs = [request(n) for n in REQUEST_SIZES for _ in range(1 + REPEATS)]
+        want = [one.select(o, av) for o, av in reqs]
+        # a 3-turn session: the hidden carried through one front end, and
+        # below through the fleet
+        sess = request(7)
+        turns, h_1 = [], None
+        for _ in range(3):
+            a1, h_1 = one.select(*sess, h_1)
+            turns.append((a1, h_1))
+        att.reset_launches()             # ---- the fleet path starts here
+        pending = [fleet.submit(o, av) for o, av in reqs]
+        got = [r.wait(60.0) for r in pending]
+        h_f = None
+        for a1, h1 in turns:
+            r = fleet.select(*sess, hidden=h_f)
+            check(r.ok, f"[fleet] session turn: {r.status} {r.error}")
+            check(np.array_equal(r.actions, a1)
+                  and np.array_equal(r.hidden, h1),
+                  "[fleet] a session turn differs from one front end")
+            h_f = r.hidden
+        launches = dict(att.LAUNCHES)    # ---- and ends here
+        dispatches = sum(-(-o.shape[0] // bmax) for o, _ in reqs) \
+            + 3 * -(-7 // bmax)
+        for r, (aw, hw), (o, av) in zip(got, want, reqs):
+            check(r.ok, f"[fleet] clean request: {r.status} {r.error}")
+            check(np.array_equal(r.actions, aw)
+                  and np.array_equal(r.hidden, hw),
+                  f"[fleet] n={o.shape[0]}: the fleet's f32 actions or "
+                  f"hiddens differ from one front end's")
+            check(_legal(av, r.actions), "[fleet] illegal action")
+        engines = {r.engine for r in got}
+        check(engines == {0, 1}, f"[fleet] requests served by {engines}")
+        check(launches == {"flash_fwd": depth * dispatches,
+                           "flash_fwd_res": 0, "flash_bwd_dq": 0,
+                           "flash_bwd_dkv": 0},
+              f"[fleet] launches {launches} for {dispatches} dispatches "
+              f"across both engine threads")
+        p50 = {}
+        for n in REQUEST_SIZES:
+            lat = []
+            for _ in range(REPEATS):
+                r = fleet.select(*request(n))
+                check(r.ok, f"[fleet] n={n}: {r.status} {r.error}")
+                lat.append(r.latency_ms)
+            p50[n] = statistics.median(lat)
+        print(f"[fleet] clean: 2 engines on their own streams over the "
+              f"{meta['n_agents']}-AGV dense pallas artifact; "
+              f"{len(reqs)} concurrent requests (1, 7, 64, 150 rows) and a "
+              f"3-turn session equal one front end bit for bit (f32 actions "
+              f"and hiddens), served by engines {sorted(engines)}; "
+              f"flash_fwd {launches['flash_fwd']} = {depth} x {dispatches} "
+              f"dispatches across both threads; fleet.select p50 ms: "
+              + ", ".join(f"n={n}: {v:.2f}" for n, v in p50.items()),
+              flush=True)
+        result = {"launches": launches, "p50_ms": p50}
+
+        # ---- 2. refresh --------------------------------------------------
+        first_dir, first_t = find_checkpoint(first_ckpt)
+        check(first_t != meta["checkpoint"]["t_env"],
+              "[fleet] the first checkpoint is the artifact's")
+        obs, avail = request(150)
+        before = fleet.select(obs, avail)
+        t0 = time.perf_counter()
+        out = fleet.refresh(first_ckpt)
+        refresh_s = time.perf_counter() - t0
+        check(out["status"] == "ok" and out["engines"] == 2,
+              f"[fleet] refresh {out}")
+        agent = _read_tensors(first_dir, False, "cpu", mmap=True,
+                              prefix=AGENT_PREFIX)
+        mem = ServeFrontend(cfg, agent, meta["buckets"])
+        aw, hw = mem.select(obs, avail)
+        after = [fleet.submit(obs, avail) for _ in range(4)]
+        after = [r.wait(60.0) for r in after]
+        check(all(r.ok and np.array_equal(r.actions, aw)
+                  and np.array_equal(r.hidden, hw) for r in after),
+              "[fleet] after the refresh the actions differ from an "
+              "in-memory front end of the first checkpoint")
+        changed = int((before.actions != aw).sum())
+        check(changed > 0, "[fleet] the refresh changed no action")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = serve_cli.main(["refresh", art, first_ckpt])
+        check(rc == 0 and "refresh compatible" in buf.getvalue(),
+              f"[fleet] serve refresh: {rc} {buf.getvalue()!r}")
+        small = from_dict({
+            "batch_size_run": 2, "batch_size": 2,
+            "env_args": {"agv_num": 4, "mec_num": 2, "num_channels": 2,
+                         "episode_limit": 4},
+            "model": {"emb": 16, "heads": 2, "depth": 2, "mixer_emb": 16,
+                      "mixer_heads": 2, "mixer_depth": 1},
+            "replay": {"buffer_size": 4}})
+        wide = os.path.join(tmp, "wide")
+        save_checkpoint(wide, 8, Experiment.build(small).init_state(0))
+        bad = fleet.refresh(wide)
+        check(bad["status"] == "refused", f"[fleet] other width: {bad}")
+        r = fleet.select(obs, avail)
+        check(r.ok and np.array_equal(r.actions, aw)
+              and fleet.serving_engines() == 2,
+              "[fleet] serving after the refused refresh")
+        print(f"[fleet] refresh: both engines rolled to [driver]'s first "
+              f"checkpoint (t_env {first_t}; the artifact's is "
+              f"{meta['checkpoint']['t_env']}) in {refresh_s:.2f} s "
+              f"({out['leaves_checked']} leaves checked), {changed} of "
+              f"{aw.size} actions changed, all equal to an in-memory front "
+              f"end of its agent leaves bit for bit; serve refresh: "
+              f"compatible; a checkpoint of another width refused "
+              f"({bad['reason'][:80]}...) while both engines served",
+              flush=True)
+        result["refresh_s"] = refresh_s
+    finally:
+        fleet.stop()
+    del one, mem
+    torch.cuda.empty_cache()
+
+    # ---- 3. chaos: bench_serve_chaos's schedule ---------------------------
+    duration, n_eng = CHAOS_SECONDS, 2
+    fcfg = FleetConfig(queue_depth=32, deadline_s=max(2.0, duration / 2.5),
+                       dispatch_timeout_s=max(0.75, min(2.0, duration / 6.0)),
+                       restart_backoff_s=0.05, restart_backoff_max_s=0.5,
+                       ladder_cooldown_s=0.25)
+    counts = {"float32": 0, "bfloat16": 0}
+    lock = threading.Lock()
+    original = ServeFrontend._dispatch
+
+    def counted(self, *args):
+        out = original(self, *args)
+        with lock:
+            counts[self.dtype] += 1
+        return out
+
+    fleet = ServeFleet(art, n_engines=n_eng, cfg=fcfg).start()
+    levels = []
+    try:
+        check(fleet.serving_engines() == 2, f"[fleet] chaos start "
+                                            f"{fleet.stats()}")
+        sizes = np.minimum(1 + rng.pareto(1.1, 4096).astype(np.int64),
+                           2 * bmax)
+        pool = {int(n): request(int(n)) for n in np.unique(sizes)}
+        kill_at, refresh_at = 0.25 * duration, 0.40 * duration
+        hang_at = 0.55 * duration
+        hang_s = fcfg.dispatch_timeout_s + min(1.5, 0.2 * duration)
+        killed, hung = [], []
+        t_warm0 = time.perf_counter()
+        check(fleet.select(*pool[min(pool)]).ok, "[fleet] chaos warm")
+        warm_s = max(time.perf_counter() - t_warm0, 1e-4)
+        base_rate = max(10.0, min(200.0, 1.5 * n_eng / warm_s))
+        bursts = [(0.2 * duration, 0.3 * duration),
+                  (0.5 * duration, 0.65 * duration),
+                  (0.8 * duration, 0.9 * duration)]
+        ServeFrontend._dispatch = counted
+        att.reset_launches()             # ---- the chaos window starts here
+        t0 = time.monotonic()
+
+        def schedule(engine, attempt, rid, **kw):
+            now = time.monotonic() - t0
+            if engine == 0 and not killed and now >= kill_at:
+                killed.append(now)
+                raise RuntimeError("chaos: engine killed (injected)")
+            if engine == 1 % n_eng and not hung and now >= hang_at:
+                hung.append(now)
+                time.sleep(hang_s)
+
+        resilience.register_fault("fleet.dispatch", schedule)
+        refresh_out = {}
+        poison = threading.Timer(refresh_at, lambda: refresh_out.update(
+            fleet.refresh(os.path.join(art, "_no_such_checkpoint"))))
+        poison.daemon = True
+        poison.start()
+        sent = []
+        t, i = 0.0, 0
+        while t < duration:
+            now = time.monotonic() - t0
+            levels.append(fleet._ladder.level)
+            if now < t:
+                time.sleep(min(t - now, 0.05))
+                continue
+            n = int(sizes[i % len(sizes)])
+            burst = any(lo <= t < hi for lo, hi in bursts)
+            sent.append((fleet.submit(*pool[n]), n, burst))
+            i += 1
+            t += rng.exponential(1.0 / (base_rate * (5.0 if burst
+                                                     else 1.0)))
+        results = [r.wait(timeout=fcfg.deadline_s + 2.0) for r, _, _ in
+                   sent]
+        poison.join(timeout=30.0)
+        # the hung engine's restart: both serving again, bounded wait
+        end = time.monotonic() + 10.0
+        while fleet.serving_engines() < n_eng and time.monotonic() < end:
+            time.sleep(0.05)
+        # quiesce before reading the counts: no dispatch in flight
+        end = time.monotonic() + 10.0
+        while any(e.current is not None for e in fleet.engines) \
+                and time.monotonic() < end:
+            time.sleep(0.01)
+        torch.cuda.synchronize()
+        launches = dict(att.LAUNCHES)    # ---- and ends here
+        with lock:
+            done = dict(counts)
+        stats = fleet.stats()
+    finally:
+        ServeFrontend._dispatch = original
+        resilience.clear_faults("fleet.dispatch")
+        serving_end = fleet.serving_engines()
+        fleet.stop()
+    by = {}
+    for r in results:
+        by[r.status] = by.get(r.status, 0) + 1
+    unresolved = sum(1 for r in results if r.status == "error"
+                     and "unresolved" in (r.error or ""))
+    ok_lat = sorted(r.latency_ms for r in results if r.ok)
+    burst_lat = sorted(r.latency_ms for r, (_, _, b) in zip(results, sent)
+                       if r.ok and b)
+    check(unresolved == 0, f"[fleet] chaos: {unresolved} unresolved")
+    check(bool(ok_lat), f"[fleet] chaos: no request served {by}")
+    check(sum(by.values()) == len(sent), "[fleet] chaos: unaccounted")
+    check(refresh_out.get("status") == "refused",
+          f"[fleet] chaos: poisoned refresh {refresh_out}")
+    check(serving_end == n_eng, f"[fleet] chaos: {serving_end} engines "
+                                f"serving at the end: {stats['engines']}")
+    check(killed and hung and stats.get("fleet_stalls_total", 0) >= 1
+          and stats.get("fleet_restarts_total", 0) >= 2,
+          f"[fleet] chaos: faults did not land: killed {killed}, hung "
+          f"{hung}, {stats}")
+    for r, (_, n, _) in zip(results, sent):
+        if r.ok:
+            check(_legal(pool[n][1], r.actions), "[fleet] chaos: illegal "
+                                                  "action")
+    bf16_rung = max(levels) == len(fleet._ladder.rungs) - 1
+    check(launches["flash_fwd"] == depth * (done["float32"]
+                                            + done["bfloat16"])
+          and sum(launches.values()) == launches["flash_fwd"],
+          f"[fleet] chaos launches {launches} for dispatches {done}")
+    check(done["bfloat16"] > 0 if bf16_rung else True,
+          f"[fleet] chaos: the bf16 rung fired but served no bf16 K1 "
+          f"dispatch {done}")
+    p50, p99 = np.percentile(ok_lat, [50, 99]) if ok_lat else (None, None)
+    bp50, bp99 = (np.percentile(burst_lat, [50, 99]) if burst_lat
+                  else (float("nan"), float("nan")))
+    recov = stats["recoveries_s"]
+    print(f"[fleet] chaos ({duration:.0f} s, JAX's bench_serve_chaos "
+          f"schedule, {base_rate:.0f}/s base, 5x bursts): {len(sent)} "
+          f"requests — {by.get('ok', 0)} ok, {by.get('shed', 0)} shed "
+          f"(fraction {by.get('shed', 0) / max(len(sent), 1):.4f}), "
+          f"{by.get('deadline', 0)} deadline, {by.get('error', 0)} error, "
+          f"{unresolved} unresolved; latency p50 {p50:.2f} / p99 "
+          f"{p99:.2f} ms, under burst p50 {bp50:.2f} / p99 {bp99:.2f} ms; "
+          f"hedges {stats.get('fleet_hedges_total', 0)}, stalls "
+          f"{stats.get('fleet_stalls_total', 0)}, restarts "
+          f"{stats.get('fleet_restarts_total', 0)}, recoveries "
+          f"{recov} s; kill at {killed[0]:.2f} s, hang at {hung[0]:.2f} s,"
+          f" poisoned refresh {refresh_out.get('status')}; ladder peak "
+          f"level {max(levels)}/{len(fleet._ladder.rungs) - 1} "
+          f"({'the bf16 rung fired' if bf16_rung else 'no bf16 rung'}); "
+          f"dispatches f32 {done['float32']} / bf16 {done['bfloat16']}, "
+          f"flash_fwd {launches['flash_fwd']}; both engines serving at the "
+          f"end; a profiler session ran earlier in this process: "
+          f"{'yes' if profiled else 'no'} (TEARDOWN_CUPTI="
+          f"{os.environ.get('TEARDOWN_CUPTI', 'unset')}) | {smi_line()}",
+          flush=True)
+    result.update(chaos={"requests": len(sent), **by,
+                         "unresolved": unresolved, "p50_ms": p50,
+                         "p99_ms": p99, "burst_p99_ms": bp99,
+                         "recoveries_s": recov},
+                  seconds=time.perf_counter() - t_phase)
+    result["launches"] = {k: result["launches"][k] + launches[k]
+                          for k in launches}
     return result
 
 
@@ -3166,6 +3571,121 @@ def phase_scenarios(torch, att, smi: str) -> dict:
             "capture_s": capture, "eager_s": eager_s, "first_s": first_s,
             "host_ms": host_ms, "iters_ms": iters,
             "driver_dispatch_ms": disp_ms, "driver_wall_s": wall}
+
+
+#: [report]: config 6 through the CLI with per-program device time over
+#: one dispatch of replays. T is cut from 150 to 30: a window's trace
+#: holds every kernel it saw (~1 M for one K = 4 dispatch at T = 150,
+#: ~65 s to export and parse on the card), and the phase must fit the
+#: script's time limit; the kernels, the graphs and K are config 6's
+REPORT_OVERRIDES = ("kernels.attention=pallas", "obs.enabled=true",
+                    "obs.program_trace=true", "profile_iterations=1",
+                    "env_args.episode_limit=30")
+
+
+def phase_report(torch, smi: str) -> dict:
+    """``python -m t2omca_tpu_torch train`` in a subprocess (a fresh
+    process: no profiler session before its window) on config 6 with T
+    cut to 30 (``REPORT_OVERRIDES``), ``obs.program_trace`` and a
+    ``profile_dir`` window over the third of four K = 4 dispatches (the
+    first captures the graphs, the second and the fourth replay them
+    before and after the window): ``device_times.json`` holds
+    ``superstep``, ``attn_pallas`` and ``attn_pallas_bwd``, each > 0, the
+    kernel rows within the superstep's and it within the window's
+    dispatch span; the kernel rows count K train replays' launches
+    (``loop_launches``: the trace holds the replayed graphs' kernels);
+    ``obs report`` and ``obs timeline`` (over the repo's BENCH records
+    and this run) exit 0 with the program table and the family slices.
+    Prints the host time of the dispatch before the window and of the
+    one after it (with ``profile_dir`` the driver syncs each dispatch, so
+    each is its device time plus the host's launch cost: CUPTI's cost is
+    the difference)."""
+    import shutil
+    import tempfile
+    from t2omca_tpu_torch.config import load_config
+    root = os.path.dirname(os.path.abspath(__file__))
+    cfg6 = os.path.join(root, SCENARIO_CONFIG)
+    tmp = tempfile.mkdtemp(prefix=".chip_smoke_report_", dir=root)
+    try:
+        over = REPORT_OVERRIDES + (f"profile_dir={os.path.join(tmp, 'tr')}",)
+        cfg = load_config(cfg6, over)
+        k = cfg.superstep
+        per = k * cfg.batch_size_run * cfg.env_args.episode_limit
+        res = os.path.join(tmp, "res")
+        cmd = [sys.executable, "-m", "t2omca_tpu_torch", "train",
+               "--config", cfg6, *over, f"profile_start={2 * per}",
+               f"t_max={4 * per - 1}", f"local_results_path={res}"]
+        t0 = time.perf_counter()
+        env = {k: v for k, v in os.environ.items() if k != "TEARDOWN_CUPTI"}
+        proc = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
+                              timeout=400, env=env)
+        wall = time.perf_counter() - t0
+        check(proc.returncode == 0, f"[report] train exited "
+              f"{proc.returncode}: {proc.stderr[-2000:]}")
+        run_dir = _one_dir(os.path.join(res, "qmix*"))
+        said = proc.stdout + proc.stderr
+        costs = [line.split("] ", 1)[-1] for line in said.splitlines()
+                 if "stop and export" in line or "parsed in" in line]
+        with open(os.path.join(run_dir, "device_times.json")) as f:
+            dt = json.load(f)["programs"]
+        spans = [e for e in _spans(res) if e.get("event") == "span"
+                 and e.get("phase") == "dispatch.superstep"]
+        check(len(spans) == 4, f"[report] {len(spans)} dispatch spans")
+        disp_ms = [e["wall_ms"] for e in spans]
+        sup = dt.get("superstep")
+        check(sup is not None and sup["device_ms"] > 0
+              and sup["events"] == 1, f"[report] superstep row {dt}")
+        for row in ("attn_pallas", "attn_pallas_bwd"):
+            check(dt.get(row, {}).get("device_ms", 0) > 0
+                  and dt[row]["device_ms"] <= sup["device_ms"],
+                  f"[report] {row} row {dt.get(row)} against the "
+                  f"superstep's {sup}")
+        check(sup["device_ms"] <= disp_ms[2],
+              f"[report] superstep device {sup['device_ms']} ms above the "
+              f"window's dispatch span {disp_ms[2]} ms")
+        step = loop_launches(cfg)
+        want = {"attn_pallas": k * (step["flash_fwd"]
+                                    + step["flash_fwd_res"]),
+                "attn_pallas_bwd": k * (step["flash_bwd_dq"]
+                                        + step["flash_bwd_dkv"])}
+        got = {row: dt.get(row, {}).get("events") for row in want}
+        check(got == want, f"[report] kernel events {got}, a K={k} train "
+                           f"replay's launches {want}")
+        rep = subprocess.run([sys.executable, "-m", "t2omca_tpu_torch.obs",
+                              "report", run_dir], cwd=root,
+                             capture_output=True, text=True, timeout=120)
+        check(rep.returncode == 0
+              and "dispatch.superstep" in rep.stdout
+              and "attn_pallas_bwd" in rep.stdout
+              and "scenario slices (train" in rep.stdout
+              and "scenario slices (test" in rep.stdout,
+              f"[report] obs report: {rep.returncode} {rep.stdout[-1500:]}"
+              f" {rep.stderr[-500:]}")
+        tl = subprocess.run([sys.executable, "-m", "t2omca_tpu_torch.obs",
+                             "timeline", *sorted(
+                                 __import__("glob").glob(os.path.join(
+                                     root, "BENCH_r*.json"))),
+                             "--runs", run_dir], cwd=root,
+                            capture_output=True, text=True, timeout=120)
+        check(tl.returncode == 0 and os.path.basename(run_dir) in tl.stdout,
+              f"[report] obs timeline: {tl.returncode} {tl.stderr[-500:]}")
+        print(f"[report] python -m t2omca_tpu_torch train --config "
+              f"{SCENARIO_CONFIG} {' '.join(REPORT_OVERRIDES)} in a "
+              f"subprocess (T = {cfg.env_args.episode_limit}), a window "
+              f"over dispatch 3 of 4: device_times "
+              + ", ".join(f"{n} {v['device_ms']:.1f} ms / {v['events']} "
+                          f"events" for n, v in sorted(dt.items()))
+              + f" (the kernel rows' events = a K={k} train replay's "
+              f"launches); obs report and obs timeline exit 0 with the "
+              f"program table and the family slices; the dispatches' host "
+              f"ms, each synced: {', '.join(f'{x:.0f}' for x in disp_ms)} "
+              f"(1: the captures; 2: before the window {disp_ms[1]:.0f}; "
+              f"4: after it {disp_ms[3]:.0f}, CUPTI attached); the "
+              f"window: {'; '.join(costs)}; whole call {wall:.1f} s | {smi}",
+              flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"device_times": dt, "dispatch_ms": disp_ms, "wall_s": wall}
 
 
 POPULATION_CONFIG = "configs/config7_population.yaml"
@@ -3531,6 +4051,13 @@ def phase_population(torch, att, smi: str, want_step=None) -> dict:
 
 
 def main() -> int:
+    # CUPTI stays attached after a torch.profiler session unless Kineto
+    # tears it down: every later launch then pays its callbacks (a graph
+    # launch ~60 ms of host time instead of ~2, an eager config 6
+    # iteration ~25% more; scripts/torch_graph_launch_cupti.py). The
+    # phases after [profile] measure without that; [report]'s subprocess
+    # runs with the environment a user has, without this setting
+    os.environ.setdefault("TEARDOWN_CUPTI", "1")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -3602,14 +4129,22 @@ def main() -> int:
     lap("loop-dense")
     noisy = phase_loop_noisy(torch, att)
     lap("loop-noisy")
-    driver = phase_driver(torch, att, loop, after=lambda models:
-                          phase_artifact(torch, att, models))
+    driver = phase_driver(torch, att, loop, after=lambda models, first:
+                          phase_artifact(torch, att, models, then=lambda arts:
+                                         phase_fleet(
+                                             torch, att, arts["pallas"],
+                                             ARTIFACT_VARIANTS["pallas"],
+                                             first, "profile" in phases)))
     lap("driver")
     artifact = driver.pop("after")
+    fleet = artifact.pop("then")
     phases["driver"] -= driver["after_s"]
-    phases["artifact"] = driver["after_s"]
+    phases["artifact"] = driver["after_s"] - fleet["seconds"]
+    phases["fleet"] = fleet["seconds"]
     scenarios = phase_scenarios(torch, att, smi)
     lap("scenarios")
+    report = phase_report(torch, smi)
+    lap("report")
     check(scenarios["want_step"] == CONFIG6_STEP,
           f"[population] counted against {CONFIG6_STEP}, but the CPU path "
           f"launches {scenarios['want_step']} a config 6 train iteration")
@@ -3619,7 +4154,7 @@ def main() -> int:
              "driver": {"launches": {
                  k: driver["launches"][k] + driver["launches_resume"][k]
                  for k in driver["launches"]}},
-             "artifact": artifact, "scenarios": scenarios,
+             "artifact": artifact, "fleet": fleet, "scenarios": scenarios,
              "population": population}
 
     def fwd_times(key):
@@ -3752,6 +4287,22 @@ def main() -> int:
               f"{v['bytes'] / 1e6:.2f} MB, load {v['load_s']:.2f} s, warm "
               f"p50 n=64 {v['warm_ms'][64]:.2f} ms"
               for (tag, dt), v in art.items()), flush=True)
+    ch = fleet["chaos"]
+    print(f"[summary] fleet (2 engines over [artifact]'s dense pallas "
+          f"artifact, f32): select p50 ms "
+          + ", ".join(f"n={n}: {v:.2f}" for n, v in fleet["p50_ms"].items())
+          + f"; refresh {fleet['refresh_s']:.2f} s; chaos "
+          f"{ch['requests']} requests, {ch.get('ok', 0)} ok, "
+          f"{ch.get('shed', 0)} shed, {ch['unresolved']} unresolved, p99 "
+          f"{ch['p99_ms']:.2f} ms (under burst {ch['burst_p99_ms']:.2f}), "
+          f"recoveries {ch['recoveries_s']} s", flush=True)
+    print(f"[summary] report (config 6 at T=30 through the CLI, "
+          f"obs.program_trace):"
+          f" " + ", ".join(f"{n} {v['device_ms']:.1f} ms"
+                           for n, v in sorted(report["device_times"].items()))
+          + f"; dispatch host ms before / after the window "
+          f"{report['dispatch_ms'][1]:.0f} / {report['dispatch_ms'][3]:.0f}",
+          flush=True)
     print(f"[summary] scenarios (config 6, K=4, f32, pallas): capture "
           f"rollout {scenarios['capture_s']['rollout'][0]:.2f} + "
           f"{scenarios['capture_s']['rollout'][1]:.2f} s, train "

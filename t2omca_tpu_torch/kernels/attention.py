@@ -58,6 +58,7 @@ K1 and CPU tensors run ``flash_attention_reference``.
 
 from __future__ import annotations
 
+import threading
 from typing import Optional, Tuple
 
 import torch
@@ -67,14 +68,23 @@ from torch.autograd.function import once_differentiable
 NEG_MASK_VALUE = -1e9
 
 #: launches of each kernel since the last ``reset_launches()``; a wrapper
-#: adds one exactly where it launches its kernel
+#: adds one exactly where it launches its kernel, through
+#: ``count_launch``, whose lock keeps the counts exact when several
+#: threads launch at once (the serving fleet's engines)
 LAUNCHES = {"flash_fwd": 0, "flash_fwd_res": 0, "flash_bwd_dq": 0,
             "flash_bwd_dkv": 0}
+_LAUNCHES_LOCK = threading.Lock()
+
+
+def count_launch(name: str, n: int = 1) -> None:
+    with _LAUNCHES_LOCK:
+        LAUNCHES[name] += n
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _LAUNCHES_LOCK:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
 
 
 def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -191,7 +201,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     ops.flash_fwd(q, k, v, bias, bool(causal), stream, out)
-    LAUNCHES["flash_fwd"] += 1
+    count_launch("flash_fwd")
     return out
 
 
@@ -208,7 +218,7 @@ def _launch_res(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     l = torch.empty_like(m)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     ops.flash_fwd_res(q, k, v, bias, bool(causal), stream, out, m, l)
-    LAUNCHES["flash_fwd_res"] += 1
+    count_launch("flash_fwd_res")
     return out, m, l
 
 
@@ -223,7 +233,7 @@ def _launch_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     stream = torch.cuda.current_stream(q.device).cuda_stream
     load().flash_bwd_dq(q, k, v, bias, do, m, l, delta, bool(causal),
                         stream, dq)
-    LAUNCHES["flash_bwd_dq"] += 1
+    count_launch("flash_bwd_dq")
     return dq
 
 
@@ -240,7 +250,7 @@ def _launch_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     stream = torch.cuda.current_stream(q.device).cuda_stream
     load().flash_bwd_dkv(q, k, v, bias, do, m, l, delta, bool(causal),
                          stream, dk, dv)
-    LAUNCHES["flash_bwd_dkv"] += 1
+    count_launch("flash_bwd_dkv")
     return dk, dv
 
 

@@ -24,6 +24,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from typing import List, Optional
 
@@ -41,6 +42,9 @@ HEADERS = ("flash_common.cuh", "flash_mma.cuh")
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 
 _loaded: Optional[str] = None
+#: held while a thread builds and registers the library: threads that
+#: call ``load`` at once (the serving fleet's engines) build it once
+_load_lock = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -146,13 +150,16 @@ def build(verbose: bool = False) -> str:
 
 
 def load():
-    """Build if needed, register the ops once, → ``torch.ops.t2omca``."""
+    """Build if needed, register the ops once per process (under a lock,
+    so concurrent first calls build once), → ``torch.ops.t2omca``."""
     global _loaded
     import torch
     if _loaded is None:
-        lib = build()
-        torch.ops.load_library(lib)
-        _loaded = lib
+        with _load_lock:
+            if _loaded is None:
+                lib = build()
+                torch.ops.load_library(lib)
+                _loaded = lib
     return torch.ops.t2omca
 
 

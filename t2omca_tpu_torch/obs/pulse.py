@@ -22,9 +22,9 @@
 The hub, the server and the handle are the JAX module's code: the
 Prometheus text and the ``/healthz`` body are byte-identical for the
 same calls. Where the port differs: a capture is a ``torch.profiler``
-Chrome trace (CPU activity, and CUDA activity on a card), not JAX's
-``ProgramTraceWindow``, so no ``device_times.json`` is written (that is
-``obs.program_trace``, ``ROADMAP.md`` item 13b); the driver labels
+Chrome trace (CPU activity, and CUDA activity on a card) taken by the
+port's ``obs/device_time.ProgramTraceWindow``, which refreshes
+``<run_dir>/device_times.json`` as JAX's captures do; the driver labels
 ``backend_info`` with the torch device type (``cuda``, ``cpu``).
 
 Stdlib-only at import; the trace controller imports torch's profiler
@@ -445,11 +445,12 @@ def make_pulse(obs_cfg, rec=NULL_RECORDER, log=None) -> Optional[PulseHandle]:
 class TraceController:
     """On-demand trace capture on a live run. ``poll(t_env)`` (called
     once per driver iteration, one ``os.path.exists`` when idle) arms a
-    bounded ``utils.profiling.TraceWindow`` (``torch.profiler``) when
-    either trigger fires; ``tick`` drives the active window exactly like
-    the static profiler window. Each capture lands in its own
-    ``pulse_trace_<n>_t<t_env>`` directory as a Chrome trace. A new
-    trigger is accepted once the previous window closed."""
+    bounded ``obs.device_time.ProgramTraceWindow`` (``torch.profiler``)
+    when either trigger fires; ``tick`` drives the active window exactly
+    like the static profiler window. Each capture lands in its own
+    ``pulse_trace_<n>_t<t_env>`` directory as a Chrome trace and
+    refreshes ``<run_dir>/device_times.json`` (the newest capture wins).
+    A new trigger is accepted once the previous window closed."""
 
     #: hard bound on iterations per capture — a fat-fingered config
     #: must not leave the profiler running for the rest of the run
@@ -472,9 +473,10 @@ class TraceController:
         if self._factory is not None:
             return self._factory(trace_dir, out_dir=self.results_dir,
                                  n_iterations=self.n_iterations)
-        from ..utils.profiling import TraceWindow
-        return TraceWindow(trace_dir, start_t_env=0,
-                           n_iterations=self.n_iterations)
+        from .device_time import ProgramTraceWindow
+        return ProgramTraceWindow(trace_dir, start_t_env=0,
+                                  n_iterations=self.n_iterations,
+                                  out_dir=self.results_dir)
 
     def poll(self, t_env: int) -> None:
         if self._win is not None:

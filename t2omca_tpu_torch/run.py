@@ -68,10 +68,16 @@ Where the port differs from the JAX driver:
   seeded with ``seed``, or handed in (``learner_params=``, e.g. carried
   across from flax with ``convert.py``).
 
+With ``obs.program_trace`` the ``profile_dir`` window is an
+``obs/device_time.ProgramTraceWindow``: the trace's device time by named
+program (the ``record_function`` ranges of ``Experiment.programs`` and
+``train/superstep.py``) lands in ``device_ms_<program>`` rows and
+``<run_dir>/device_times.json``; a pulse trace capture refreshes that
+file too.
+
 Left out, to later slices: data parallelism, Sebulba and the population
-across them or under another size at restore (item 12), and per-program
-device time (``obs.program_trace``: item 13b; a pulse trace capture is a
-``torch.profiler`` Chrome trace). Each raises naming its item.
+across them or under another size at restore (item 12). Each raises
+naming its item.
 """
 
 from __future__ import annotations
@@ -86,6 +92,7 @@ from typing import List, Optional
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from . import population as pop
 from . import prng
@@ -94,7 +101,7 @@ from .components.episode_buffer import (PrioritizedReplayBuffer,
 from .config import TrainConfig, sanity_check, unique_token
 from .controllers.basic_mac import MAC_REGISTRY
 from .device import DeviceLike, resolve_device
-from .envs.registry import make_env
+from .envs.registry import make_env, scenario_config
 from .learners.qmix_learner import LEARNER_REGISTRY
 from .obs import memwatch as obs_memwatch
 from .obs import pulse as obs_pulse
@@ -200,14 +207,25 @@ class Experiment:
                           runner=self.runner.init_state(k_runner))
 
     def programs(self):
-        """→ (rollout, insert, train_iter)."""
+        """→ (rollout, insert, train_iter), each inside a
+        ``record_function`` range of its JAX program name (the names
+        ``obs/device_time.py`` attributes device time to)."""
         runner, buffer = self.runner, self.buffer
+        step = build_train_iter(buffer, self.learner, self.cfg)
 
         def rollout(params, rs, test_mode: bool = False):
-            return runner.run(params, rs, test_mode=test_mode)
+            with record_function("rollout"):
+                return runner.run(params, rs, test_mode=test_mode)
 
-        return (rollout, buffer.insert_episode_batch,
-                build_train_iter(buffer, self.learner, self.cfg))
+        def insert(state, batch):
+            with record_function("insert"):
+                return buffer.insert_episode_batch(state, batch)
+
+        def train_iter(ts, key, t_env, **kw):
+            with record_function("train_iter"):
+                return step(ts, key, t_env, **kw)
+
+        return rollout, insert, train_iter
 
     def superstep_program(self, k: int) -> SuperstepProgram:
         """→ the fused program of ``k`` iterations (``train/superstep.py``):
@@ -234,8 +252,9 @@ class Experiment:
         runner = self.runner
 
         def pop_test(pts):
-            outs = [runner.run_raw(t.learner.params["agent"], t.runner,
-                                   test_mode=True) for t in pts]
+            with record_function("rollout"):
+                outs = [runner.run_raw(t.learner.params["agent"], t.runner,
+                                       test_mode=True) for t in pts]
             first = outs[0][2]
             stats = type(first)(**{
                 f.name: torch.stack([torch.as_tensor(getattr(o[2], f.name),
@@ -706,13 +725,14 @@ def run_sequential(exp: Experiment, logger: Logger, results_dir: str,
     last_anim_t = -cfg.animation_interval - 1
     er_rs = None
     timer = StageTimer()
-    tracer = make_trace_window(cfg)
+    tracer = make_trace_window(cfg, results_dir)
     if rec.enabled:
         rec.mark("run", t_env=t_env, backend=device.type,
                  batch_size_run=cfg.batch_size_run,
                  episode_limit=cfg.env_args.episode_limit,
                  batch_size=cfg.batch_size, superstep=K,
-                 host_buffer=False, population=P, scenario="fixed")
+                 host_buffer=False, population=P,
+                 scenario=scenario_config(cfg.env_args).kind)
     # per-stage device barriers for honest attribution; tracing implies
     # them (an un-synced trace window would capture enqueue, not work)
     sync_stages = cfg.profile_stages or bool(cfg.profile_dir)

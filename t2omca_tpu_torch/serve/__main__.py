@@ -12,12 +12,19 @@ Subcommands::
     # inspect an artifact
     python -m t2omca_tpu_torch.serve info /path/to/artifact
 
-Exit codes: 0 done, 2 usage error (a bad config, a missing or
-mismatched checkpoint, an unreadable artifact). The export config must be
-the training run's config: the exporter rebuilds the MAC from it and
-checks the checkpoint's shapes against it. The export folds on ``cuda``
-unless ``--device`` names another device. ``refresh`` (the fleet's hot
-refresh) is ``ROADMAP.md`` item 13b and exits 2.
+    # hot-refresh dry run: would a live fleet accept this checkpoint?
+    # (the fold and check ServeFleet.refresh runs before any engine is
+    # touched; a live fleet arms the real thing through its
+    # <artifact>/FLEET_REFRESH trigger file)
+    python -m t2omca_tpu_torch.serve refresh /path/to/artifact <ckpt_dir> \
+        [--dtype float32] [--device cpu]
+
+Exit codes: 0 done (export written, refresh compatible), 2 usage error
+(a bad config, a missing or mismatched checkpoint, an unreadable
+artifact, a refused refresh). The export config must be the training
+run's config: the exporter rebuilds the MAC from it and checks the
+checkpoint's shapes against it. The export and the refresh check fold on
+``cuda`` unless ``--device`` names another device.
 """
 
 from __future__ import annotations
@@ -134,9 +141,37 @@ def main(argv=None) -> int:
             prog="python -m t2omca_tpu_torch.serve info")
         info.add_argument("artifact_dir")
         return _info(info.parse_args(rest).artifact_dir)
-    print("serve: error: refresh (the fleet's hot param refresh) is not "
-          "ported yet (ROADMAP.md Queue A item 13b)", file=sys.stderr)
-    return 2
+    ref = argparse.ArgumentParser(
+        prog="python -m t2omca_tpu_torch.serve refresh",
+        description="hot-refresh dry run: fold a checkpoint and check it "
+                    "against an artifact")
+    ref.add_argument("artifact_dir")
+    ref.add_argument("ckpt_dir",
+                     help="checkpoint directory holding the new params")
+    ref.add_argument("--dtype", choices=("float32", "bfloat16"),
+                     default="float32",
+                     help="the serving param variant to check")
+    ref.add_argument("--device", default=None,
+                     help="device of the fold (default: cuda)")
+    return _refresh(ref.parse_args(rest))
+
+
+def _refresh(args) -> int:
+    if not os.path.isfile(os.path.join(args.artifact_dir, "meta.json")):
+        print(f"serve: error: {args.artifact_dir} is not a serve artifact "
+              f"(no meta.json)", file=sys.stderr)
+        return 2
+    from .fleet import check_refresh
+    out = check_refresh(args.artifact_dir, args.ckpt_dir, dtype=args.dtype,
+                        device=args.device)
+    if out["status"] != "compatible":
+        print(f"serve: refresh REFUSED: {out.get('reason')}",
+              file=sys.stderr)
+        return 2
+    print(f"serve: refresh compatible (checkpoint t_env="
+          f"{out.get('t_env')}, {out.get('leaves_checked')} param leaves "
+          f"checked against the artifact's {args.dtype} variant)")
+    return 0
 
 
 if __name__ == "__main__":

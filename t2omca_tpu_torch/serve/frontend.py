@@ -15,8 +15,20 @@ exported (``ServeFrontend.load``, ``serve/export.py``): the artifact's
 params are folded already, its blob is checked against its SHA-256
 before ``torch.load(weights_only=True)``, the MAC is rebuilt from its
 train config, and each bucket is warmed with one dispatch, so the first
-request does not pay for loading the kernel library or cuBLAS. The JAX
-front end's span telemetry and metrics hub are ``ROADMAP.md`` item 13b.
+request does not pay for loading the kernel library or cuBLAS.
+
+Telemetry, as in the JAX front end: every boundary is spanned
+(``serve.load`` / ``serve.pad`` / ``serve.dispatch`` / ``serve.unpad``,
+registered in ``obs/spans.KNOWN_PHASES``), so ``python -m
+t2omca_tpu_torch.obs report`` reads a serving run like a training run;
+with a ``MetricsHub`` (``obs/pulse.py``) each request adds the
+per-bucket ``serve_dispatches_total`` / ``serve_rows_total`` counters,
+``serve_requests_total`` and the ``serve_select_ms`` latency window, and
+:class:`SessionStore` sets ``serve_sessions``,
+``serve_session_lru_fill`` and ``serve_session_evicted``. With
+``hub=None`` and the null recorder a request does no extra work. The
+warm-up dispatches of :meth:`ServeFrontend.load` run before the recorder
+and the hub are bound, so they count in neither.
 """
 
 from __future__ import annotations
@@ -25,6 +37,7 @@ import hashlib
 import io
 import json
 import os
+import time
 from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
@@ -34,9 +47,16 @@ from ..config import TrainConfig, from_dict
 from ..controllers.basic_mac import MAC_REGISTRY, torch_dtype
 from ..device import DeviceLike
 from ..envs.registry import make_env
+from ..obs.spans import NULL_RECORDER
 from ..utils.checkpoint import _rebuild, flatten_state
 from .export import ARTIFACT_FORMAT, FRAMEWORK, _cast_variant
 from .program import build_serve_step
+
+
+def _watched(phase, rec, **meta):
+    """One spanned serving boundary (module-level like the driver's
+    wrapper: every literal phase here is in ``KNOWN_PHASES``)."""
+    return rec.span(phase, **meta)
 
 
 def pick_bucket(n: int, buckets: Sequence[int]) -> int:
@@ -83,15 +103,19 @@ class ServeFrontend:
     variant ("float32" or "bfloat16": floating leaves cast after the
     acting fold). Runs on ``cuda`` unless ``device`` says otherwise.
     :meth:`load` builds one from an exported artifact instead. One
-    dispatcher thread per front end."""
+    dispatcher thread per front end. ``rec`` (a span recorder) and
+    ``hub`` (a ``MetricsHub``) are the telemetry of the module
+    docstring."""
 
     def __init__(self, cfg: TrainConfig, params, buckets: Sequence[int],
-                 dtype: str = "float32", device: DeviceLike = None) -> None:
+                 dtype: str = "float32", device: DeviceLike = None,
+                 rec=NULL_RECORDER, hub=None) -> None:
         mac, env_info = _build_mac(cfg, device)
         params = {k: v.to(mac.device) for k, v in params.items()}
         acting = mac.prepare_acting_params(params, dtype=mac.dtype)
         self._setup(mac, env_info, _cast_variant(acting, dtype), buckets,
                     dtype)
+        self._rec, self._hub = rec, hub
 
     def _setup(self, mac, env_info: dict, params, buckets: Sequence[int],
                dtype: str) -> None:
@@ -109,16 +133,27 @@ class ServeFrontend:
         self.emb = mac.emb
         self.params = params
         self._step = build_serve_step(mac)
+        self._rec, self._hub = NULL_RECORDER, None
 
     # ------------------------------------------------------------- load
 
     @classmethod
     def load(cls, artifact_dir: str, dtype: str = "float32",
-             device: DeviceLike = None) -> "ServeFrontend":
+             device: DeviceLike = None, rec=NULL_RECORDER,
+             hub=None) -> "ServeFrontend":
         """Load an artifact of ``serve/export.py``'s layout on ``device``
         (``cuda`` unless named). ``dtype`` picks the param variant, which
         is not folded again. One batch a bucket is dispatched before the
-        front end is returned."""
+        front end is returned (inside the ``serve.load`` span, before
+        ``rec`` and ``hub`` are bound)."""
+        with _watched("serve.load", rec, dtype=dtype):
+            fe = cls._load(artifact_dir, dtype, device)
+        fe._rec, fe._hub = rec, hub
+        return fe
+
+    @classmethod
+    def _load(cls, artifact_dir: str, dtype: str,
+              device: DeviceLike) -> "ServeFrontend":
         with open(os.path.join(artifact_dir, "meta.json")) as f:
             meta = json.load(f)
         fmt = meta.get("format", 0)
@@ -225,15 +260,28 @@ class ServeFrontend:
         bmax = self.buckets[-1]
         actions_out = np.empty((n, self.n_agents), np.int32)
         hidden_out = np.empty((n, self.n_agents, self.emb), np.float32)
+        rec, hub = self._rec, self._hub
+        t_req0 = time.perf_counter() if hub is not None else 0.0
         for lo in range(0, n, bmax):
             hi = min(lo + bmax, n)
             cn = hi - lo
             bucket = pick_bucket(cn, self.buckets)
-            po, pa, ph = pad_request(obs[lo:hi], avail[lo:hi],
-                                     hidden[lo:hi], bucket)
-            a_host, h_host = self._dispatch(po, pa, ph)
-            actions_out[lo:hi] = a_host[:cn]
-            hidden_out[lo:hi] = h_host[:cn]
+            with _watched("serve.pad", rec, bucket=bucket, n=cn):
+                po, pa, ph = pad_request(obs[lo:hi], avail[lo:hi],
+                                         hidden[lo:hi], bucket)
+            with _watched("serve.dispatch", rec, bucket=bucket):
+                a_host, h_host = self._dispatch(po, pa, ph)
+            with _watched("serve.unpad", rec, bucket=bucket):
+                actions_out[lo:hi] = a_host[:cn]
+                hidden_out[lo:hi] = h_host[:cn]
+            if hub is not None:
+                # rows / (dispatches x bucket) is the padding occupancy
+                hub.inc("serve_dispatches_total", bucket=bucket)
+                hub.inc("serve_rows_total", cn, bucket=bucket)
+        if hub is not None:
+            hub.observe("serve_select_ms",
+                        (time.perf_counter() - t_req0) * 1000.0)
+            hub.inc("serve_requests_total")
         return actions_out, hidden_out
 
     def warmup(self) -> None:
@@ -249,8 +297,10 @@ class SessionStore:
     request row names a session id; the store gathers each row's carried
     hidden (zeros for new sessions), serves the batch and scatters the
     new hiddens back. ``max_sessions`` bounds it with LRU eviction; an
-    evicted session restarts from zeros, counted in ``evicted`` and
-    flagged per row by ``select``'s ``fresh`` result."""
+    evicted session restarts from zeros, counted in ``evicted`` (and the
+    front end's hub's ``serve_session_evicted``) and flagged per row by
+    ``select``'s ``fresh`` result. The hub also gets ``serve_sessions``
+    and ``serve_session_lru_fill`` after each request."""
 
     def __init__(self, frontend: ServeFrontend,
                  max_sessions: int = 100_000) -> None:
@@ -278,9 +328,16 @@ class SessionStore:
         for i, s in enumerate(session_ids):
             self._h.pop(s, None)            # move to the LRU end
             self._h[s] = hidden2[i]
+        hub = getattr(fe, "_hub", None)     # duck-typed front ends
         while len(self._h) > self._max:
             self._h.pop(next(iter(self._h)))
             self.evicted += 1
+            if hub is not None:
+                hub.inc("serve_session_evicted")
+        if hub is not None:
+            hub.set("serve_sessions", len(self._h))
+            hub.set("serve_session_lru_fill",
+                    len(self._h) / self._max if self._max else 1.0)
         return actions, fresh
 
     def end(self, session_id) -> None:

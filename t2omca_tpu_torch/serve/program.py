@@ -6,12 +6,15 @@ test mode both selector families reduce to ``masked_argmax`` over the
 deterministic forward, so the step drops the key plumbing; with f32
 params its actions equal ``BasicMAC.select_actions(test_mode=True)``.
 PyTorch runs eagerly, so there is no export: the step runs under
-``torch.inference_mode()`` on the MAC's device.
+``torch.inference_mode()`` on the MAC's device, inside a
+``torch.profiler.record_function("serve_step")`` range, the program
+name ``obs/device_time.py`` attributes a trace's device time to.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.profiler import record_function
 
 from ..components.action_selectors import masked_argmax
 
@@ -25,7 +28,7 @@ def build_serve_step(mac):
     dtype story is the param variant, not ``model.act_dtype``)."""
 
     def serve_step(params, obs, avail, hidden):
-        with torch.inference_mode():
+        with torch.inference_mode(), record_function("serve_step"):
             if mac.use_qslice:
                 q, hidden = mac.forward_qslice(params, obs, hidden)
             else:

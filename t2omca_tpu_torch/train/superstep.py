@@ -74,6 +74,10 @@ graphs overlap on the card. Each member captures on its own stream, so
 cuBLAS gives each its own workspace, and into its own pool, so no two
 graphs that may run at once share memory. The outputs that cross from a
 member's stream to the caller's are marked with ``record_stream``.
+
+Each call runs inside a ``torch.profiler.record_function`` range named
+``superstep`` (``superstep_pop`` for a population), the program names
+``obs/device_time.py`` attributes a trace's device time to.
 """
 
 from __future__ import annotations
@@ -86,6 +90,7 @@ from types import SimpleNamespace
 from typing import Dict, List, Optional, Sequence
 
 import torch
+from torch.profiler import record_function
 
 from ..kernels import attention
 from ..obs import sight
@@ -267,7 +272,7 @@ class SuperstepProgram:
             self._capture(name, fn)
         self.graphs[name].replay()
         for kernel, n in self.launches[name].items():
-            attention.LAUNCHES[kernel] += n
+            attention.count_launch(kernel, n)
         return self.outputs[name]
 
     def _capture(self, name: str, fn) -> None:
@@ -337,6 +342,13 @@ class SuperstepProgram:
 
     def __call__(self, ts: TrainState, keys: torch.Tensor, t_env0: int,
                  gated: Sequence[bool]):
+        with record_function("superstep"):
+            return self._dispatch(ts, keys, t_env0, gated)
+
+    def _dispatch(self, ts: TrainState, keys: torch.Tensor, t_env0: int,
+                  gated: Sequence[bool]):
+        """``__call__`` without its program range (a population member's
+        calls sit inside the population's ``superstep_pop`` range)."""
         exp, cfg, k = self.exp, self.exp.cfg, self.k
         if len(gated) != k:
             raise ValueError(f"superstep: {len(gated)} gates for k={k}")
@@ -445,6 +457,10 @@ class PopulationProgram:
     def __call__(self, pts: Sequence[TrainState], keys: torch.Tensor,
                  t_env0: int, gated: Sequence[bool], spec=None,
                  serial: bool = False):
+        with record_function("superstep_pop"):
+            return self._dispatch(pts, keys, t_env0, gated, spec, serial)
+
+    def _dispatch(self, pts, keys, t_env0, gated, spec, serial):
         p = len(self.members)
         if len(pts) != p or keys.shape[0] != p:
             raise ValueError(f"population of {p}: {len(pts)} states, keys "
@@ -461,7 +477,8 @@ class PopulationProgram:
                     keys.record_stream(prog.stream)
                 if spec is not None and prog.member is not None:
                     prog.set_spec(*spec.scalars(m))
-                ts, stats, infos = prog(ts, keys[m], t_env0, gated)
+                ts, stats, infos = prog._dispatch(ts, keys[m], t_env0,
+                                                  gated)
                 if self.graphed:
                     for t in (list(flatten_state(stats)[0].values())
                               + list(infos.values())):

@@ -9,11 +9,14 @@
 * ``TraceWindow`` — a ``torch.profiler`` capture (CPU and, on a card,
   CUDA activity) over a configured ``t_env`` window, written as a Chrome
   trace (``trace_<t_env>.json``, viewable in Perfetto) under
-  ``profile_dir``.
+  ``profile_dir``. Subclass hook: ``_on_stop(logger, t_env)`` runs once
+  the trace is written; ``obs.device_time.ProgramTraceWindow`` (built for
+  ``obs.program_trace`` by :func:`make_trace_window`) attributes it to the
+  named programs there.
 
-``obs.program_trace`` (the JAX package's per-program device-time
-attribution, which reads XLA program names out of the trace) has no
-port yet: :func:`make_trace_window` raises for it.
+On a card, CUPTI stays attached to the process once a window has run:
+each later CUDA-graph launch then costs more host time (README,
+``obs.program_trace``; ``PERF.md`` §7).
 """
 
 from __future__ import annotations
@@ -62,6 +65,7 @@ class TraceWindow:
         self._done = False
         self._prof = None
         self.path: Optional[str] = None
+        self.export_s: Optional[float] = None   # stop + Chrome export
 
     def maybe_start(self, t_env: int) -> None:
         if (not self.trace_dir or self._done or self._active is not None
@@ -81,26 +85,32 @@ class TraceWindow:
             return
         self._active -= 1
         if self._active <= 0:
+            t0 = time.perf_counter()
             self._prof.__exit__(None, None, None)
             os.makedirs(self.trace_dir, exist_ok=True)
             self.path = os.path.join(self.trace_dir,
                                      f"trace_{int(t_env)}.json")
             self._prof.export_chrome_trace(self.path)
+            self.export_s = time.perf_counter() - t0
             self._prof = None
             self._active = None
             self._done = True
-            if logger is not None:
-                logger.console_logger.info(
-                    f"profiler trace written to {self.path}")
+            self._on_stop(logger, t_env)
+
+    def _on_stop(self, logger, t_env: int) -> None:
+        if logger is not None:
+            logger.console_logger.info(
+                f"profiler trace written to {self.path} (stop and export "
+                f"{self.export_s:.2f} s)")
 
 
-def make_trace_window(cfg) -> TraceWindow:
-    """The driver's trace window for ``cfg`` (raises for
-    ``obs.program_trace``, which is not ported)."""
+def make_trace_window(cfg, out_dir: Optional[str] = None) -> TraceWindow:
+    """The driver's trace window for ``cfg``: with ``obs.program_trace``
+    a ``ProgramTraceWindow`` writing ``device_times.json`` into
+    ``out_dir`` (the run directory)."""
     if cfg.obs.program_trace:
-        raise NotImplementedError(
-            "obs.program_trace (device time attributed to named "
-            "programs) is not ported yet (ROADMAP.md Queue A item 13b); "
-            "profile_dir alone writes a torch.profiler trace")
+        from ..obs.device_time import ProgramTraceWindow
+        return ProgramTraceWindow(cfg.profile_dir, cfg.profile_start,
+                                  cfg.profile_iterations, out_dir=out_dir)
     return TraceWindow(cfg.profile_dir, cfg.profile_start,
                        cfg.profile_iterations)

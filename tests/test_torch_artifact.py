@@ -164,8 +164,13 @@ def test_serve_export_cli_and_info(trained, tmp_path, capsys):
                            SMOKE, "--device", "cpu"]) == 2
     assert "no valid checkpoint" in capsys.readouterr().err
     assert serve_cli.main(["info", str(tmp_path / "none")]) == 2
-    assert serve_cli.main(["refresh", out, ck]) == 2
-    assert "item 13b" in capsys.readouterr().err
+    # the refresh dry run: its own checkpoint is compatible, a missing
+    # one refused
+    assert serve_cli.main(["refresh", out, ck, "--device", "cpu"]) == 0
+    assert "refresh compatible" in capsys.readouterr().out
+    assert serve_cli.main(["refresh", out, str(tmp_path / "none"),
+                           "--device", "cpu"]) == 2
+    assert "REFUSED" in capsys.readouterr().err
 
 
 def test_tampered_blob_and_foreign_artifacts_refused(trained, tmp_path):

@@ -891,3 +891,117 @@ def test_population_dispatch_launch_counts(cuda_device):
     assert step["flash_bwd_dkv"] > 0 and all(gated)
     assert got == {k: 2 * len(gated) * v for k, v in step.items()}
     assert all(m.launches["train"] == step for m in prog.members)
+
+
+# ------------------------------------------------- the fleet, thread safety
+
+@pytest.mark.cuda
+def test_fleet_on_cuda_equals_one_frontend(cuda_device, tmp_path):
+    """A 2-engine fleet over a dense pallas artifact, each engine on its
+    own stream, serves the actions and hiddens of one front end bit for
+    bit, with K1's launches exact across the engine threads (depth a
+    dispatch)."""
+    import numpy as np
+    from t2omca_tpu_torch.config import from_dict
+    from t2omca_tpu_torch.run import Experiment
+    from t2omca_tpu_torch.serve.export import export_artifact
+    from t2omca_tpu_torch.serve.fleet import FleetConfig, ServeFleet
+    from t2omca_tpu_torch.serve.frontend import ServeFrontend
+    from t2omca_tpu_torch.utils.checkpoint import save_checkpoint
+    d = {"batch_size_run": 2, "batch_size": 2,
+         "env_args": {"agv_num": 4, "mec_num": 2, "num_channels": 2,
+                      "episode_limit": 4},
+         "model": {"emb": 16, "heads": 2, "depth": 2, "mixer_emb": 16,
+                   "mixer_heads": 2, "mixer_depth": 1,
+                   "use_qslice": False},
+         "kernels": {"attention": "pallas"},
+         "replay": {"buffer_size": 4}}
+    cfg = from_dict(d)
+    exp = Experiment.build(cfg, device=cuda_device)
+    save_checkpoint(str(tmp_path / "models"), 8, exp.init_state(0))
+    art = str(tmp_path / "art")
+    export_artifact(cfg, str(tmp_path / "models"), art, buckets=(1, 4))
+    one = ServeFrontend.load(art, device=cuda_device)
+    fleet = ServeFleet(art, n_engines=2, cfg=FleetConfig(poll_s=0.005),
+                       device=cuda_device).start()
+    try:
+        assert fleet.serving_engines() == 2
+        streams = [e.stream for e in fleet.engines]
+        assert all(s is not None for s in streams)
+        assert streams[0] != streams[1]
+        rng = np.random.default_rng(0)
+        reqs, want = [], []
+        for n in (1, 3, 4, 9) * 4:
+            obs = rng.standard_normal((n, 4, one.obs_dim)).astype(np.float32)
+            avail = rng.random((n, 4, one.n_actions)) < 0.7
+            avail[..., 0] = True
+            reqs.append((obs, avail))
+            want.append(one.select(obs, avail))
+        port.reset_launches()
+        pending = [fleet.submit(o, a) for o, a in reqs]
+        got = [r.wait(30.0) for r in pending]
+        dispatches = sum(-(-o.shape[0] // 4) for o, _ in reqs)
+        assert port.LAUNCHES["flash_fwd"] == 2 * dispatches
+        for r, (a, h) in zip(got, want):
+            assert r.ok, r.error
+            assert (r.actions == a).all() and (r.hidden == h).all()
+        assert {r.engine for r in got} == {0, 1}
+    finally:
+        fleet.stop()
+
+
+@pytest.mark.cuda
+def test_launch_counts_exact_under_threads(cuda_device):
+    """Four threads launch K1 at once, each on its own stream: the counts
+    add up exactly."""
+    import threading
+    q, k, v, _, _ = _qkv(cuda_device, (4, 2, 9, 9, 16), torch.float32, 1)
+    n_each = 200
+
+    def work():
+        s = torch.cuda.Stream(cuda_device)
+        with torch.cuda.stream(s):
+            for _ in range(n_each):
+                port.flash_attention(q, k, v)
+        s.synchronize()
+
+    port.reset_launches()
+    threads = [threading.Thread(target=work) for _ in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert port.LAUNCHES == {"flash_fwd": 4 * n_each, "flash_fwd_res": 0,
+                             "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+
+
+@pytest.mark.cuda
+def test_kernel_library_loads_once_under_threads(cuda_device, monkeypatch):
+    """``kernels.build.load()`` called from four threads at once in a
+    process that has not loaded the library builds and registers it
+    once."""
+    import threading
+    from t2omca_tpu_torch.kernels import build
+    calls = []
+    real = build.build
+
+    def counted(*a, **kw):
+        calls.append(threading.get_ident())
+        return real(*a, **kw)
+
+    monkeypatch.setattr(build, "build", counted)
+    monkeypatch.setattr(build, "_loaded", None)
+    barrier = threading.Barrier(4)
+    out = []
+
+    def work():
+        barrier.wait()
+        out.append(build.load())
+
+    threads = [threading.Thread(target=work) for _ in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert len(calls) == 1 and len(out) == 4
+    assert build._loaded is not None

@@ -379,8 +379,19 @@ def test_profile_dir_writes_a_trace(tmp_path):
 
 
 def test_driver_raises_for_what_is_not_ported(tmp_path):
-    for over, item in ((dict(dp_devices=2), "item 12"),
-                       (dict(obs=dict(enabled=True, program_trace=True),
-                             profile_dir=str(tmp_path)), "item 13b")):
-        with pytest.raises(NotImplementedError, match=item):
-            _run_port(tmp_path / "x", **over)
+    with pytest.raises(NotImplementedError, match="item 12"):
+        _run_port(tmp_path / "x", dp_devices=2)
+    # obs.program_trace is ported: the classic loop's window of two
+    # iterations attributes its programs' host ranges (the CPU) into
+    # device_times.json and device_ms_<program> rows
+    _run_port(tmp_path / "y", t_max=24, profile_dir=str(tmp_path / "tr"),
+              profile_start=0, profile_iterations=2,
+              obs=dict(enabled=True, program_trace=True))
+    (path,) = glob.glob(str(tmp_path / "y" / "*" / "device_times.json"))
+    with open(path) as f:
+        progs = json.load(f)["programs"]
+    assert {"rollout", "insert"} <= set(progs)
+    assert all(p["events"] >= 1 and p["device_ms"] > 0
+               for p in progs.values())
+    rows = rows_of(tmp_path / "y")
+    assert {f"device_ms_{p}" for p in progs} <= {k for k, _ in rows}

@@ -24,6 +24,7 @@ Tolerances:
 
 import io
 import os
+import shutil
 from contextlib import redirect_stdout
 
 import jax
@@ -430,7 +431,22 @@ def test_learning_cli_matches_jax(which, port_run_dir, tmp_path):
         assert "attn entropy mixer (per layer)" in got[1]
 
 
-def test_obs_cli_report_and_timeline_name_item_13b(tmp_path):
-    for cmd in (["report", str(tmp_path)], ["timeline"]):
-        with pytest.raises(NotImplementedError, match="item 13b"):
-            obs_cli.main(cmd)
+def test_obs_cli_report_and_timeline_name_item_13b(tmp_path, capsys):
+    """Once refusals naming ROADMAP item 13b; both subcommands are
+    ported. The fixture run holds no spans: ``report`` refuses it (exit
+    2) and reads it once a span stream sits beside its metrics, with the
+    learning section; ``timeline`` reads it."""
+    assert obs_cli.main(["report", FIXTURE_RUN]) == 2
+    run_dir = tmp_path / "run"
+    run_dir.mkdir()
+    shutil.copy(os.path.join(FIXTURE_RUN, "metrics.jsonl"), run_dir)
+    (run_dir / "spans.jsonl").write_text(
+        '{"event": "mark", "kind": "run", "backend": "cpu"}\n'
+        '{"event": "span", "phase": "dispatch.superstep", "wall_ms": 5.0}\n')
+    capsys.readouterr()
+    assert obs_cli.main(["report", str(run_dir)]) == 0
+    out = capsys.readouterr().out
+    assert out.startswith(f"graftscope report — {run_dir}")
+    assert "graftsight learning report" in out
+    assert obs_cli.main(["timeline", "--runs", FIXTURE_RUN]) == 0
+    assert "graftpulse timeline" in capsys.readouterr().out
