@@ -222,6 +222,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -244,7 +245,17 @@ SEED = 0
 #: tensor cores)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "tf32": 494.7e12,
-              "float64": 67e12}
+              "float64": 67e12,
+              # 32-bit integer operations on the CUDA cores at their
+              # peak issue rate: one an FP32 lane a clock, the rate whose
+              # FMAs (2 FLOPs each) give the 67 TFLOP/s above
+              "int32": 67e12 / 2}
+#: 32-bit operations a dropout-mask element needs (csrc/dropout_mask.cu):
+#: the counter add, the hash's 20 rounds (add, rotate, xor), its 5 key
+#: injections (2 adds each, the round constant folded into the key),
+#: then the words' xor, the mantissa shift and or, the f32 subtract and
+#: the compare. The key's fold is one more hash a draw.
+MASK_OPS = 1 + 20 * 3 + 5 * 2 + 5
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 #: backward kernels (and K1 + residuals' output) against their plain
 #: versions: f32 reassociation of D- and T-long sums; bf16 one rounding
@@ -256,6 +267,13 @@ GRAD_TOL = {"float32": (1e-4, 1e-5), "bfloat16": (0.05, 0.02)}
 #: heads against 64 entities + 64 agents + 3 hyper tokens)
 AGENT_SHAPE = (2048, 1, 4, 65, 256)
 MIXER_SHAPE = (32, 1, 268, 131, 256)
+#: the dense modules' attention at config 3's widths (standard heads, D =
+#: emb / heads = 64), which dropout (or model.use_qslice false) sends
+#: through the kernels: the agent over B·64 sequences of 65 tokens
+#: (its hidden token and 64 entities), the mixer over B sequences of 131
+#: (64 entities, 64 agents' hidden tokens, 3 hyper tokens), batch 32
+DENSE_SHAPES = {"agent_dense": (2048, 4, 65, 65, 64),
+                "mixer_dense": (32, 4, 131, 131, 64)}
 #: config 6's mixer query slice (configs/config6_scenarios.yaml, f32):
 #: batch 32, 11 rows (8 agents + 3 hyper) x 2 heads against 19 tokens,
 #: D = emb 32, no mask, not causal, k and v one tensor (the CPU path's
@@ -448,9 +466,13 @@ def phase_build_report(lib: str, build) -> dict:
         for gone in GONE_BODIES:
             check(f"{len(gone)}{gone}I" not in name,
                   f"an instance of the old {gone} was built: {name}")
+        if "dropout_mask_kernel" in name:
+            check(st == 0 and ld == 0, f"{label} spills {st}/{ld} bytes")
     check(all(any(k in n and hmma[n] + dmma[n] > 0 for n in hmma)
               for k in TC_KERNELS),
           "a tensor-core kernel is missing from the library")
+    check(any("dropout_mask_kernel" in n for n in hmma),
+          "the dropout-mask kernel is missing from the library")
     return {kernel_label(n): hmma[n] + dmma[n] for n in hmma
             if any(k in n for k in TC_KERNELS)}
 
@@ -553,7 +575,9 @@ def phase_kernels(torch, att):
         ("mixer", MIXER_SHAPE, "float32", None, False, None),
         ("mixer6", MIXER6_SHAPE, "float32", None, False, None),
         ("mixer6_k_is_v", MIXER6_SHAPE, "float32", None, False, "kv"),
-    ] + BF16_EDGES + F32_EDGES
+    ] + [(name, shape, dt, None, False, None)
+         for name, shape in DENSE_SHAPES.items()
+         for dt in ("float32", "bfloat16")] + BF16_EDGES + F32_EDGES
     errs = {}
     inputs = {}
     for name, (b, h, tq, tk, d), dt, mask, causal, extra in cases:
@@ -777,7 +801,9 @@ def phase_kernels_bwd(torch, att):
          "all_masked_row", True, None),
         ("mixer6", MIXER6_SHAPE, "float32", None, False, None),
         ("mixer6_k_is_v", MIXER6_SHAPE, "float32", None, False, "kv"),
-    ] + BF16_EDGES + F32_EDGES
+    ] + [(name, shape, dt, None, False, None)
+         for name, shape in DENSE_SHAPES.items()
+         for dt in ("float32", "bfloat16")] + BF16_EDGES + F32_EDGES
     errs, inputs = {}, {}
     for name, (b, h, tq, tk, d), dt, mask, causal, extra in cases:
         dtype = getattr(torch, dt)
@@ -852,7 +878,7 @@ def phase_kernels_bwd(torch, att):
               f"{m_err:.1e}/{l_err:.1e}{m_note}, o {o_err:.2e}, dq "
               f"{gerr['dq']:.2e}, dk {gerr['dk']:.2e}, dv {gerr['dv']:.2e} "
               f"ok", flush=True)
-        if name in ("agent", "mixer", "mixer6"):
+        if name in ("agent", "mixer", "mixer6") or name in DENSE_SHAPES:
             inputs[(name, dt)] = (q, k, v, do)
         del q, k, v, do, o, dq, dk, dv, ref, o_r
     torch.cuda.empty_cache()
@@ -880,8 +906,9 @@ def phase_kernels_bwd(torch, att):
         sdpa = cuda_ms(sdpa_fwd_bwd)
         flash_total = cuda_ms(flash_fwd_bwd)
         # k is v (the query-slice call): K1, K1 + residuals, K2 and K3 read
-        # the one tensor once
-        for kv_same in (False, True):
+        # the one tensor once; the dense modules project k and v apart
+        for kv_same in ((False,) if name in DENSE_SHAPES
+                        else (False, True)):
             vv = k if kv_same else v
             o, mm, ll = att._launch_res(q, k, vv, None, False)
             delta = (do.float() * o.float()).sum(dim=-1)
@@ -935,12 +962,13 @@ def phase_kernels_bwd(torch, att):
 
 def train_cfg(dtype: str, attention: str = "pallas", use_qslice=True,
               batch_size: int = 32, episode_limit: int = 150,
-              remat: bool = False):
+              remat: bool = False, dropout: float = 0.0):
     from t2omca_tpu_torch.config import from_dict
     d = json.loads(json.dumps(NORTH_STAR))
     d["batch_size"] = batch_size
     d["env_args"]["episode_limit"] = episode_limit
-    d["model"].update(dtype=dtype, use_qslice=use_qslice, remat=remat)
+    d["model"].update(dtype=dtype, use_qslice=use_qslice, remat=remat,
+                      dropout=dropout)
     d["kernels"] = {"attention": attention}
     d["replay"] = {"buffer_size": RING, "store_dtype": "bfloat16",
                    "compact_entity_store": False}
@@ -1117,13 +1145,16 @@ CROSS_GATE = 1e-3
 
 
 def cross_check_step(torch, info, attention, use_qslice, batch, w,
-                     remat: bool = False):
+                     remat: bool = False, dropout: float = 0.0, key=None,
+                     episode_limit: int = 150):
     """One f32 train step at batch 2 → (loss, grad_norm, clipped
-    gradients, params after the step)."""
+    gradients, params after the step). With ``dropout`` the step draws
+    its masks from ``key``."""
     from t2omca_tpu_torch.learners.qmix_learner import (
         clip_by_global_norm, global_norm)
     cfg = train_cfg("float32", attention, use_qslice, batch_size=2,
-                    remat=remat)
+                    remat=remat, dropout=dropout,
+                    episode_limit=episode_limit)
     cfg = dataclasses.replace(cfg, model=dataclasses.replace(
         cfg.model, mixer_zero_init=True))
     lrn = build_learner(cfg, info)
@@ -1132,7 +1163,7 @@ def cross_check_step(torch, info, attention, use_qslice, batch, w,
         tree["mixer"]["out_gate"].fill_(CROSS_GATE)
     params = {m: {k: v.detach().requires_grad_() for k, v in sub.items()}
               for m, sub in ls.params.items()}
-    loss, _ = lrn._loss(params, ls.target_params, batch, w)
+    loss, _ = lrn._loss(params, ls.target_params, batch, w, key)
     leaves = [(m, k) for m in params for k in params[m]]
     grads = torch.autograd.grad(loss, [params[m][k] for m, k in leaves],
                                 allow_unused=True)
@@ -1141,7 +1172,7 @@ def cross_check_step(torch, info, attention, use_qslice, batch, w,
         tree[m][k] = torch.zeros_like(params[m][k]) if g is None else g
     clipped = clip_by_global_norm(tree, global_norm(tree),
                                   cfg.grad_norm_clip)
-    ls2, inf = lrn.train(ls, batch, w, 1000, RING)
+    ls2, inf = lrn.train(ls, batch, w, 1000, RING, key)
     return (float(inf["loss"]), float(inf["grad_norm"]), clipped,
             ls2.params)
 
@@ -1454,23 +1485,30 @@ def check_threefry_cuda_equals_cpu(torch, exp, ts) -> int:
     return len(draws)
 
 
-def run_loop(torch, att, exp, ts, tag: str, iterations: int):
+def run_loop(torch, att, exp, ts, tag: str, iterations: int, want=None,
+             cursor=None):
     """``iterations`` classic iterations (rollout → insert → gated train)
-    through ``run.run_classic``, each with its exact kernel launches and
-    its checks → (ts', records, launch totals, result dict)."""
+    through ``run.run_classic``, each with its exact kernel launches
+    (``want``, else ``loop_launches``) and its checks → (ts', records,
+    result dict with the launch totals). ``cursor`` continues a driver
+    key chain."""
     import numpy as np
     from t2omca_tpu_torch.run import run_classic
     cfg = exp.cfg
     b, t = cfg.batch_size_run, cfg.env_args.episode_limit
-    want = loop_launches(cfg)
+    want = loop_launches(cfg) if want is None else want
+    host = exp.host_buffer
+    first_t = 0 if cursor is None else cursor.t_env
     totals = dict.fromkeys(want, 0)
-    cursor, records, iter_s = None, [], []
+    records, iter_s = [], []
     for i in range(iterations):
-        # what the insert alone would leave: the new slots at the stamp
-        stamp = ts.buffer.max_priority ** cfg.replay.per_alpha
-        inserted = ts.buffer.priorities.clone()
-        inserted[(ts.buffer.insert_pos + torch.arange(b, device="cuda"))
-                 % cfg.replay.buffer_size] = stamp
+        if not host:
+            # what the insert alone would leave: the new slots at the stamp
+            stamp = ts.buffer.max_priority ** cfg.replay.per_alpha
+            inserted = ts.buffer.priorities.clone()
+            inserted[(ts.buffer.insert_pos
+                      + torch.arange(b, device="cuda"))
+                     % cfg.replay.buffer_size] = stamp
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         att.reset_launches()             # ---- the loop path starts here
@@ -1487,8 +1525,9 @@ def run_loop(torch, att, exp, ts, tag: str, iterations: int):
               f"{tag} iteration {i}: loss {loss} grad_norm {gn}")
         check(bool(rec.info["all_finite"]), f"{tag} iteration {i}: "
                                             f"all_finite")
-        check(bool((ts.buffer.priorities != inserted).any()),
-              f"{tag} iteration {i}: no sampled priority changed")
+        if not host:
+            check(bool((ts.buffer.priorities != inserted).any()),
+                  f"{tag} iteration {i}: no sampled priority changed")
         rate = rec.stats.task_completion_rate
         check(bool(((rate >= 0) & (rate <= 1)).all()),
               f"{tag} iteration {i}: task_completion_rate outside [0, 1]")
@@ -1499,13 +1538,14 @@ def run_loop(torch, att, exp, ts, tag: str, iterations: int):
               f"{rec.rollout_s * 1e3:.1f} ms, trainer step "
               f"{rec.train_s * 1e3:.1f} ms, loss {loss:.4g}, grad_norm "
               f"{gn:.4g}, launches {launches}", flush=True)
-    check(cursor.t_env == iterations * b * t,
-          f"{tag}: t_env {cursor.t_env} != {iterations * b * t}")
-    check(cursor.episode == int(ts.episode) == iterations * b,
-          f"{tag}: episode {cursor.episode} != {iterations * b}")
-    st = ts.buffer.storage
-    n = int(ts.buffer.episodes_in_buffer)
-    check(n == min(iterations * b, cfg.replay.buffer_size),
+    check(cursor.t_env - first_t == iterations * b * t,
+          f"{tag}: t_env {cursor.t_env} != {first_t + iterations * b * t}")
+    check(cursor.episode == int(ts.episode) == cursor.t_env // t,
+          f"{tag}: episode {cursor.episode} != {cursor.t_env // t}")
+    st = exp.buffer._storage if host else ts.buffer.storage
+    n = (exp.buffer.episodes_in_buffer if host
+         else int(ts.buffer.episodes_in_buffer))
+    check(n == min(cursor.episode, cfg.replay.buffer_size),
           f"{tag}: ring holds {n} episodes")
     taken = torch.gather(st.avail_actions[:n, :-1], -1,
                          st.actions[:n].long().unsqueeze(-1))
@@ -1526,7 +1566,8 @@ def run_loop(torch, att, exp, ts, tag: str, iterations: int):
           f"per rollout 0", flush=True)
     result = {"launches": totals, "rollout_p50_ms": p50_roll,
               "train_p50_ms": p50_train, "iteration_p50_ms": p50_iter,
-              "env_steps_per_s": b * t / (p50_roll / 1e3)}
+              "env_steps_per_s": b * t / (p50_roll / 1e3),
+              "cursor": cursor}
     return ts, records, result
 
 
@@ -1957,10 +1998,11 @@ def phase_remat(torch, att, exp, ts, cross_batch) -> dict:
     return result
 
 
-#: [superstep]: config 3's fused program (superstep 4) uncut on [loop]'s
-#: experiment and state (1024 lanes, ring 2048, bf16, pallas, PER), with
-#: obs.sight on as the config ships it
-SUPERSTEP_K = 4
+#: [superstep]: config 3's fused program uncut on [loop]'s experiment and
+#: state (1024 lanes, ring 2048, bf16, pallas, PER), with obs.sight on as
+#: the config ships it; K cut from the config's 4 to 2 (its depth: the
+#: smoke's time limit), [driver] runs the shipped K = 4
+SUPERSTEP_K = 2
 
 
 def fused_dispatch(torch, sup, ts, mirror):
@@ -2251,6 +2293,587 @@ def phase_loop_noisy(torch, att):
           flush=True)
     del exp, ts, batch, p, grads
     torch.cuda.empty_cache()
+    return result
+
+
+# ============= dropout, the agent and mixer families, host-RAM replay
+#
+# [dropout], [families] and [host-replay]: single-card options of the
+# TrainConfig, at config 3's model widths (64 AGVs, obs 576,
+# emb 256, 4 heads, depth 2, standard heads, bf16, pallas). Lanes, ring
+# and T are cut where printed.
+
+DROPOUT = 0.1
+DROPOUT_LANES = 128                 # [dropout]: 1024 -> 128, as [loop-dense]
+DROPOUT_RING = 256                  # [dropout]: 2048 -> 256, as [loop-dense]
+DROPOUT_T = 150                     # config 3's own
+DROPOUT_K = 2
+FAMILY_LANES = 32                   # [families]: 1024 -> 32 lanes
+FAMILY_RING = 64                    # [families]: 2048 -> 64
+FAMILY_T = 50                       # [families]: episode_limit 150 -> 50
+FAMILIES = (("rnn", "vdn"), ("rnn", "qmix_ff"), ("transformer", "qmix_ff"),
+            ("rnn", "transformer"))
+HOST_LANES = 128                    # [host-replay]: 1024 -> 128 lanes
+HOST_RING = 256                     # [host-replay]: 2048 -> 256, f32
+
+
+def _episode_cfg(cfg, t: int):
+    return _with(cfg, env_args={"episode_limit": t})
+
+
+def dropout_launches(cfg) -> dict:
+    """Launches of one iteration of the dense agent and dense mixer
+    (dropout, or the dense agent's noise: both query-slice reductions
+    ineligible): the rollout acts
+    through the dense agent, K1 T·depth (pallas in the acting module, no
+    gradient); the train step launches the dense formula of
+    ``loop_launches`` with K1 + residuals twice under remat (forward and
+    recompute)."""
+    t, depth = cfg.env_args.episode_limit, cfg.model.depth
+    want = loop_launches(cfg)
+    if cfg.model.remat:
+        want["flash_fwd_res"] *= 2
+    want["flash_fwd"] += t * depth
+    return want
+
+
+def dropout_mask_launches(cfg) -> int:
+    """Launches of the dropout-mask kernel in one iteration: a draw for
+    each block's Dropout_0 and Dropout_1 in every forward of a
+    transformer that drops. The rollout's acting forward T times (a
+    training-mode rollout drops, as JAX's does); the learner's online
+    agent unroll T + 1 steps (the T steps with a gradient twice under
+    remat: forward and recompute), its target unroll T + 1, the online
+    mixer unroll T (twice under remat) and the target mixer T + 1."""
+    t, d, dm = (cfg.env_args.episode_limit, cfg.model.depth,
+                cfg.model.mixer_depth)
+    grad = 2 if cfg.model.remat else 1
+    agent = t + (grad * t + 1) + (t + 1)
+    mixer = grad * t + (t + 1)
+    return 2 * d * agent + 2 * dm * mixer
+
+
+def family_launches(cfg) -> dict:
+    """Launches of one iteration of an agent/mixer family on dense
+    storage: the transformer agent's query-slice unrolls (target K1
+    (T+1)·depth and the bootstrap step's depth, online K1 + residuals,
+    K2 and K3 T·depth) and the transformer mixer's (K1 (T+1)·depth, K1 +
+    residuals, K2, K3 T·depth); the GRU agent, qmix_ff and vdn launch
+    none, and acting (query slice on the plain path, or the GRU) none."""
+    t, d = cfg.env_args.episode_limit, cfg.model.depth
+    want = dict.fromkeys(("flash_fwd", "flash_fwd_res", "flash_bwd_dq",
+                          "flash_bwd_dkv"), 0)
+    parts = []
+    if cfg.agent == "transformer":
+        parts.append(((t + 1) * d + d, t * d))
+    if cfg.mixer == "transformer":
+        parts.append(((t + 1) * d, t * d))
+    for fwd, grad in parts:
+        want["flash_fwd"] += fwd
+        for k in ("flash_fwd_res", "flash_bwd_dq", "flash_bwd_dkv"):
+            want[k] += grad
+    return want
+
+
+def _params_moved(torch, before, after) -> int:
+    """The count of param tensors that changed."""
+    return sum(not torch.equal(before[m][k], after[m][k])
+               for m in before for k in before[m])
+
+
+def phase_dropout(torch, att, smi: str) -> dict:
+    """Config 3 with ``model.dropout`` and ``model.remat``: the dense
+    agent and mixer through the kernels (the query-slice reductions are
+    ineligible), every mask a threefry draw from an explicit key. Three
+    classic iterations with exact launches; one fused K = 2 dispatch
+    (captured graphs) from the state before the last 2 of them, bit for
+    bit against them; masks under two keys; the loss with dropout on and off; an f32
+    pallas-vs-xla step with the same masks; the mask kernel against its
+    plain version at the path's three shapes, bit for bit, and its
+    launches on the path (``dropout_mask_launches``). Then
+    the noisy leg: noisy-new with use_qslice false, one iteration, the
+    noisy q against the mu q and the sigma gradients."""
+    import gc
+    from t2omca_tpu_torch import prng
+    from t2omca_tpu_torch.flax_rng import Scope
+    from t2omca_tpu_torch.kernels import dropout as dk
+    from t2omca_tpu_torch.learners import QMixLearner
+    from t2omca_tpu_torch.models.transformer import dropout
+    from t2omca_tpu_torch.run import Experiment
+    from t2omca_tpu_torch.train.superstep import clone_state
+    from t2omca_tpu_torch.utils.checkpoint import flatten_state
+    cfg = _with(_episode_cfg(loop_cfg(DROPOUT_LANES, DROPOUT_RING,
+                                      entity_tables=False), DROPOUT_T),
+                model={"dropout": DROPOUT, "remat": True})
+    exp = Experiment.build(cfg)
+    lrn = exp.learner
+    check(not exp.mac.use_qslice and exp.mac.stochastic
+          and lrn.needs_rngs and not lrn._agent_qslice
+          and not lrn._mixer_qslice and not exp.buffer.compact_obs,
+          "[dropout] the config is not on the dense path")
+    b, t, bs = cfg.batch_size_run, cfg.env_args.episode_limit, \
+        cfg.batch_size
+    print(f"[dropout] config 3 with model.dropout={DROPOUT}, model.remat="
+          f"true: dense agent and dense mixer through the kernels, bf16, "
+          f"pallas, PER, batch {bs}, T={t}; cuts: batch_size_run 1024 -> "
+          f"{b}, buffer_size 2048 -> {cfg.replay.buffer_size} (as "
+          f"[loop-dense]: dense bf16 obs are 11.1 MB a lane-episode) | "
+          f"{smi}", flush=True)
+    result = {}
+    # ---- the mask kernel against its plain version at the path's shapes
+    key = prng.PRNGKey(SEED + 70, "cuda")
+    keep = 1.0 - DROPOUT
+    scope = Scope(key, ("transformer", "block_0", "Dropout_0"))
+    fold = scope.fold_data()
+    mask_ms, kernel = {}, {}
+    for name, shape in (("agent", (bs * 64, 65, 256)),
+                        ("mixer", (bs, 131, 256)),
+                        ("rollout", (b * 64, 65, 256))):
+        got = dk.keep_mask(key, fold, keep, shape)
+        ref = dk.keep_mask_reference(key, fold, keep, shape)
+        torch.cuda.synchronize()
+        check(got.dtype == torch.bool and torch.equal(got, ref),
+              f"[dropout] the mask kernel differs from its plain version "
+              f"at {shape}: {int((got != ref).sum())} elements")
+        err = float((got.float() - ref.float()).abs().max())
+        del got, ref
+        n = math.prod(shape)
+        bound, by = bound_ms(n + 16, (n + 1) * MASK_OPS, "int32")
+        row = {"shape": list(shape), "max_abs_err": err,
+               "ms": cuda_ms(lambda: dk.keep_mask(key, fold, keep, shape)),
+               "plain_ms": cuda_ms(lambda: dk.keep_mask_reference(
+                   key, fold, keep, shape), iters=3, warmup=1),
+               "bound_ms": bound, "bound_by": by, "library_ms": None}
+        kernel[name] = row
+        x = torch.randn(shape, device="cuda", dtype=torch.bfloat16)
+        mask_ms[name] = cuda_ms(lambda: dropout(x, DROPOUT, scope),
+                                iters=10, warmup=2)
+        del x
+        print(f"[dropout] mask kernel at the {name} shape {shape}: equal "
+              f"to the plain version bit for bit; {row['ms']:.3f} ms "
+              f"(bound {bound:.3f} ms by {by}, plain "
+              f"{row['plain_ms']:.2f} ms); one dropout (mask + select, "
+              f"bf16) {mask_ms[name]:.3f} ms", flush=True)
+    result.update(mask_ms=mask_ms, mask_kernel=kernel)
+    # ---- masks differ under two keys, match on one
+    x = torch.randn(bs * 64, 65, 256, device="cuda", dtype=torch.bfloat16)
+    k1, k2 = prng.split(key).unbind(0)
+    m1 = dropout(x, DROPOUT, Scope(k1)) == 0
+    check(torch.equal(m1, dropout(x, DROPOUT, Scope(k1)) == 0),
+          "[dropout] one key drew two masks")
+    check(not torch.equal(m1, dropout(x, DROPOUT, Scope(k2)) == 0),
+          "[dropout] two keys drew one mask")
+    drop_share = float(m1.float().mean())
+    check(abs(drop_share - DROPOUT) < 0.01,
+          f"[dropout] {drop_share:.4f} of the elements dropped")
+    del x, m1
+    # ---- three classic iterations; the last DROPOUT_K of them are the
+    # eager reference of one fused dispatch from the state before them
+    torch.cuda.reset_peak_memory_stats()
+    ts = exp.init_state(SEED)
+    per_iter = dropout_mask_launches(cfg)
+    want = dropout_launches(cfg)
+    dk.reset_launches()                  # ---- the dropout path starts here
+    ts, rec_first, first = run_loop(torch, att, exp, ts, "dropout",
+                                    3 - DROPOUT_K, want=want)
+    cursor = first.pop("cursor")
+    mirror = {"key": cursor.key, "t_env": cursor.t_env,
+              "episode": cursor.episode, "filled": cursor.buffer_filled}
+    start = clone_state(ts)
+    ts, rec_rest, rest = run_loop(torch, att, exp, ts, "dropout",
+                                  DROPOUT_K, want=want, cursor=cursor)
+    masks = dk.LAUNCHES["dropout_mask"]  # ---- and ends here
+    check(masks == 3 * per_iter, f"[dropout] {masks} mask launches in 3 "
+                                 f"iterations, want 3 x {per_iter}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    cursor = rest.pop("cursor")
+    recs = [r for r, _, _ in rec_first + rec_rest]
+    loop = {"rollout_p50_ms": statistics.median(r.rollout_s for r in recs)
+            * 1e3,
+            "train_p50_ms": statistics.median(r.train_s for r in recs) * 1e3,
+            "launches": {k: first["launches"][k] + rest["launches"][k]
+                         for k in want}}
+    print(f"[dropout] 3 iterations: rollout+insert p50 "
+          f"{loop['rollout_p50_ms']:.1f} ms, trainer step p50 "
+          f"{loop['train_p50_ms']:.1f} ms, peak {peak:.2f} GiB; {masks} "
+          f"mask launches ({per_iter} an iteration)", flush=True)
+    result.update(loop, peak_gib=peak)
+    # ---- the loss with dropout on and off, from one state and batch
+    batch, _, w = exp.buffer.sample(ts.buffer, k1, bs, cursor.t_env)
+    off = QMixLearner.build(_with(cfg, model={"dropout": 0.0}), exp.mac,
+                            exp.env.get_env_info())
+    with torch.no_grad():
+        l_on, _ = lrn._loss(ts.learner.params, ts.learner.target_params,
+                            batch, w, k2)
+        l_on2, _ = lrn._loss(ts.learner.params, ts.learner.target_params,
+                             batch, w, k2)
+        l_off, _ = off._loss(ts.learner.params, ts.learner.target_params,
+                             batch, w)
+    check(float(l_on) == float(l_on2), "[dropout] one key, two losses")
+    check(float(l_on) != float(l_off), "[dropout] the loss ignores dropout")
+    print(f"[dropout] loss on one batch: dropout {float(l_on):.6g} (the "
+          f"same key twice: equal), off {float(l_off):.6g}", flush=True)
+    del batch, w, off
+    gc.collect()
+    torch.cuda.empty_cache()
+    # ---- one fused K = 2 dispatch from the state before the last two
+    # classic iterations, against them
+    sup = exp.superstep_program(DROPOUT_K)
+    att.reset_launches()
+    dk.reset_launches()
+    t0 = time.perf_counter()
+    start, _, _, gated = fused_dispatch(torch, sup, start, mirror)
+    torch.cuda.synchronize()
+    fused_s = time.perf_counter() - t0
+    fused = dict(att.LAUNCHES)
+    fused_masks = dk.LAUNCHES["dropout_mask"]
+    check(fused_masks == DROPOUT_K * per_iter,
+          f"[dropout] fused mask launches {fused_masks}, want {DROPOUT_K} "
+          f"x {per_iter}")
+    check(all(gated) and (exp.device.type != "cuda"
+                          or set(sup.graphs) == {"rollout", "train"}),
+          f"[dropout] gates {gated}, graphs {sorted(sup.graphs)}")
+    check(fused == rest["launches"],
+          f"[dropout] launches eager {rest['launches']}, fused {fused}")
+    fa, _ = flatten_state(ts)
+    fb, _ = flatten_state(start)
+    diff = [k for k in fa if not torch.equal(fa[k], fb[k])]
+    check(not diff and torch.equal(cursor.key, mirror["key"]),
+          f"[dropout] fused K={DROPOUT_K} differs from eager in {diff[:5]}")
+    print(f"[dropout] one fused K={DROPOUT_K} dispatch (captured rollout "
+          f"and train graphs, {fused_s:.2f} s with the captures) = the "
+          f"last {DROPOUT_K} classic iterations bit for bit over "
+          f"{len(fa)} state tensors; launches {fused}, mask launches "
+          f"{fused_masks}", flush=True)
+    sup.close()
+    del sup, start, ts, exp, lrn, fa, fb
+    gc.collect()
+    torch.cuda.empty_cache()
+    result["launches"] = {k: loop["launches"][k] + fused[k] for k in fused}
+    result["mask_launches"] = masks + fused_masks
+    # ---- f32 pallas against xla on one short dropout step, same masks
+    info = Experiment.build(cfg).env.get_env_info()
+    g = torch.Generator(device="cuda").manual_seed(SEED + 71)
+    batch = make_episodes(torch, info, 2, 20, g, torch.float32)
+    w = torch.tensor([1.0, 0.6], device="cuda")
+    outs = {attention: cross_check_step(torch, info, attention, False,
+                                        batch, w, remat=True,
+                                        dropout=DROPOUT, key=k2,
+                                        episode_limit=20)
+            for attention in ("pallas", "xla")}
+    report = compare_steps(torch, outs["pallas"], outs["xla"], cfg.lr,
+                           cfg.optim_eps)
+    print(f"[dropout] f32 cross-check (dense, dropout {DROPOUT}, remat, "
+          f"batch 2, T=20, one key): pallas vs xla {report}", flush=True)
+    del outs, batch
+    torch.cuda.empty_cache()
+    # ---- the noisy leg: the dense agent's noise
+    # remat: the dense agent's unroll at T = 150 keeps every token's
+    # activations, as under dropout
+    ncfg = _with(_episode_cfg(loop_cfg(DROPOUT_LANES, DROPOUT_RING,
+                                       entity_tables=False,
+                                       selector="noisy-new"), DROPOUT_T),
+                 model={"use_qslice": False, "remat": True})
+    nexp = Experiment.build(ncfg)
+    check(nexp.learner.needs_rngs and not nexp.mac.use_qslice
+          and not nexp.learner._mixer_qslice,
+          "[dropout] the noisy leg is not the dense agent's noise")
+    nts = nexp.init_state(SEED)
+    before = {m: {k: v.clone() for k, v in sub.items()}
+              for m, sub in nts.learner.params.items()}
+    want = dropout_launches(ncfg)
+    nts, _, noisy = run_loop(torch, att, nexp, nts, "dropout-noisy", 1,
+                             want=want)
+    noisy.pop("cursor")
+    moved = _params_moved(torch, before, nts.learner.params)
+    mac = nexp.mac
+    obs = nexp.buffer.sample(nts.buffer, k1, 4, 0)[0].obs[:, 0].float()
+    hidden = mac.init_hidden(4)
+    p = nts.learner.params["agent"]
+    q_mu, _ = mac.forward(p, obs, hidden)
+    q_noisy, _ = mac.forward(p, obs, hidden, key=k2, deterministic=False)
+    dq = float((q_noisy - q_mu).abs().max())
+    check(dq > 0.0, "[dropout] noisy leg: the noisy q equals the mu q")
+    batch, _, w = nexp.buffer.sample(nts.buffer, k1, ncfg.batch_size, 0)
+    params = {m: {k: v.detach().requires_grad_() for k, v in sub.items()}
+              for m, sub in nts.learner.params.items()}
+    loss, _ = nexp.learner._loss(params, nts.learner.target_params, batch,
+                                 w, k2)
+    names = sorted(k for k in params["agent"] if "sigma" in k)
+    # every leaf, as the learner's step takes them: a backward pruned to
+    # the sigmas leaves remat's recomputed activations unconsumed
+    leaves = [v for sub in params.values() for v in sub.values()]
+    grads = dict(zip([(m, k) for m, sub in params.items() for k in sub],
+                     torch.autograd.grad(loss, leaves, allow_unused=True)))
+    grads = [grads[("agent", k)] for k in names]
+    norms = {k: float(gr.norm()) for k, gr in zip(names, grads)}
+    check(len(names) == 2 and all(bool(torch.isfinite(gr).all())
+                                  for gr in grads)
+          and any(v > 0.0 for v in norms.values()),
+          f"[dropout] noisy leg: sigma gradients {norms}")
+    print(f"[dropout] noisy leg (noisy-new, use_qslice false, remat, "
+          f"dropout 0: the dense agent's noise; the dense mixer, "
+          f"deterministic): "
+          f"{moved} param tensors moved, launches {noisy['launches']}, "
+          f"noisy q - mu q max |d| {dq:.3e}, sigma gradient norms "
+          + ", ".join(f"{k} {v:.3e}" for k, v in norms.items()),
+          flush=True)
+    check(moved > 0, "[dropout] noisy leg: no param moved")
+    result["launches"] = {k: result["launches"][k] + noisy["launches"][k]
+                          for k in want}
+    result["noisy"] = noisy
+    del nexp, nts, batch, params, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    return result
+
+
+def phase_families(torch, att, smi: str) -> dict:
+    """One classic iteration of each agent/mixer family at config 3's
+    widths (GRU hidden 256, obs 576): a finite loss, params that move and
+    the launches each combination makes."""
+    import gc
+    from t2omca_tpu_torch.run import Experiment
+    out = {"launches": dict.fromkeys(("flash_fwd", "flash_fwd_res",
+                                      "flash_bwd_dq", "flash_bwd_dkv"), 0)}
+    for agent, mixer in FAMILIES:
+        cfg = _episode_cfg(loop_cfg(FAMILY_LANES, FAMILY_RING,
+                                    entity_tables=False), FAMILY_T)
+        cfg = dataclasses.replace(cfg, agent=agent, mixer=mixer)
+        exp = Experiment.build(cfg)
+        tag = f"families {agent}+{mixer}"
+        ts = exp.init_state(SEED)
+        n_params = {m: sum(v.numel() for v in sub.values())
+                    for m, sub in ts.learner.params.items()}
+        before = {m: {k: v.clone() for k, v in sub.items()}
+                  for m, sub in ts.learner.params.items()}
+        want = family_launches(cfg)
+        ts, records, res = run_loop(torch, att, exp, ts, tag, 1, want=want)
+        res.pop("cursor")
+        moved = _params_moved(torch, before, ts.learner.params)
+        total = sum(len(sub) for sub in before.values())
+        check(moved == total, f"[{tag}] {moved} of {total} param tensors "
+                              f"moved")
+        (rec, loss, gn), = records
+        print(f"[families] {agent}+{mixer}: {n_params['agent']} agent and "
+              f"{n_params['mixer']} mixer params, all {total} tensors moved, "
+              f"loss {loss:.4g}, grad_norm {gn:.4g}, launches {want}, "
+              f"rollout+insert {rec.rollout_s * 1e3:.1f} ms, trainer step "
+              f"{rec.train_s * 1e3:.1f} ms (cuts: batch_size_run 1024 -> "
+              f"{FAMILY_LANES}, buffer_size 2048 -> {FAMILY_RING}, "
+              f"episode_limit 150 -> {FAMILY_T})",
+              flush=True)
+        for k in out["launches"]:
+            out["launches"][k] += res["launches"][k]
+        out[f"{agent}+{mixer}"] = {"loss": loss, "grad_norm": gn,
+                                   "train_ms": rec.train_s * 1e3,
+                                   "rollout_ms": rec.rollout_s * 1e3}
+        del exp, ts, records, before
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _rss_gib() -> float:
+    with open("/proc/self/status") as f:
+        for ln in f:
+            if ln.startswith("VmRSS:"):
+                return int(ln.split()[1]) / 2 ** 20
+    return float("nan")
+
+
+def phase_host_replay(torch, att, smi: str) -> dict:
+    """``replay.buffer_cpu_only``: the ring in pinned host RAM at config
+    3's widths (f32 storage), three classic iterations: the card's
+    sampled indices against the sum-trees' and the weights against numpy's
+    (N·p/Σp)^-β on the same priorities, one device-to-host copy a sample (counted in a
+    profiler trace), the deferred feedback one iteration late; then the
+    CLI to one log cadence."""
+    import gc
+    import glob
+    import shutil
+    import tempfile
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    from t2omca_tpu_torch import __main__ as cli
+    from t2omca_tpu_torch.components import host_replay as hr
+    from t2omca_tpu_torch.run import Experiment, LoopCursor
+    cfg = loop_cfg(HOST_LANES, HOST_RING)
+    cfg = dataclasses.replace(cfg, replay=dataclasses.replace(
+        cfg.replay, buffer_cpu_only=True, store_dtype="float32"))
+    rss0 = _rss_gib()
+    t0 = time.perf_counter()
+    exp = Experiment.build(cfg)
+    build_s = time.perf_counter() - t0
+    buf = exp.buffer
+    check(exp.host_buffer and buf._storage.obs.is_pinned(),
+          "[host-replay] the ring is not in pinned host memory")
+    ring_gib = sum(getattr(buf._storage, f.name).nbytes for f in
+                   dataclasses.fields(buf._storage)) / 2 ** 30
+    b, t = cfg.batch_size_run, cfg.env_args.episode_limit
+    print(f"[host-replay] replay.buffer_cpu_only: a ring of {HOST_RING} "
+          f"episodes in pinned host RAM, f32 ({ring_gib:.2f} GiB, "
+          f"{buf._storage.obs[0].nbytes / 1e6:.1f} MB of obs an episode; "
+          f"allocated in {build_s:.1f} s), entity-table acting, dense "
+          f"storage; cuts: batch_size_run 1024 -> {b}, buffer_size 2048 "
+          f"-> {HOST_RING} | RSS {rss0:.2f} -> {_rss_gib():.2f} GiB | {smi}",
+          flush=True)
+    calls = []
+    real = hr.stratified_sample
+
+    def recording(pri, us, n, beta):
+        idx, w = real(pri, us, n, beta)
+        calls.append((pri.cpu().numpy().copy(), us.cpu().numpy().copy(),
+                      n, beta, idx.cpu().numpy(), w.cpu().numpy()))
+        return idx, w
+    ts = exp.init_state(SEED)
+    cursor, records, tds = None, [], []
+    hr.stratified_sample = recording
+    try:
+        for i in range(3):
+            pri_before = buf._pri.copy()
+            ts, recs, res = run_loop(torch, att, exp, ts, "host-replay", 1,
+                                     cursor=cursor)
+            cursor = res.pop("cursor")
+            rec = recs[0][0]
+            records.append(res)
+            n_calls = len(calls)
+            if rec.info is None:
+                continue
+            # the deferred feedback: the previous step's |TD| landed at
+            # this iteration's insert (one iteration late), this step's is
+            # pending, and the mirror is exactly that
+            check(buf._pending_update is not None,
+                  f"[host-replay] iteration {i}: no deferred update")
+            ref = pri_before.copy()
+            if tds:
+                pidx, ptd = tds[-1]
+                ref[pidx] = ((ptd + 1e-6) ** cfg.replay.per_alpha).astype(
+                    np.float32)
+            ref[(np.arange(b) + i * b) % HOST_RING] = np.float32(
+                buf._max_priority ** cfg.replay.per_alpha)
+            check(np.array_equal(buf._pri, ref),
+                  f"[host-replay] iteration {i}: the priority mirror is not "
+                  f"the previous step's |TD| one iteration late")
+            check(np.array_equal(buf._pri_dev.cpu().numpy(), buf._pri),
+                  f"[host-replay] iteration {i}: the mirrors differ")
+            tds.append((calls[-1][4], rec.info["td_errors_abs"].double()
+                        .cpu().numpy()))
+            check(n_calls >= 1, "[host-replay] no device sample")
+    finally:
+        hr.stratified_sample = real
+    # the device's indices and weights against the sum-tree formulation
+    trees = [("py", hr.PySumTree)]
+    try:
+        hr.NativeSumTree(8)
+        trees.append(("native", hr.NativeSumTree))
+    except Exception as e:                   # noqa: BLE001
+        check(False, f"[host-replay] the native sum-tree did not build: "
+                     f"{e}")
+    for pri, us, n, beta, idx, w in calls:
+        for name, cls in trees:
+            tree = cls(len(pri))
+            tree.set_batch(np.arange(len(pri)), pri.astype(np.float64))
+            ti, _ = tree.sample(us.astype(np.float64))
+            ti = np.minimum(ti, n - 1)
+            check(np.array_equal(ti, idx),
+                  f"[host-replay] {name} sum-tree indices differ")
+        # (N·p/Σp)^-β max-normalized from the leaf priorities, in f64
+        mass = np.where(np.arange(len(pri)) < n, pri, 0).astype(np.float64)
+        w_ref = (max(n, 1) * mass[ti] / mass.sum()) ** -float(beta)
+        w_ref /= w_ref.max()
+        check(np.allclose(w, w_ref, rtol=1e-6, atol=0),
+              f"[host-replay] weights differ from (N·p/Σp)^-β at the "
+              f"tree's indices by {np.abs(w / w_ref - 1).max():.2e} "
+              f"(rtol 1e-6)")
+    # one device-to-host copy a sample, in a profiler trace
+    torch.cuda.synchronize()
+    before = dict(buf.copies)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        batch, idx, w = buf.sample(cfg.batch_size, cursor.t_env)
+        torch.cuda.synchronize()
+    d2h = sum(1 for e in prof.events()
+              if "Memcpy DtoH" in e.name or "Memcpy D2H" in e.name)
+    h2d_bytes = sum(x.nbytes for x in (batch.obs, batch.state,
+                                       batch.avail_actions, batch.actions,
+                                       batch.reward, batch.terminated,
+                                       batch.filled))
+    check(d2h == 1 and buf.copies["d2h"] - before["d2h"] == 1
+          and buf.copies["h2d"] - before["h2d"] == 1,
+          f"[host-replay] a sample made {d2h} device-to-host copies in the "
+          f"trace, counts {buf.copies} from {before}")
+    t0 = time.perf_counter()
+    for _ in range(3):
+        buf.sample(cfg.batch_size, cursor.t_env)
+    torch.cuda.synchronize()
+    sample_ms = (time.perf_counter() - t0) / 3 * 1e3
+    del batch
+    rss = _rss_gib()
+    p50_iter = statistics.median(r["iteration_p50_ms"] for r in records)
+    p50_train = statistics.median(r["train_p50_ms"] for r in records
+                                  if r["train_p50_ms"] is not None) \
+        if any(r["train_p50_ms"] for r in records) else float("nan")
+    print(f"[host-replay] {len(calls)} device samples: indices equal to "
+          f"the Python and native sum-trees', weights within rtol 1e-6 "
+          f"of (N·p/Σp)^-β in numpy at the trees' indices; a sample: 1 device-to-host "
+          f"copy in the trace (the indices), 1 host-to-device copy of "
+          f"{h2d_bytes / 1e6:.1f} MB, {sample_ms:.1f} ms; the deferred "
+          f"|TD| lands one iteration late; iteration p50 {p50_iter:.1f} ms,"
+          f" trainer step p50 {p50_train:.1f} ms; RSS {rss:.2f} GiB",
+          flush=True)
+    launches = {k: sum(r["launches"][k] for r in records)
+                for k in records[0]["launches"]}
+    result = {"launches": launches, "iteration_p50_ms": p50_iter,
+              "train_p50_ms": p50_train, "sample_ms": sample_ms,
+              "rss_gib": rss, "ring_gib": ring_gib}
+    del exp, ts, buf
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the CLI with it, to one log cadence
+    root = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix=".chip_smoke_driver_", dir=root)
+    steps = HOST_LANES * t
+    try:
+        att.reset_launches()
+        t0 = time.perf_counter()
+        rc = cli.main(["train", "--config",
+                       os.path.join(root, DRIVER_CONFIG),
+                       "kernels.attention=pallas",
+                       "replay.buffer_cpu_only=true",
+                       f"replay.buffer_size={HOST_RING}",
+                       f"batch_size_run={HOST_LANES}",
+                       f"t_max={steps}", f"log_interval={steps}",
+                       f"runner_log_interval={steps}",
+                       "test_interval=1000000000", f"test_nepisode={b}",
+                       f"save_model_interval={steps}",
+                       "obs.pulse_port=0", f"local_results_path={tmp}"])
+        cli_s = time.perf_counter() - t0
+        check(rc == 0, f"[host-replay] the CLI returned {rc}")
+        rows = _metric_rows(tmp)
+        keys = {r["key"] for r in rows}
+        for k in ("loss", "grad_norm", "return_mean",
+                  "sight_priority_entropy"):
+            check(k in keys, f"[host-replay] the CLI logged no {k}")
+        ckpts = glob.glob(os.path.join(tmp, "models", "*", "*",
+                                       "state.pt"))
+        check(ckpts, "[host-replay] the CLI saved no checkpoint")
+        state = torch.load(ckpts[-1], weights_only=True)
+        check(not any(k.startswith("buffer.") for k in state),
+              "[host-replay] the checkpoint holds the ring")
+        size = os.path.getsize(ckpts[-1])
+        print(f"[host-replay] python -m t2omca_tpu_torch train --config "
+              f"{DRIVER_CONFIG} kernels.attention=pallas "
+              f"replay.buffer_cpu_only=true (cut as above; the three-"
+              f"program path, superstep ineligible): {len(rows)} metric "
+              f"rows to the log cadence at t_env {steps} in "
+              f"{cli_s:.1f} s, a checkpoint of {size / 1e6:.1f} MB without "
+              f"the ring", flush=True)
+        result["cli_s"] = cli_s
+        result["launches"] = {k: launches[k] + att.LAUNCHES[k]
+                              for k in launches}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     return result
 
 
@@ -4129,6 +4752,12 @@ def main() -> int:
     lap("loop-dense")
     noisy = phase_loop_noisy(torch, att)
     lap("loop-noisy")
+    dropout = phase_dropout(torch, att, smi)
+    lap("dropout")
+    families = phase_families(torch, att, smi)
+    lap("families")
+    host_replay = phase_host_replay(torch, att, smi)
+    lap("host-replay")
     driver = phase_driver(torch, att, loop, after=lambda models, first:
                           phase_artifact(torch, att, models, then=lambda arts:
                                          phase_fleet(
@@ -4150,7 +4779,8 @@ def main() -> int:
           f"launches {scenarios['want_step']} a config 6 train iteration")
     loops = {"loop": loop, "sight": sight, "remat": remat,
              "superstep": superstep, "loop_dense": dense,
-             "loop_noisy": noisy,
+             "loop_noisy": noisy, "dropout": dropout,
+             "families": families, "host_replay": host_replay,
              "driver": {"launches": {
                  k: driver["launches"][k] + driver["launches_resume"][k]
                  for k in driver["launches"]}},
@@ -4228,6 +4858,20 @@ def main() -> int:
                                                 "float32")],
             "learner_shapes": learner_times(name),
         })
+    mask = dropout["mask_kernel"]
+    kernels.append({
+        "name": "dropout_mask", "route": "cuda",
+        "source": csrc + "dropout_mask.cu",
+        "replaces": "t2omca_tpu/models/transformer.py:162 (flax "
+                    "nn.Dropout's bernoulli draw, XLA ops: no pallas_call)",
+        "launches": dropout["mask_launches"],
+        "launches_by_path": {"dropout": dropout["mask_launches"]},
+        "max_abs_err": max(r["max_abs_err"] for r in mask.values()),
+        **{k: mask["agent"][k] for k in ("ms", "plain_ms", "bound_ms",
+                                         "bound_by", "library_ms",
+                                         "shape")},
+        "dtype": "bool", "shapes": mask,
+    })
     tc_of = {"flash_fwd": ("flash_fwd_tc_kernel", "flash_fwd_dmma_kernel"),
              "flash_fwd_res": ("flash_fwd_tc_kernel",
                                "flash_fwd_dmma_kernel"),
@@ -4237,7 +4881,7 @@ def main() -> int:
                               "flash_bwd_dq_3xtf32_kernel")}
     for k in kernels:
         k["mma_in_sass"] = {n: c for n, c in hmma.items()
-                             if n.startswith(tc_of[k["name"]])}
+                             if n.startswith(tc_of.get(k["name"], ()))}
     print(f"[summary] trainer step p50: bf16 {train['p50_bf16_ms']:.1f} ms, "
           f"f32 {train['p50_f32_ms']:.1f} ms (T="
           f"{train['f32_episode_limit']})", flush=True)
@@ -4325,6 +4969,26 @@ def main() -> int:
           f"the driver's two dispatches "
           f"{', '.join(f'{x:.0f}' for x in population['driver_dispatch_ms'])}"
           f" ms host; peak {population['peak_gib']:.2f} GiB", flush=True)
+    dense_rows = "; ".join(
+        f"{key[0]} {key[1]} {key[2]} {v['ms']:.3f} ms (bound "
+        f"{v['bound_ms']:.3f}, sdpa {v['library_ms']:.3f})"
+        for key, v in times_bwd.items() if key[1] in DENSE_SHAPES)
+    print(f"[summary] kernels-dense (D = 64, the dense modules' shapes): "
+          f"{dense_rows}", flush=True)
+    print(f"[summary] dropout (config 3, dropout {DROPOUT}, remat, "
+          f"{DROPOUT_LANES} lanes, T={DROPOUT_T}): rollout+insert p50 "
+          f"{dropout['rollout_p50_ms']:.1f} ms, trainer step p50 "
+          f"{dropout['train_p50_ms']:.1f} ms, peak {dropout['peak_gib']:.2f} "
+          f"GiB; at the agent's shape the mask kernel "
+          f"{dropout['mask_kernel']['agent']['ms']:.3f} ms (plain "
+          f"{dropout['mask_kernel']['agent']['plain_ms']:.2f} ms), one "
+          f"dropout {dropout['mask_ms']['agent']:.3f} ms, "
+          f"{dropout['mask_launches']} mask launches; host-replay ({HOST_LANES} "
+          f"lanes, ring {HOST_RING} f32 in host RAM): iteration p50 "
+          f"{host_replay['iteration_p50_ms']:.1f} ms against loop-dense's "
+          f"{dense['iteration_p50_ms']:.1f} ms, a sample "
+          f"{host_replay['sample_ms']:.1f} ms, RSS "
+          f"{host_replay['rss_gib']:.2f} GiB", flush=True)
     print(f"[summary] total {time.perf_counter() - t_start:.1f} s; by phase: "
           + ", ".join(f"{k} {v:.1f} s" for k, v in phases.items()),
           flush=True)

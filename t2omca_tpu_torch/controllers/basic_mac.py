@@ -28,6 +28,10 @@ from ..config import TrainConfig
 from ..device import DeviceLike, resolve_device
 from ..models.agent import TransformerAgent
 from ..models.noisy import NoisyLinear
+from ..models.rnn_agent import RNNAgent
+
+#: agent families, as the JAX MAC's registry
+AGENT_REGISTRY = {"transformer": TransformerAgent, "rnn": RNNAgent}
 
 Params = Dict[str, torch.Tensor]
 
@@ -67,27 +71,26 @@ class BasicMAC:
         """Runs on ``cuda`` unless ``device`` says otherwise (raises when
         no card is present and none was named)."""
         device = resolve_device(device)
-        if cfg.agent != "transformer":
-            raise NotImplementedError(
-                f"agent '{cfg.agent}' is not ported yet (ROADMAP.md); the "
-                f"port has the transformer agent")
         n_agents = env_info["n_agents"]
         n_entities = cfg.model.n_entities_obs or env_info["n_entities"]
         feat = env_info.get("obs_entity_feats")
-        if feat is None:
-            # flat-obs mode: the whole obs vector is one entity token
+        if feat is None or cfg.agent == "rnn":
+            # flat-obs mode and flat-input agents: the whole obs vector
+            # is one entity token
             n_entities, feat = 1, env_info["obs_shape"]
         dtype = torch_dtype(cfg.model.dtype)
         kw = dict(n_agents=n_agents, n_entities=n_entities, feat_dim=feat,
                   emb=cfg.model.emb, heads=cfg.model.heads,
                   depth=cfg.model.depth, n_actions=env_info["n_actions"],
                   ff_hidden_mult=cfg.model.ff_hidden_mult,
+                  dropout=cfg.model.dropout,
                   noisy=cfg.action_selector == "noisy-new",
                   standard_heads=cfg.model.standard_heads,
                   attn_impl=cfg.kernels.attention, device="meta")
-        agent = TransformerAgent(dtype=dtype, **kw)
+        family = AGENT_REGISTRY[cfg.agent]
+        agent = family(dtype=dtype, **kw)
         act_dtype = torch_dtype(cfg.model.act_dtype or cfg.model.dtype)
-        act_agent = (TransformerAgent(dtype=act_dtype, **kw)
+        act_agent = (family(dtype=act_dtype, **kw)
                      if act_dtype != dtype else None)
         schedule = DecayThenFlatSchedule(
             cfg.epsilon_start, cfg.epsilon_finish, cfg.epsilon_anneal_time)
@@ -123,15 +126,29 @@ class BasicMAC:
     def _acting_dtype(self) -> torch.dtype:
         return self.act_dtype if self.act_dtype is not None else self.dtype
 
+    @property
+    def stochastic(self) -> bool:
+        """Whether a training-mode dense forward draws: a noisy q-head or
+        dropout in the transformer blocks."""
+        return self.agent.noisy or self.agent.dropout > 0.0
+
     def forward(self, params: Params, obs: torch.Tensor,
-                hidden: torch.Tensor, acting: bool = False
+                hidden: torch.Tensor, key: Optional[torch.Tensor] = None,
+                deterministic: bool = True, acting: bool = False
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Dense forward: obs ``(B, A, obs_dim)`` → (q ``(B, A,
-        n_actions)``, hidden'). ``acting=True`` runs the act_dtype
-        module."""
+        n_actions)``, hidden'). With ``key`` and ``deterministic`` False,
+        ``k_noise, k_drop = split(key)`` seed the noisy q-head and the
+        dropout masks (flax's ``rngs``), as the JAX MAC does.
+        ``acting=True`` runs the act_dtype module."""
         module = (self.act_agent if acting and self.act_agent is not None
                   else self.agent)
-        return functional_call(module, params, (obs, hidden), strict=True)
+        rngs = None
+        if key is not None and not deterministic:
+            k_noise, k_drop = prng.split(key).unbind(-2)
+            rngs = {"noise": k_noise, "dropout": k_drop}
+        return functional_call(module, params, (obs, hidden),
+                               {"rngs": rngs}, strict=True)
 
     def _noise_key(self, key: Optional[torch.Tensor],
                    deterministic: bool) -> Optional[torch.Tensor]:
@@ -215,9 +232,11 @@ class BasicMAC:
         for a whole rollout). ``compact`` (the env's compact obs) takes
         the entity-table forward when the MAC was built eligible; ``obs``
         may then be None. ``eps`` (a () device tensor) replaces the
-        epsilon of ``t_env`` (the selector's ``select``). The dense
-        agent's training noise is not ported (it raises)."""
-        needs_noise = self.agent.noisy and not test_mode
+        epsilon of ``t_env`` (the selector's ``select``). Outside test
+        mode the dense forward draws its noise and dropout masks from
+        ``k_noise`` (a dropout config drops in its rollouts too, as in
+        JAX); test mode and serving stay deterministic."""
+        needs_noise = self.stochastic and not test_mode
         k_noise, k_sel = (prng.split(key).unbind(0)
                           if needs_noise or draws is None else (None, None))
         if self.use_entity_tables and compact is not None:
@@ -230,13 +249,9 @@ class BasicMAC:
                                             key=k_noise,
                                             deterministic=test_mode,
                                             acting=True)
-        elif needs_noise:
-            raise NotImplementedError(
-                "the dense agent's NoisyNet training noise (flax's make_rng "
-                "stream) is not ported yet (ROADMAP.md Queue A item 2); "
-                "the query-slice and entity-table paths have it")
         else:
-            q, hidden = self.forward(params, obs, hidden, acting=True)
+            q, hidden = self.forward(params, obs, hidden, key=k_noise,
+                                     deterministic=test_mode, acting=True)
         actions, eps = self.selector.select(k_sel, q, avail, t_env,
                                             test_mode=test_mode,
                                             draws=draws, eps=eps)
@@ -262,7 +277,9 @@ def init_module_params(module: nn.Module, generator: torch.Generator,
     seed gives the same weights on every device, then moved to
     ``device``. flax's initializers: lecun-normal (or orthogonal)
     kernels, zero biases, unit LayerNorm scales, the NoisyNet
-    uniform/constant pair, and the mixer's zero ``out_gate``."""
+    uniform/constant pair, the mixer's zero ``out_gate``, and flax's
+    orthogonal recurrent kernels of the GRU cell (``recurrent``
+    layers)."""
     out: Params = {}
     for mname, mod in module.named_modules():
         pre = mname + "." if mname else ""
@@ -281,7 +298,9 @@ def init_module_params(module: nn.Module, generator: torch.Generator,
             out[pre + "bias"] = torch.zeros(mod.normalized_shape)
         elif isinstance(mod, nn.Linear):
             w = torch.empty(mod.out_features, mod.in_features)
-            if use_orthogonal:
+            if getattr(mod, "recurrent", False):
+                nn.init.orthogonal_(w, 1.0, generator=generator)
+            elif use_orthogonal:
                 nn.init.orthogonal_(w, math.sqrt(2.0), generator=generator)
             else:
                 # flax lecun_normal: truncated normal, variance 1/fan_in

@@ -17,7 +17,11 @@ Leaf mapping: flax ``Dense.kernel`` is ``(in, out)`` and becomes the
 noisy head's ``w_mu``/``w_sigma`` (``(in, out)``) and ``b_mu``/
 ``b_sigma`` become ``weight_mu``/``weight_sigma``/``bias_mu``/
 ``bias_sigma``; ``bias`` stays ``bias``. The mixer's zero-init gate
-``out_gate`` (a top-level ``(1,)`` leaf) keeps its name.
+``out_gate`` (a top-level ``(1,)`` leaf) keeps its name. The other
+families convert the same way: the GRU agent's ``fc1``, ``rnn.{ir, iz,
+in, hr, hz, hn}`` and ``q_basic``; the feed-forward QMIX mixer's
+``state_norm``, ``hyper_{w1,b1,w2,b2}`` and their ``*_h`` layers; VDN
+has no leaves.
 """
 
 from __future__ import annotations

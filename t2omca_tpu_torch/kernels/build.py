@@ -34,8 +34,10 @@ BUILD_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 LIB_NAME = "libt2omca_kernels.so"
 CUDA_SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "flash_fwd_tc.cu",
                 "flash_fwd_dmma.cu", "flash_bwd_tc.cu",
-                "flash_bwd_dkv_3xtf32.cu", "flash_bwd_dq_tc.cu")
-HOST_SOURCES = ("flash_fwd_op.cpp", "flash_bwd_op.cpp")
+                "flash_bwd_dkv_3xtf32.cu", "flash_bwd_dq_tc.cu",
+                "dropout_mask.cu")
+HOST_SOURCES = ("flash_fwd_op.cpp", "flash_bwd_op.cpp",
+                "dropout_mask_op.cpp")
 #: included by the CUDA sources (hashed into the build key with them)
 HEADERS = ("flash_common.cuh", "flash_mma.cuh")
 #: Hopper with the architecture-specific features (wgmma, setmaxnreg)

@@ -52,9 +52,21 @@ update tree; the ``lr`` baked into the functional Adam stays the config's
 a device scalar of the member's program, so PBT can change it under
 capture.
 
-Not ported (each raises ``NotImplementedError`` naming the ROADMAP
-item): dropout, the dense agent's noise (``noisy-new`` with
-``use_qslice: false``) and the ``qmix_ff``/``vdn`` mixers.
+Dropout (``model.dropout`` > 0) makes both query-slice reductions
+ineligible: the agent and the mixer unroll their dense modules, and
+every step draws its masks from its own key, ``split(k_ag, T + 1)[t]``
+for the agent (split again into ``k_noise, k_drop`` by the MAC's
+``forward``) and ``split(k_mx, T)[t]`` for the mixer (its ``"dropout"``
+stream), the target unrolls likewise from ``k_tag`` and ``k_tmx``. A
+noisy dense agent (``use_qslice: false``) draws its q-head noise the
+same way; with ``dropout`` 0 the mixer keys are dropped and the mixer
+stays on its deterministic path, as in JAX. Under ``model.remat`` a
+step's recompute takes the step's key again, so it draws the same
+masks.
+
+The mixer family comes from ``MIXER_REGISTRY``: the transformer mixer,
+``qmix_ff`` (standard QMIX over the flat state) and ``vdn`` (a sum, no
+parameters); the agent family from the MAC's (``transformer``, ``rnn``).
 """
 
 from __future__ import annotations
@@ -72,6 +84,7 @@ from ..config import TrainConfig
 from ..controllers.basic_mac import (BasicMAC, Params, init_module_params,
                                      torch_dtype)
 from ..device import DeviceLike, resolve_device
+from ..models.ff_mixer import QMixFFMixer, VDNMixer
 from ..models.mixer import TransformerMixer
 from ..models.noisy import noisy_weights
 from ..obs import sight
@@ -79,11 +92,10 @@ from ..ops.query_slice import agent_qslice_eligible
 
 Tree = Dict[str, Params]
 
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to t2omca_tpu_torch yet (ROADMAP.md Queue "
-        f"A {item})")
+#: mixer families, as the JAX learner's registry; each takes the
+#: transformer mixer's call
+MIXER_REGISTRY = {"transformer": TransformerMixer, "qmix_ff": QMixFFMixer,
+                  "vdn": VDNMixer}
 
 
 # --------------------------------------------------------------- optimizer
@@ -167,7 +179,7 @@ class LearnerState:
 @dataclasses.dataclass(frozen=True)
 class QMixLearner:
     mac: BasicMAC
-    mixer: TransformerMixer
+    mixer: object                   # any MIXER_REGISTRY family
     cfg: TrainConfig
     obs_dim: int
     state_dim: int
@@ -177,19 +189,8 @@ class QMixLearner:
     def build(cls, cfg: TrainConfig, mac: BasicMAC, env_info: dict,
               device: DeviceLike = None) -> "QMixLearner":
         """Runs on ``cuda`` unless ``device`` says otherwise (raises when
-        no card is present and none was named). Raises
-        ``NotImplementedError`` for what the port does not have yet."""
+        no card is present and none was named)."""
         device = resolve_device(device)
-        if cfg.mixer != "transformer":
-            raise _not_ported(f"mixer '{cfg.mixer}'", "item 10")
-        if cfg.model.dropout > 0.0:
-            raise _not_ported("training with dropout (model.dropout)",
-                              "item 2")
-        if (cfg.action_selector == "noisy-new"
-                and not agent_qslice_eligible(cfg)):
-            raise _not_ported("the dense agent's NoisyNet training noise "
-                              "(action_selector noisy-new with "
-                              "model.use_qslice=false)", "item 2")
         n_entities = cfg.model.n_entities_state or env_info["n_entities"]
         state_entity_mode = "state_entity_feats" in env_info
         if state_entity_mode:
@@ -198,18 +199,23 @@ class QMixLearner:
             # Q12 fallback: the mixer tokenizes all agents' obs entities
             feat = env_info["obs_entity_feats"]
             n_entities = env_info["n_entities"]
-        mixer = TransformerMixer(
+        # the feed-forward QMIX mixer sizes its hypernets from the flat
+        # state (flax infers it at init)
+        extra = ({"state_dim": env_info["state_shape"]}
+                 if cfg.mixer == "qmix_ff" else {})
+        mixer = MIXER_REGISTRY[cfg.mixer](
             n_agents=env_info["n_agents"], n_entities=n_entities,
             feat_dim=feat, emb=cfg.model.mixer_emb,
             heads=cfg.model.mixer_heads, depth=cfg.model.mixer_depth,
             ff_hidden_mult=cfg.model.ff_hidden_mult,
+            dropout=cfg.model.dropout,
             qmix_pos_func=cfg.model.qmix_pos_func,
             qmix_pos_func_beta=cfg.model.qmix_pos_func_beta,
             state_entity_mode=state_entity_mode,
             standard_heads=cfg.model.standard_heads,
             dtype=torch_dtype(cfg.model.dtype),
             attn_impl=cfg.kernels.attention,
-            zero_init_gate=cfg.model.mixer_zero_init, device="meta")
+            zero_init_gate=cfg.model.mixer_zero_init, device="meta", **extra)
         return cls(mac=mac, mixer=mixer, cfg=cfg,
                    obs_dim=env_info["obs_shape"],
                    state_dim=env_info["state_shape"], device=device)
@@ -277,8 +283,9 @@ class QMixLearner:
 
     def _step(self, fn, *args):
         """One unroll step: under ``model.remat`` and autograd, through
-        ``torch.utils.checkpoint`` (the backward recomputes the step;
-        nothing in a step draws, so no RNG state is stashed)."""
+        ``torch.utils.checkpoint`` (the backward recomputes the step; a
+        step draws only from the explicit key among its arguments, so no
+        RNG state is stashed)."""
         if self.cfg.model.remat and torch.is_grad_enabled():
             return checkpoint(fn, *args, use_reentrant=False,
                               preserve_rng_state=False)
@@ -300,8 +307,10 @@ class QMixLearner:
         hiddens ``(T1, B, A, emb)``), carrying the hidden token. With
         ``compact_tm`` (time-major ``(rows, same_mec, mean, std)``) the
         entity-table forward runs instead and ``obs_tm`` may be None.
-        ``key`` (noisy q-head) gives step ``t`` the key ``split(key,
-        T1)[t]``; every step's noisy weights are drawn before the loop.
+        ``key`` gives step ``t`` the key ``split(key, T1)[t]``: on the
+        query-slice and entity paths (a noisy q-head) every step's noisy
+        weights are drawn before the loop; the dense forward draws its
+        noise and dropout masks inside the step from that key.
         Steps from ``n_grad`` on run without autograd: the online
         unroll's bootstrap step feeds only the detached double-Q argmax,
         and JAX prunes its backward the same way (torch would otherwise
@@ -319,12 +328,18 @@ class QMixLearner:
             else:
                 fwd = lambda p, o, h: self.mac.forward_qslice(
                     p, o, h, attn_impl=self.cfg.kernels.attention)
+        elif key is not None:
+            fwd = lambda p, o, h, k: self.mac.forward(p, o, h, key=k,
+                                                      deterministic=False)
         else:
             fwd = self.mac.forward
         xs = (list(zip(*compact_tm)) if compact_tm is not None
               else list(obs_tm))
         step_params = [agent_params] * len(xs)
-        if key is not None:
+        step_keys = [()] * len(xs)
+        if key is not None and not self._agent_qslice:
+            step_keys = [(k,) for k in prng.split(key, len(xs))]
+        elif key is not None:
             qb = agent_params["qb"]
             w, b = noisy_weights(qb["weight_mu"], qb["weight_sigma"],
                                  qb["bias_mu"], qb["bias_sigma"],
@@ -339,19 +354,29 @@ class QMixLearner:
         for t, x_t in enumerate(xs):
             with torch.set_grad_enabled(grad and (n_grad is None
                                                   or t < n_grad)):
-                q, h = self._step(fwd, step_params[t], x_t, h)
+                q, h = self._step(fwd, step_params[t], x_t, h,
+                                  *step_keys[t])
             qs.append(q)
             hs.append(h)
         return torch.stack(qs), torch.stack(hs)
 
     def _unroll_mixer(self, mixer_params: Params, q_tm: torch.Tensor,
                       hid_tm: torch.Tensor, state_tm: torch.Tensor,
-                      obs_tm: Optional[torch.Tensor]) -> torch.Tensor:
+                      obs_tm: Optional[torch.Tensor],
+                      key: Optional[torch.Tensor] = None) -> torch.Tensor:
         """q_tm ``(T, B, A)`` → ``q_tot (T, B)``, carrying the 3 hyper
         tokens across time. ``obs_tm`` is None under compact storage
-        (the mixer reads the state alone). Under ``model.remat`` and
-        autograd each step runs through ``_step``'s checkpoint."""
-        if self._mixer_qslice:
+        (the mixer reads the state alone). ``key`` (dropout) gives step
+        ``t`` the ``"dropout"`` stream ``split(key, T)[t]``. Under
+        ``model.remat`` and autograd each step runs through ``_step``'s
+        checkpoint."""
+        if key is not None:
+            def mix(p, *xs):
+                *xs, k = xs
+                return functional_call(self.mixer, p, tuple(xs),
+                                       {"rngs": {"dropout": k}},
+                                       strict=True)
+        elif self._mixer_qslice:
             from ..ops.query_slice import make_mixer_qslice
             fold, mix = make_mixer_qslice(self.mixer)
             mixer_params = fold(mixer_params)
@@ -361,10 +386,13 @@ class QMixLearner:
         hyper = self.mixer.initial_hyper(q_tm.shape[1], device=self.device)
         if obs_tm is None:
             obs_tm = [None] * len(q_tm)
+        step_keys = ([()] * len(q_tm) if key is None else
+                     [(k,) for k in prng.split(key, len(q_tm))])
         q_tots = []
-        for qv, h, s, o in zip(q_tm, hid_tm, state_tm, obs_tm):
+        for qv, h, s, o, k in zip(q_tm, hid_tm, state_tm, obs_tm,
+                                  step_keys):
             q_tot, hyper = self._step(mix, mixer_params, qv[:, None, :], h,
-                                      hyper, s, o)
+                                      hyper, s, o, *k)
             q_tots.append(q_tot[:, 0, 0])
         return torch.stack(q_tots)
 
@@ -396,11 +424,13 @@ class QMixLearner:
         term = tm(batch.terminated).float()
         mask = tm(batch.filled).float()
 
-        # the mixer keys (k_mx, k_tmx) would seed dropout, which raises at
-        # build: the mixer unrolls stay deterministic
-        k_ag = k_tag = None
+        # the mixer keys seed its dropout; a noisy-only config drops them
+        # and its mixer stays on the deterministic path, as in JAX
+        k_ag = k_tag = k_mx = k_tmx = None
         if key is not None:
-            k_ag, k_tag, _k_mx, _k_tmx = prng.split(key, 4).unbind(0)
+            k_ag, k_tag, k_mx, k_tmx = prng.split(key, 4).unbind(0)
+            if cfg.model.dropout == 0.0:
+                k_mx = k_tmx = None
         qs, hs = self._unroll_agent(params["agent"], obs, k_ag, compact_tm,
                                     n_grad=avail.shape[0] - 1)
         with torch.no_grad():
@@ -442,10 +472,10 @@ class QMixLearner:
             target_max = padmask(target_max)
             target_q_tot = self._unroll_mixer(
                 target_params["mixer"], target_max, target_hs, state,
-                obs)[1:]
+                obs, k_tmx)[1:]
         q_tot = self._unroll_mixer(params["mixer"], chosen, hs[:-1],
                                    state[:-1],
-                                   None if obs is None else obs[:-1])
+                                   None if obs is None else obs[:-1], k_mx)
 
         if cfg.reward_unit != 1.0:
             reward = reward / cfg.reward_unit
@@ -499,7 +529,7 @@ class QMixLearner:
         """One importance-weighted QMIX update; hard target sync every
         ``target_update_interval`` episodes. ``key`` (``k_learn``) seeds
         the noisy q-head and is required when it is on (ignored
-        otherwise). ``info["grad_norm"]`` is the pre-clip norm; when the
+        otherwise) and the dropout masks. ``info["grad_norm"]`` is the pre-clip norm; when the
         loss or the gradients are not finite (``info["all_finite"]``
         False) params and optimizer state pass through unchanged, and
         ``train_steps`` still counts the call. ``spec``: a population
@@ -508,8 +538,9 @@ class QMixLearner:
         del t_env
         if self.needs_rngs and key is None:
             raise ValueError("QMixLearner.train needs a PRNG key when "
-                             "action_selector is noisy-new (the noise is "
-                             "drawn in the loss unroll)")
+                             "action_selector is noisy-new or dropout > 0 "
+                             "(noise and masks are drawn in the loss "
+                             "unroll)")
         if not self.needs_rngs:
             key = None
         cfg = self.cfg

@@ -15,18 +15,20 @@ Monotonicity in the per-agent Qs comes from ``pos_func`` on w1/w2, then
 learner carries across timesteps. Quirk Q12: without
 ``state_entity_mode`` the mixer tokenizes all agents' observation
 entities instead of the state entities. Parameter names mirror the flax
-tree (``convert.mixer_state_from_flax``). Deterministic (dropout is not
-ported).
+tree (``convert.mixer_state_from_flax``). ``rngs`` (``{"dropout": k}``,
+flax's ``apply`` argument) draws the blocks' dropout under
+``transformer``; None is deterministic.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .agent import scope
 from .transformer import Transformer, dense
 
 
@@ -48,6 +50,7 @@ def qmix_pos_func(x: torch.Tensor, kind: str, beta: float = 1.0
 class TransformerMixer(nn.Module):
     def __init__(self, n_agents: int, n_entities: int, feat_dim: int,
                  emb: int, heads: int, depth: int, ff_hidden_mult: int = 4,
+                 dropout: float = 0.0,
                  qmix_pos_func: str = "abs", qmix_pos_func_beta: float = 1.0,
                  state_entity_mode: bool = True,
                  standard_heads: bool = False,
@@ -67,8 +70,8 @@ class TransformerMixer(nn.Module):
         self.feat_embedding = nn.Linear(feat_dim, emb, device=device)
         self.transformer = Transformer(
             emb, heads, depth, ff_hidden_mult=ff_hidden_mult,
-            standard_heads=standard_heads, dtype=dtype, attn_impl=attn_impl,
-            device=device)
+            dropout=dropout, standard_heads=standard_heads, dtype=dtype,
+            attn_impl=attn_impl, device=device)
         self.hyper_b2 = nn.Linear(emb, 1, device=device)
         if zero_init_gate:
             self.out_gate = nn.Parameter(torch.zeros(1, device=device))
@@ -78,7 +81,9 @@ class TransformerMixer(nn.Module):
 
     def forward(self, qvals: torch.Tensor, hidden_states: torch.Tensor,
                 hyper_weights: torch.Tensor, states: torch.Tensor,
-                obs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+                obs: torch.Tensor,
+                rngs: Optional[Dict[str, torch.Tensor]] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
         """qvals ``(b, 1, n_agents)``; hidden_states ``(b, n_agents,
         emb)``; hyper_weights ``(b, 3, emb)`` → ``(q_tot (b, 1, 1), hyper
         (b, 3, emb))``, both f32."""
@@ -91,7 +96,9 @@ class TransformerMixer(nn.Module):
         embs = dense(self.feat_embedding, inputs, self.dtype)
         tokens = torch.cat([embs, hidden_states.to(embs.dtype),
                             hyper_weights.to(embs.dtype)], dim=1)
-        out = self.transformer(tokens, tokens).float()
+        out = self.transformer(tokens, tokens,
+                               rng=scope(rngs, "dropout", "transformer")
+                               ).float()
         w1 = out[:, -3 - self.n_agents:-3, :]
         b1 = out[:, -3, :].reshape(b, 1, self.emb)
         w2 = out[:, -2, :].reshape(b, self.emb, 1)

@@ -6,9 +6,10 @@ f(eps_out)`` with ``f(x) = sign(x)·sqrt(|x|)``. ``noisy_weights`` makes
 one draw of that affine from an explicit threefry key, as the JAX
 function does for the query-slice and entity-table q-heads
 (``ops/query_slice._q_head``), bit for bit in the key chain. The dense
-module below keeps only its deterministic mu path: its noisy forward
-draws through flax's path-folded ``make_rng`` stream in JAX, which is
-not ported. Weights are stored torch-style, ``(out, in)``.
+module below draws its training noise from its ``"noise"`` scope
+(``flax_rng.Scope``), the key flax's ``make_rng("noise")`` gives the
+JAX module; without one it runs the mu path (flax's
+``deterministic=True``). Weights are stored torch-style, ``(out, in)``.
 """
 
 from __future__ import annotations
@@ -17,7 +18,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from typing import Optional
+
 from .. import prng
+from ..flax_rng import Scope
 from ..xla_float import fma, sqrt
 
 
@@ -57,13 +61,14 @@ class NoisyLinear(nn.Module):
         self.bias_sigma = nn.Parameter(torch.empty(out_features,
                                                    device=device))
 
-    def forward(self, x: torch.Tensor, deterministic: bool = True
+    def forward(self, x: torch.Tensor, rng: Optional[Scope] = None
                 ) -> torch.Tensor:
-        if not deterministic:
-            raise NotImplementedError(
-                "the dense NoisyLinear's training noise (flax's make_rng "
-                "stream) is not ported yet (ROADMAP.md Queue A item 2); "
-                "the query-slice and entity-table q-heads draw theirs "
-                "(noisy_weights)")
-        return F.linear(x, self.weight_mu.to(x.dtype),
-                        self.bias_mu.to(x.dtype))
+        """``rng``: the layer's ``"noise"`` scope; None runs the mu
+        path."""
+        if rng is None:
+            w, b = self.weight_mu, self.bias_mu
+        else:
+            w, b = noisy_weights(self.weight_mu, self.weight_sigma,
+                                 self.bias_mu, self.bias_sigma,
+                                 rng.make_rng())
+        return F.linear(x, w.to(x.dtype), b.to(x.dtype))

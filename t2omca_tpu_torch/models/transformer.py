@@ -15,8 +15,17 @@ Numerics follow flax: a layer with compute ``dtype`` casts its input and
 weights to it (a bf16 product accumulates in f32 and rounds once);
 LayerNorm takes f32 statistics with flax's eps of 1e-6 and returns the
 compute dtype. Parameter names mirror the flax tree (``convert.py``
-carries weights across). The forward is deterministic: dropout is the
-training slice's.
+carries weights across).
+
+Dropout (``dropout`` > 0) follows each sub-layer's LayerNorm, as flax's
+``nn.Dropout`` in the JAX blocks: the forward takes the owning module's
+``"dropout"`` stream (a ``flax_rng.Scope``; None is flax's
+``deterministic=True``), and ``Dropout_0``/``Dropout_1`` of
+``block_<i>`` each draw ``bernoulli(make_rng("dropout"), 1 - rate,
+x.shape)`` and keep ``x / (1 - rate)`` (``dropout``; on the card the
+mask is one launch of the ``dropout_mask`` kernel,
+``kernels/dropout.py``). Every mask comes from an explicit threefry key, so a recompute under
+``torch.utils.checkpoint`` and a CUDA-graph replay draw the same masks.
 """
 
 from __future__ import annotations
@@ -27,12 +36,15 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..flax_rng import Scope
 from ..kernels.attention import NEG_MASK_VALUE, flash_attention
+from ..kernels.dropout import keep_mask
+from ..xla_float import recip
 
 LN_EPS = 1e-6   # flax nn.LayerNorm default (torch's is 1e-5)
 
 __all__ = ["NEG_MASK_VALUE", "LN_EPS", "LayerNorm", "MultiHeadAttention",
-           "TransformerBlock", "Transformer", "dense"]
+           "TransformerBlock", "Transformer", "dense", "dropout"]
 
 
 def dense(layer: nn.Linear, x: torch.Tensor,
@@ -40,6 +52,27 @@ def dense(layer: nn.Linear, x: torch.Tensor,
     """flax ``Dense(dtype=dtype)``: input, weight and bias in ``dtype``."""
     b = layer.bias.to(dtype) if layer.bias is not None else None
     return F.linear(x.to(dtype), layer.weight.to(dtype), b)
+
+
+def dropout(x: torch.Tensor, rate: float, scope: Optional[Scope]
+            ) -> torch.Tensor:
+    """flax ``nn.Dropout(rate)`` at the scope's first ``make_rng``:
+    ``select(bernoulli(key, 1 - rate, x.shape), x / (1 - rate), 0)``.
+    The division takes the form jitted XLA gives it on the CPU: an f32
+    ``x`` multiplies by the f32 reciprocal; a bf16 ``x`` divides by the
+    bf16-rounded constant in f32 and rounds once (the constant is a
+    Python float: no host-to-device copy, so the draw captures)."""
+    if rate == 0.0 or scope is None:
+        return x
+    keep = 1.0 - rate
+    mask = keep_mask(scope.key, scope.fold_data(), keep, tuple(x.shape))
+    if x.dtype == torch.float32:
+        kept = x * recip(keep)
+    else:
+        kb = float(torch.tensor(keep, dtype=x.dtype))
+        kept = (x.float() / kb).to(x.dtype)
+    return torch.where(mask, kept, torch.zeros((), dtype=x.dtype,
+                                               device=x.device))
 
 
 class LayerNorm(nn.LayerNorm):
@@ -127,14 +160,15 @@ class MultiHeadAttention(nn.Module):
 
 
 class TransformerBlock(nn.Module):
-    """Post-LN transformer block (Q2)."""
+    """Post-LN transformer block (Q2), dropout after each LayerNorm."""
 
     def __init__(self, emb: int, heads: int, causal: bool = False,
-                 ff_hidden_mult: int = 4, standard_heads: bool = False,
+                 ff_hidden_mult: int = 4, dropout: float = 0.0,
+                 standard_heads: bool = False,
                  dtype: torch.dtype = torch.float32, attn_impl: str = "xla",
                  device=None):
         super().__init__()
-        self.dtype = dtype
+        self.dtype, self.dropout = dtype, dropout
         self.attention = MultiHeadAttention(
             emb, heads, causal=causal, standard_heads=standard_heads,
             dtype=dtype, attn_impl=attn_impl, device=device)
@@ -144,12 +178,16 @@ class TransformerBlock(nn.Module):
         self.norm2 = LayerNorm(emb, dtype, device=device)
 
     def forward(self, q: torch.Tensor, k: torch.Tensor,
-                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                mask: Optional[torch.Tensor] = None,
+                rng: Optional[Scope] = None) -> torch.Tensor:
+        """``rng``: the block's ``"dropout"`` scope (None: deterministic)."""
+        sub = (lambda name: None) if rng is None else rng.child
         attended = self.attention(q, k, mask)
         x = self.norm1(attended + q)
+        x = dropout(x, self.dropout, sub("Dropout_0"))
         ff = torch.relu(dense(self.ff1, x, self.dtype))
         ff = dense(self.ff2, ff, self.dtype)
-        return self.norm2(ff + x)
+        return dropout(self.norm2(ff + x), self.dropout, sub("Dropout_1"))
 
 
 class Transformer(nn.Module):
@@ -157,20 +195,26 @@ class Transformer(nn.Module):
     input across blocks."""
 
     def __init__(self, emb: int, heads: int, depth: int,
-                 ff_hidden_mult: int = 4, standard_heads: bool = False,
+                 ff_hidden_mult: int = 4, dropout: float = 0.0,
+                 standard_heads: bool = False,
                  dtype: torch.dtype = torch.float32, attn_impl: str = "xla",
                  device=None):
         super().__init__()
         self.depth = depth
         for i in range(depth):
             self.add_module(f"block_{i}", TransformerBlock(
-                emb, heads, ff_hidden_mult=ff_hidden_mult,
+                emb, heads, ff_hidden_mult=ff_hidden_mult, dropout=dropout,
                 standard_heads=standard_heads, dtype=dtype,
                 attn_impl=attn_impl, device=device))
 
     def forward(self, q: torch.Tensor, k: torch.Tensor,
-                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                mask: Optional[torch.Tensor] = None,
+                rng: Optional[Scope] = None) -> torch.Tensor:
+        """``rng``: this stack's ``"dropout"`` scope (None:
+        deterministic); block ``i`` draws under ``block_<i>``."""
         x = q
         for i in range(self.depth):
-            x = getattr(self, f"block_{i}")(x, k, mask)
+            name = f"block_{i}"
+            x = getattr(self, name)(x, k, mask,
+                                    None if rng is None else rng.child(name))
         return x

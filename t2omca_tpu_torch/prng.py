@@ -21,9 +21,8 @@ package draw for draw:
   ``jax/_src/random.py`` built on those bits.
 
 Keys are ``(..., 2)`` int64 tensors whose entries hold uint32 values
-(torch's ``uint32`` supports few operations, and a right shift of
-``int32`` is arithmetic): every round adds, rotates and xors in int64
-and masks back to 32 bits. Leading key dimensions are batch lanes: a
+(torch's ``uint32`` supports few operations); the hash's rounds run on
+int32 tensors with the same bits (``threefry2x32``). Leading key dimensions are batch lanes: a
 draw of ``shape`` from keys ``(B, 2)`` returns ``(B, *shape)`` with the
 same counters in every lane, which is what ``jax.vmap`` of the draw over
 ``B`` keys gives.
@@ -77,25 +76,40 @@ def PRNGKey(seed: int, device: DeviceLike = None) -> torch.Tensor:
                         device=resolve_device(device))
 
 
+def _i32(x):
+    """uint32 values (int64 tensor or Python int) as the int32 with the
+    same bits."""
+    if isinstance(x, torch.Tensor):
+        return (x - ((x & 0x80000000) << 1)).to(torch.int32)
+    x = int(x) & MASK
+    return x - (1 << 32) if x & 0x80000000 else x
+
+
 def threefry2x32(k1: torch.Tensor, k2: torch.Tensor, x1, x2
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The Threefry-2x32 hash (20 rounds) of the counter pairs ``(x1,
     x2)`` under the key ``(k1, k2)``: int64 tensors (or Python ints for
-    the counters) holding uint32 values, broadcast against each other.
-    Mirrors ``_threefry2x32_lowering``."""
-    ks = (k1, k2, k1 ^ k2 ^ _PARITY)
-    y0, y1 = torch.broadcast_tensors((ks[0] + x1) & MASK,
-                                     (ks[1] + x2) & MASK)
+    the counters) holding uint32 values, broadcast against each other;
+    the result as int64 uint32 values. Mirrors
+    ``_threefry2x32_lowering``. The rounds run on int32 tensors holding
+    the same bits: half the bytes of int64 a pass and no mask after each
+    add. This requires torch's int32 ``add`` and left shift to wrap
+    modulo 2**32 (two's complement, as torch's CPU and CUDA kernels do;
+    ``tests/test_torch_prng.py`` and the card's CUDA = CPU check hold it
+    bit for bit); a rotation's right shift is masked to its low bits,
+    because int32 right shifts are arithmetic."""
+    k1, k2 = _i32(k1), _i32(k2)
+    ks = (k1, k2, k1 ^ k2 ^ _i32(_PARITY))
+    y0, y1 = torch.broadcast_tensors(ks[0] + _i32(x1), ks[1] + _i32(x2))
     y0, y1 = y0.clone(), y1.clone()
     for i in range(5):
         for r in _ROTATIONS[i % 2]:
-            y0.add_(y1).bitwise_and_(MASK)
-            hi = y1 << r
-            y1 = hi.bitwise_and_(MASK).bitwise_or_(y1 >> (32 - r))
-            y1.bitwise_xor_(y0)
-        y0.add_(ks[(i + 1) % 3]).bitwise_and_(MASK)
-        y1.add_(ks[(i + 2) % 3]).add_(i + 1).bitwise_and_(MASK)
-    return y0, y1
+            y0.add_(y1)
+            low = (y1 >> (32 - r)).bitwise_and_((1 << r) - 1)
+            y1 = (y1 << r).bitwise_or_(low).bitwise_xor_(y0)
+        y0.add_(ks[(i + 1) % 3])
+        y1.add_(ks[(i + 2) % 3]).add_(i + 1)
+    return y0.to(torch.int64) & MASK, y1.to(torch.int64) & MASK
 
 
 def _hash_counters(key: torch.Tensor, lo, shape: Tuple[int, ...]

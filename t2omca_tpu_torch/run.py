@@ -75,6 +75,13 @@ program (the ``record_function`` ranges of ``Experiment.programs`` and
 ``<run_dir>/device_times.json``; a pulse trace capture refreshes that
 file too.
 
+With ``replay.buffer_cpu_only`` the ring lives in host RAM
+(``components/host_replay.py``, JAX's host branches): the state's
+``buffer`` is None and checkpoints hold no ring, insert and sample are
+host calls (their dispatches are not retried in place), the train gate
+asks the buffer, a restore drops its deferred priority feedback, and the
+fused superstep is ineligible (``superstep_eligible``).
+
 Left out, to later slices: data parallelism, Sebulba and the population
 across them or under another size at restore (item 12). Each raises
 naming its item.
@@ -98,6 +105,7 @@ from . import population as pop
 from . import prng
 from .components.episode_buffer import (PrioritizedReplayBuffer,
                                         ReplayBuffer)
+from .components.host_replay import HostReplayBuffer
 from .config import TrainConfig, sanity_check, unique_token
 from .controllers.basic_mac import MAC_REGISTRY
 from .device import DeviceLike, resolve_device
@@ -110,7 +118,8 @@ from .obs import spans as obs_spans
 from .ops.query_slice import entity_store_eligible
 from .runners.episode_runner import EpisodeRunner
 from .runners.parallel_runner import RUNNER_REGISTRY
-from .train.program import TrainState, build_train_iter
+from .train.program import (TrainState, build_host_train_iter,
+                            build_train_iter)
 from .train.superstep import PopulationProgram, SuperstepProgram
 from .utils import resilience, watchdog
 from .utils.checkpoint import (CheckpointFormatError, find_checkpoint,
@@ -159,8 +168,6 @@ class Experiment:
         if cfg.prng_impl != "threefry":
             raise _not_ported(f"prng_impl '{cfg.prng_impl}'", "the PRNG "
                               "(the port has threefry2x32)")
-        if cfg.replay.buffer_cpu_only:
-            raise _not_ported("replay.buffer_cpu_only", "item 9")
         if cfg.sebulba.actor_devices:
             raise _not_ported("Sebulba (sebulba.actor_devices)", "item 12")
         env = make_env(cfg.env_args, device)
@@ -175,16 +182,28 @@ class Experiment:
                       n_actions=env_info["n_actions"],
                       obs_dim=env_info["obs_shape"],
                       state_dim=env_info["state_shape"],
-                      store_dtype=cfg.replay.store_dtype,
-                      compact_obs=entity_store_eligible(cfg), device=device)
-        if cfg.replay.prioritized:
+                      store_dtype=cfg.replay.store_dtype, device=device)
+        if cfg.replay.buffer_cpu_only:
+            # host-RAM replay with the device-side PER sample
+            buffer = HostReplayBuffer(
+                alpha=cfg.replay.per_alpha, beta0=cfg.replay.per_beta,
+                t_max=cfg.t_max, prioritized=cfg.replay.prioritized,
+                **buf_kw)
+        elif cfg.replay.prioritized:
             buffer = PrioritizedReplayBuffer(
                 alpha=cfg.replay.per_alpha, beta0=cfg.replay.per_beta,
-                t_max=cfg.t_max, **buf_kw)
+                t_max=cfg.t_max, compact_obs=entity_store_eligible(cfg),
+                **buf_kw)
         else:
-            buffer = ReplayBuffer(**buf_kw)
+            buffer = ReplayBuffer(compact_obs=entity_store_eligible(cfg),
+                                  **buf_kw)
         return cls(cfg=cfg, env=env, mac=mac, learner=learner,
                    runner=runner, buffer=buffer, device=device)
+
+    @property
+    def host_buffer(self) -> bool:
+        """Whether the replay lives in host RAM (``buffer_cpu_only``)."""
+        return isinstance(self.buffer, HostReplayBuffer)
 
     @property
     def episode_runner(self) -> EpisodeRunner:
@@ -201,7 +220,9 @@ class Experiment:
         ls = (self.learner.init_state(params=learner_params)
               if learner_params is not None else
               self.learner.init_state(torch.Generator().manual_seed(seed)))
-        return TrainState(learner=ls, buffer=self.buffer.init(),
+        return TrainState(learner=ls,
+                          buffer=None if self.host_buffer
+                          else self.buffer.init(),
                           episode=torch.zeros((), dtype=torch.int32,
                                               device=self.device),
                           runner=self.runner.init_state(k_runner))
@@ -209,9 +230,18 @@ class Experiment:
     def programs(self):
         """→ (rollout, insert, train_iter), each inside a
         ``record_function`` range of its JAX program name (the names
-        ``obs/device_time.py`` attributes device time to)."""
+        ``obs/device_time.py`` attributes device time to). With the ring
+        in host RAM, insert and sample are host calls (the state's
+        ``buffer`` stays None) and ``train_iter`` hands its key to the
+        learner unsplit, as JAX's host path does."""
         runner, buffer = self.runner, self.buffer
-        step = build_train_iter(buffer, self.learner, self.cfg)
+        step = (build_host_train_iter(buffer, self.learner, self.cfg)
+                if self.host_buffer else
+                build_train_iter(buffer, self.learner, self.cfg))
+        if self.host_buffer:
+            _insert = lambda state, batch: buffer.insert_episode_batch(batch)
+        else:
+            _insert = buffer.insert_episode_batch
 
         def rollout(params, rs, test_mode: bool = False):
             with record_function("rollout"):
@@ -219,7 +249,7 @@ class Experiment:
 
         def insert(state, batch):
             with record_function("insert"):
-                return buffer.insert_episode_batch(state, batch)
+                return _insert(state, batch)
 
         def train_iter(ts, key, t_env, **kw):
             with record_function("train_iter"):
@@ -731,7 +761,7 @@ def run_sequential(exp: Experiment, logger: Logger, results_dir: str,
                  batch_size_run=cfg.batch_size_run,
                  episode_limit=cfg.env_args.episode_limit,
                  batch_size=cfg.batch_size, superstep=K,
-                 host_buffer=False, population=P,
+                 host_buffer=exp.host_buffer, population=P,
                  scenario=scenario_config(cfg.env_args).kind)
     # per-stage device barriers for honest attribution; tracing implies
     # them (an un-synced trace window would capture enqueue, not work)
@@ -748,9 +778,11 @@ def run_sequential(exp: Experiment, logger: Logger, results_dir: str,
     steps_per_rollout = cfg.batch_size_run * cfg.env_args.episode_limit
     lead = ts[0] if P else ts
     episode = int(lead.episode)
-    buffer_filled = int(lead.buffer.episodes_in_buffer)
+    # a host ring gates on its own count (can_sample)
+    buffer_filled = (0 if exp.host_buffer
+                     else int(lead.buffer.episodes_in_buffer))
     del lead
-    buffer_capacity = exp.buffer.capacity
+    buffer_capacity = 0 if exp.host_buffer else exp.buffer.capacity
     inflight = deque()              # device events of recent dispatches
 
     def _restore_checkpoint(dirname, step):
@@ -769,7 +801,11 @@ def run_sequential(exp: Experiment, logger: Logger, results_dir: str,
             ts = lead = _set_t_env(restored, step)
         t_env = step
         episode = int(lead.episode)
-        buffer_filled = int(lead.buffer.episodes_in_buffer)
+        if exp.host_buffer:
+            # the deferred priority copies came from the rolled-back step
+            exp.buffer.drop_pending_update()
+        else:
+            buffer_filled = int(lead.buffer.episodes_in_buffer)
         inflight.clear()
         train_infos = []
         nonfinite_streak = 0
@@ -955,8 +991,11 @@ def run_sequential(exp: Experiment, logger: Logger, results_dir: str,
                     return ts, stats
                 try:
                     with timer.stage("rollout"):
+                        # a host ring's insert writes host RAM inside
+                        # fn: not replayable in place
                         ts, stats = _dispatch("dispatch.rollout", _roll,
-                                              _stamp())
+                                              _stamp(),
+                                              retryable=not exp.host_buffer)
                 except watchdog.DispatchFailed as df:
                     _dispatch_ladder(df)
                     continue
@@ -965,8 +1004,10 @@ def run_sequential(exp: Experiment, logger: Logger, results_dir: str,
                 buffer_filled = min(buffer_filled + cfg.batch_size_run,
                                     buffer_capacity)
                 # ------------ train gate ---------------------------------
-                if (buffer_filled >= cfg.batch_size
-                        and episode >= cfg.accumulated_episodes):
+                can = (exp.buffer.can_sample(cfg.batch_size)
+                       if exp.host_buffer
+                       else buffer_filled >= cfg.batch_size)
+                if can and episode >= cfg.accumulated_episodes:
                     key2, k_sample = prng.split(key).unbind(0)
 
                     def _train_once(ts=ts, k_sample=k_sample):
@@ -976,8 +1017,11 @@ def run_sequential(exp: Experiment, logger: Logger, results_dir: str,
                         return ts, info
                     try:
                         with timer.stage("train"):
-                            ts, info = _dispatch("dispatch.train",
-                                                 _train_once, _stamp())
+                            # host sampling advances the host RNG inside
+                            # fn: not replayable in place
+                            ts, info = _dispatch(
+                                "dispatch.train", _train_once, _stamp(),
+                                retryable=not exp.host_buffer)
                     except watchdog.DispatchFailed as df:
                         _dispatch_ladder(df)
                         continue

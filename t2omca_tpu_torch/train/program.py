@@ -63,3 +63,24 @@ def build_train_iter(buffer, learner, cfg):
                                    buffer=buf), info
 
     return train_iter
+
+
+def build_host_train_iter(buffer, learner, cfg):
+    """→ ``train_iter(ts, key, t_env) -> (ts', info)`` over a host-RAM
+    ring (``components/host_replay.HostReplayBuffer``), JAX's
+    ``train_iter_host``: the buffer samples with its own host RNG, the
+    learner takes ``key`` as it is, and the priority feedback is deferred
+    to the buffer's next sample or insert. With ``obs.sight`` and PER the
+    info carries the host mirror's PER-health read."""
+
+    def train_iter(ts: TrainState, key: torch.Tensor, t_env, **_):
+        batch, idx, weights = buffer.sample(cfg.batch_size, int(t_env))
+        learner_state, info = learner.train(ts.learner, batch, weights,
+                                            t_env, ts.episode, key)
+        buffer.defer_priority_update(idx, info["td_errors_abs"],
+                                     info["all_finite"])
+        if cfg.obs.sight.enabled and buffer.prioritized:
+            info = dict(info, **buffer.sight_priority_info())
+        return dataclasses.replace(ts, learner=learner_state), info
+
+    return train_iter

@@ -52,10 +52,11 @@ or the call raises: there is no eager fallback. The stage functions run
 eagerly otherwise only on a CPU device that the caller named, the path
 the tests hold against JAX and against ``run_classic``.
 
-``attention.LAUNCHES`` is counted in Python where a wrapper launches, so
-at capture and never at replay. The program records each graph's launch
-delta at capture (and takes it back out: capture launches nothing) and
-adds it at each replay, so the counts stay "launches since reset".
+``attention.LAUNCHES`` and ``dropout.LAUNCHES`` (the kernels' counts)
+are counted in Python where a wrapper launches, so at capture and never
+at replay. The program records each graph's launch delta at capture (and
+takes it back out: capture launches nothing) and adds it at each replay,
+so the counts stay "launches since reset".
 Capture runs with ``capture_error_mode="thread_local"``: the watchdog,
 the live plane's HTTP thread and memwatch may call the CUDA API from
 their own threads meanwhile.
@@ -92,7 +93,7 @@ from typing import Dict, List, Optional, Sequence
 import torch
 from torch.profiler import record_function
 
-from ..kernels import attention
+from ..kernels import attention, dropout
 from ..obs import sight
 from ..utils.checkpoint import flatten_state, map_tensors
 from .program import TrainState, build_train_iter
@@ -183,7 +184,8 @@ class SuperstepProgram:
 
     Read after a dispatch: ``consumed`` (whether the last call began to
     write the state: a failure then leaves it partly written),
-    ``launches`` (each graph's kernel launches a replay), ``capture_s``
+    ``launches`` (each graph's attention-kernel launches a replay;
+    ``mask_launches`` its dropout-mask launches), ``capture_s``
     and ``instantiate_s`` (seconds, per stage), ``nodes``
     (``graph_nodes`` per stage). With ``timing`` set on a CUDA device,
     ``events`` holds three CUDA events a sub-iteration of the last call
@@ -230,6 +232,7 @@ class SuperstepProgram:
         self.graphs: Dict[str, object] = {}
         self.outputs: Dict[str, object] = {}
         self.launches: Dict[str, Dict[str, int]] = {}
+        self.mask_launches: Dict[str, Dict[str, int]] = {}
         self.capture_s: Dict[str, float] = {}
         self.instantiate_s: Dict[str, float] = {}
         self.nodes: Dict[str, Optional[Dict[str, int]]] = {}
@@ -273,6 +276,8 @@ class SuperstepProgram:
         self.graphs[name].replay()
         for kernel, n in self.launches[name].items():
             attention.count_launch(kernel, n)
+        for kernel, n in self.mask_launches[name].items():
+            dropout.count_launch(kernel, n)
         return self.outputs[name]
 
     def _capture(self, name: str, fn) -> None:
@@ -280,6 +285,7 @@ class SuperstepProgram:
             self.pool = torch.cuda.graph_pool_handle()
         g, kept = _new_graph()
         before = dict(attention.LAUNCHES)
+        before_masks = dict(dropout.LAUNCHES)
         # the capture begins with a device synchronize: wait here, so the
         # capture's seconds leave out the work queued before it (another
         # member's replays)
@@ -302,7 +308,11 @@ class SuperstepProgram:
         finally:
             delta = {k: attention.LAUNCHES[k] - before[k] for k in before}
             attention.LAUNCHES.update(before)
+            masks = {k: dropout.LAUNCHES[k] - before_masks[k]
+                     for k in before_masks}
+            dropout.LAUNCHES.update(before_masks)
         self.launches[name] = delta
+        self.mask_launches[name] = masks
         self.capture_s[name] = t1 - t0
         self.instantiate_s[name] = (t2 - t1) + (t4 - t3)
         self.graphs[name], self.outputs[name] = g, out

@@ -365,6 +365,41 @@ def test_threefry_on_cuda_equals_cpu_bit_for_bit(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2048, 65, 256), (32, 131, 256),
+                                   (3, 5, 7), (1,)])
+@pytest.mark.parametrize("keep", [0.9, 0.5])
+def test_dropout_mask_kernel_matches_plain(cuda_device, shape, keep):
+    """The dropout-mask kernel against ``prng.fold_in`` and
+    ``prng.bernoulli`` bit for bit (the learner's agent and mixer shapes,
+    a ragged tail), counted once a launch, and captured into a CUDA graph
+    whose replay reads the key the static input holds."""
+    from t2omca_tpu_torch import prng
+    from t2omca_tpu_torch.kernels import dropout as dk
+    keys = prng.split(prng.PRNGKey(7, cuda_device), 3)
+    folds = (0, 0x9E3779B9, 2 ** 32 - 1)
+    dk.reset_launches()
+    for key, fold in zip(keys.unbind(0), folds):
+        got = dk.keep_mask(key, fold, keep, shape)
+        assert got.dtype == torch.bool and got.shape == shape
+        assert torch.equal(got, prng.bernoulli(prng.fold_in(key, fold),
+                                               keep, shape))
+    assert dk.LAUNCHES["dropout_mask"] == 3
+    static = keys[0].clone()
+    dk.keep_mask(static, 5, keep, shape)         # load the library first
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = dk.keep_mask(static, 5, keep, shape)
+    static.copy_(keys[2])
+    g.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, prng.bernoulli(prng.fold_in(keys[2], 5), keep,
+                                           shape))
+    with pytest.raises(ValueError, match="int64 \\(2,\\)"):
+        dk.keep_mask(keys, 0, keep, shape)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("fast_norm", [False, True])
 def test_env_step_on_cuda_matches_cpu(cuda_device, fast_norm):
     """One reset and one step from the same state, actions and keys:

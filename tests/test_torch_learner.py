@@ -201,11 +201,29 @@ def test_train_info_zeros_matches_train_info():
      "dense agent's NoisyNet"),
 ])
 def test_unported_paths_raise(over, match):
-    tcfg = from_dict(config(**over))
-    info = make_env(tcfg.env_args).get_env_info()
-    mac = BasicMAC.build(tcfg, info, device="cpu")
-    with pytest.raises(NotImplementedError, match=match):
-        QMixLearner.build(tcfg, mac, info, device="cpu")
+    """The four paths the port once refused (``match`` names each) now
+    build and match JAX: one keyed train step from the same params,
+    batch, weights and key, at this file's tolerances (info ``INFO``,
+    ``grad_norm`` rtol 1e-4, params ``PARAMS``)."""
+    jl, jls, tl, tls, info = build_pair(config(**over))
+    assert (tl.needs_rngs == jl.needs_rngs
+            == (match in ("dropout", "dense agent's NoisyNet")))
+    rng = np.random.default_rng(7)
+    ep = make_episodes(rng, info, BATCH, T)
+    w = rng.uniform(0.5, 1.0, BATCH).astype(np.float32)
+    key = jax.random.PRNGKey(21)
+    jls, jinfo = jax.jit(jl.train)(jls, to_jax(ep), jnp.asarray(w), 0, 1,
+                                   key)
+    from t2omca_tpu_torch.convert import tensor_from_jax
+    tls, tinfo = tl.train(tls, to_port(ep), torch.from_numpy(w), 0, 1,
+                          tensor_from_jax(key, "cpu"))
+    for k in ("loss", "td_error_abs", "q_taken_mean", "target_mean",
+              "td_errors_abs"):
+        np.testing.assert_allclose(tinfo[k].numpy(), np.asarray(jinfo[k]),
+                                   err_msg=f"{match} {k}", **INFO)
+    np.testing.assert_allclose(float(tinfo["grad_norm"]),
+                               float(jinfo["grad_norm"]), rtol=1e-4)
+    _params_close(tls.params, jls.params, match)
 
 
 @pytest.mark.parametrize("compact", [False, True])

@@ -4,9 +4,11 @@ entity-table paths (``t2omca_tpu_torch.models.noisy.noisy_weights``,
 learner's ``k_ag, k_tag, k_mx, k_tmx`` keys) against the JAX package on
 the CPU, with the same threefry keys.
 
-Both packages draw the q-head's noise from a raw split key (not flax's
-path-folded ``make_rng``, which the dense module uses and the port does
-not have), so the comparison is path for path.
+Both packages draw the q-head's noise from a raw split key on these
+paths, so the comparison is path for path; the dense module draws
+through flax's path-folded ``make_rng`` (``flax_rng.py``), held in
+``test_dense_noisy_training_still_raises`` and
+``tests/test_torch_dropout.py``.
 
 Tolerances: ``noisy_weights`` rtol 1e-5 / atol 1e-6 (``prng.normal``'s
 erfinv tails, ``tests/test_torch_prng.py``); a noisy train step's loss
@@ -137,28 +139,54 @@ def test_noisy_train_step_matches_jax(case):
 
 
 def test_dense_noisy_training_still_raises():
-    """The dense agent's noise is flax's ``make_rng`` stream (not
-    ported): the learner and training-mode acting raise on it; test-mode
-    acting runs the mu head."""
+    """The dense agent's noise (flax's ``make_rng("noise")`` stream under
+    ``q_basic``, once refused) now matches JAX: the learner builds with
+    keys, and training-mode ``select_actions`` on the dense path draws
+    the same noisy q-head as JAX's MAC from the same key (actions
+    identical, hidden state at rtol 1e-5 / atol 1e-6); test mode runs
+    the mu head in both packages."""
+    from t2omca_tpu.controllers.basic_mac import BasicMAC as JaxMAC
+    from t2omca_tpu.envs.registry import make_env as jax_make_env
     from t2omca_tpu_torch.controllers.basic_mac import BasicMAC
     from t2omca_tpu_torch.envs.registry import make_env
     from t2omca_tpu_torch.learners import QMixLearner
-    from t2omca_tpu_torch import prng
-    cfg = from_dict(tl_test.config(**NOISY, **{"model.use_qslice": False}))
+    d = tl_test.config(**NOISY, **{"model.use_qslice": False})
+    cfg = from_dict(d)
     info = make_env(cfg.env_args).get_env_info()
     mac = BasicMAC.build(cfg, info, device="cpu")
-    with pytest.raises(NotImplementedError, match="dense agent"):
-        QMixLearner.build(cfg, mac, info, device="cpu")
-    params = mac.init_params(torch.Generator().manual_seed(0))
-    obs = torch.zeros(2, info["n_agents"], info["obs_shape"])
-    avail = torch.ones(2, info["n_agents"], info["n_actions"])
-    key = prng.PRNGKey(0, "cpu")
-    with pytest.raises(NotImplementedError, match="make_rng"):
-        mac.select_actions(params, obs, avail, mac.init_hidden(2), key)
-    actions, _, _ = mac.select_actions(params, obs, avail,
-                                       mac.init_hidden(2), key,
-                                       test_mode=True)
-    assert actions.shape == (2, info["n_agents"])
+    assert QMixLearner.build(cfg, mac, info, device="cpu").needs_rngs
+    assert mac.stochastic and not mac.use_qslice
+    jcfg = jax_from_dict(d)
+    jmac = JaxMAC.build(jcfg, jax_make_env(jcfg.env_args).get_env_info())
+    jparams = jmac.init_params(jax.random.PRNGKey(0), info["obs_shape"])
+    params = agent_state_from_flax(np_tree(jparams), "cpu")
+    rng = np.random.default_rng(8)
+    b, a = 5, info["n_agents"]
+    obs = rng.standard_normal((b, a, info["obs_shape"])).astype(np.float32)
+    avail = rng.random((b, a, info["n_actions"])) < 0.7
+    avail[..., 0] = True
+    h = np.zeros((b, a, cfg.model.emb), np.float32)
+    sel = jax.jit(jmac.select_actions, static_argnames="test_mode")
+    for test_mode in (False, True):
+        key = jax.random.PRNGKey(17)
+        ja, jh, _ = sel(jparams, jnp.asarray(obs), jnp.asarray(avail),
+                        jnp.asarray(h), key, jnp.asarray(0),
+                        test_mode=test_mode)
+        ta, th, _ = mac.select_actions(
+            params, torch.from_numpy(obs), torch.from_numpy(avail),
+            torch.from_numpy(h), tensor_from_jax(key, "cpu"),
+            test_mode=test_mode)
+        np.testing.assert_array_equal(ta.numpy(), np.asarray(ja))
+        np.testing.assert_allclose(th.numpy(), np.asarray(jh), rtol=1e-5,
+                                   atol=1e-6)
+    k_noise, _ = jax.random.split(jax.random.PRNGKey(17))
+    q_noisy, _ = mac.forward(params, torch.from_numpy(obs),
+                             torch.from_numpy(h),
+                             key=tensor_from_jax(k_noise, "cpu"),
+                             deterministic=False)
+    q_mu, _ = mac.forward(params, torch.from_numpy(obs),
+                          torch.from_numpy(h))
+    assert not torch.allclose(q_noisy, q_mu)
 
 
 @pytest.mark.parametrize("entity", [False, True])
