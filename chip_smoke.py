@@ -2083,7 +2083,8 @@ def fused_dispatch(torch, sup, ts, mirror):
         gated.append(mirror["filled"] >= cfg.batch_size
                      and mirror["episode"] >= cfg.accumulated_episodes)
         if gated[-1]:
-            mirror["key"], k_sample = prng.split(mirror["key"]).unbind(0)
+            mirror["key"], k_sample = prng.split(
+                mirror["key"], 2, cfg.prng_impl).unbind(0)
             rows.append(k_sample)
         else:
             rows.append(torch.zeros_like(mirror["key"]))
@@ -2374,7 +2375,8 @@ DROPOUT_T = 30                      # [dropout]: episode_limit 150 -> 50
 DROPOUT_K = 2
 FAMILY_LANES = 32                   # [families]: 1024 -> 32 lanes
 FAMILY_RING = 64                    # [families]: 2048 -> 64
-FAMILY_T = 50                       # [families]: episode_limit 150 -> 50
+FAMILY_T = 30                       # [families]: episode_limit 150 -> 30
+#                                     (the smoke's limit, PERF.md §4)
 FAMILIES = (("rnn", "vdn"), ("rnn", "qmix_ff"), ("transformer", "qmix_ff"),
             ("rnn", "transformer"))
 HOST_LANES = 128                    # [host-replay]: 1024 -> 128 lanes
@@ -4090,7 +4092,8 @@ def _fleet_legs(torch, att, art, cfg, meta, one, request, tmp, first_ckpt,
 
 
 SCENARIO_CONFIG = "configs/config6_scenarios.yaml"
-#: episode_limit 150 -> 50 since PR 16 (the smoke's limit)
+#: episode_limit 150 -> 50 (the smoke's limit); the CLI's two K = 4
+#: dispatches must pass config 6's log_interval
 SCENARIO_T = 50
 SCENARIO_OVERRIDES = ("kernels.attention=pallas",
                       f"env_args.episode_limit={SCENARIO_T}")
@@ -4943,7 +4946,7 @@ class _MaskSum:
         return self.total.clone()
 
 
-def _blocked_step_probe(torch, blocks: int):
+def _blocked_step_probe(torch, blocks: int, keep_blocks: bool = False):
     """Wrap ``QMixLearner.train`` and the ring's ``update_priorities`` for
     their next call. Besides the whole-batch step that the run takes, it
     computes here, without the learner's dp code, the step that
@@ -4956,8 +4959,9 @@ def _blocked_step_probe(torch, blocks: int):
     holds their all-reduced denominator. → (dict filled at the call, on
     the CPU: ``loss``, ``grad_norm``, ``all_finite``, ``learner`` (the
     new params and optimizer state by dotted path), ``pa`` (the sampled
-    episodes' priorities ``(|TD| + 1e-6)^alpha``), ``idx``; restore
-    function).
+    episodes' priorities ``(|TD| + 1e-6)^alpha``), ``idx``, with
+    ``keep_blocks`` ``block_grads``, each block's gradients flattened in
+    the learner's leaf order; restore function).
     The bf16 learner rounds f32 products to bf16 at every layer, and a
     product's f32 bits depend on how many rows one call holds, so the
     ranks' step differs from the whole-batch one by the batch-size
@@ -4993,6 +4997,9 @@ def _blocked_step_probe(torch, blocks: int):
                 torch.autograd.grad(loss, leaves, allow_unused=True),
                 leaves)]
             grads = g if grads is None else [a + b for a, b in zip(grads, g)]
+            if keep_blocks:
+                seen.setdefault("block_grads", []).append(
+                    torch.cat([x.reshape(-1) for x in g]).cpu())
             tds.append(info["td_errors_abs"])
             loss = loss.detach()
             loss_sum = loss if loss_sum is None else loss_sum + loss
@@ -5330,6 +5337,414 @@ def _dp_shard_check(torch, ranks: list, shard_dir: str, whole, smi: str
             "bytes": [s["bytes"] for s in shards],
             "rebuild_s": rebuild_s, "restore_s": restore_s,
             "leaves": n_leaves}
+
+
+#: [rbg]: config 3 at [loop]'s cuts under prng_impl rbg (a classic
+#: iteration, then one fused dispatch of RBG_K) and unsafe_rbg (a classic
+#: iteration); its dropout leg at [dropout]'s cuts, one iteration
+RBG_K = 4
+RBG_ROLLOUTS = 2                    # timed rollouts an impl, in turns
+#: 32-bit operations a dropout-mask element needs on the Philox path
+#: (csrc/dropout_mask.cu), one an instruction as in MASK_OPS: a block of
+#: 4 elements takes 10 rounds of 2 32x32->64 products (an IMAD.WIDE each,
+#: issued at half rate: 2), 2 three-input xors (a LOP3 each) and 2 key
+#: adds, and its 128-bit counter add (4); then an element's word select,
+#: mantissa shift and or, f32 subtract and compare. The key's fold (2
+#: threefry hashes under rbg, an xor under unsafe_rbg) is once a draw.
+PHILOX_OPS = (10 * (2 * 2 + 2 + 2) + 4) / 4 + 5
+#: the 128-bit carry keys the draws are held at besides a seeded one
+CARRY_KEYS = ((0xDEADBEEF, 7, 0xFFFFFFFF, 0xFFFFFFFF),
+              (1, 2, 0xFFFFFFFE, 0xFFFFFFFF))
+
+
+def check_philox_cuda_equals_cpu(torch, impl: str, lanes: int) -> int:
+    """The rbg impls' bits, ``uniform`` and ``bernoulli`` on the card
+    against the same calls on the CPU, bit for bit, at a seeded key and
+    the carry keys, over one key and under the vmap rule over ``lanes``
+    keys → number of draws compared."""
+    from t2omca_tpu_torch import prng
+    keys = [prng.PRNGKey(SEED + 80, "cpu", impl)] + [
+        torch.tensor(k) for k in CARRY_KEYS]
+    draws = (lambda k: prng.random_bits(k, (64, 9)),
+             lambda k: prng.uniform(k, (lanes, 64)),
+             lambda k: prng.uniform(k, (lanes, 64), 4000.0, 12000.0),
+             lambda k: prng.bernoulli(k, 0.3, (lanes, 64)),
+             lambda k: prng.uniform(prng.split(k, lanes, impl), (64,)),
+             lambda k: prng.split(k, 150, impl),
+             lambda k: prng.fold_in(k, 0x5CE7, impl))
+    for key in keys:
+        for f in draws:
+            got, want = f(key.cuda()).cpu(), f(key)
+            check(torch.equal(got, want), f"[rbg] {impl} on CUDA differs "
+                                          f"from the CPU")
+    return len(keys) * len(draws)
+
+
+def philox_mask_rows(torch, impl: str, key, fold: int, keep: float,
+                     shapes: dict) -> dict:
+    """The mask kernel's Philox path against its plain version at
+    ``shapes``, whole and with a rank's row map (lanes or batch rows 1, 3,
+    ...: rows of a shape's trailing elements, each lane's agent rows
+    together), bit for bit, a population member's mask (``prng.seat``)
+    against its rows of member 0's draw, and timed (rbg, whole) → {name:
+    row}."""
+    from t2omca_tpu_torch import prng
+    from t2omca_tpu_torch.flax_rng import Rows
+    from t2omca_tpu_torch.kernels import dropout as dk
+    out = {}
+    for name, shape in shapes.items():
+        got = dk.keep_mask(key, fold, keep, shape, impl=impl)
+        ref = dk.keep_mask_reference(key, fold, keep, shape, impl=impl)
+        torch.cuda.synchronize()
+        err = float((got.float() - ref.float()).abs().max())
+        check(got.dtype == torch.bool and torch.equal(got, ref),
+              f"[rbg] the {impl} mask kernel differs from its plain "
+              f"version at {shape}: {int((got != ref).sum())} elements")
+        per = 1 if name == "mixer" else 64
+        batch = shape[0] // per
+        rows, _ = Rows(torch.arange(1, batch, 2, device="cuda"),
+                       batch).of(shape[0] // 2)
+        part = dk.keep_mask(key, fold, keep, shape, rows, impl)
+        ref_rows = dk.keep_mask_reference(key, fold, keep, shape, rows, impl)
+        torch.cuda.synchronize()
+        err = max(err, float((part.float() - ref_rows.float()).abs().max()),
+                  float((part.float() - got[rows].float()).abs().max()))
+        check(torch.equal(part, got[rows]) and torch.equal(part, ref_rows),
+              f"[rbg] the {impl} mask kernel with a row map at {shape} "
+              f"differs: {int((part != got[rows]).sum())} elements from "
+              f"the whole mask's rows")
+        # a population member's key (prng.seat): its rows of member 0's
+        # draw over 2 members, through the row map
+        doubled = dk.keep_mask(key, fold, keep, (2 * shape[0],) + shape[1:],
+                               impl=impl)
+        member = dk.keep_mask(prng.seat(key, 1), fold, keep, shape,
+                              impl=impl)
+        torch.cuda.synchronize()
+        err = max(err, float((member.float()
+                              - doubled[shape[0]:].float()).abs().max()))
+        check(torch.equal(member, doubled[shape[0]:]),
+              f"[rbg] member 1's {impl} mask at {shape} is not its rows of "
+              f"member 0's draw")
+        del doubled, member
+        row = {"shape": list(shape), "max_abs_err": err,
+               "rows_equal": True}
+        if impl == "rbg":
+            n = math.prod(shape)
+            bound, by = bound_ms(n + 32, n * PHILOX_OPS + 2 * MASK_OPS,
+                                 "int32")
+            row.update(
+                ms=cuda_ms(lambda: dk.keep_mask(key, fold, keep, shape,
+                                                impl=impl)),
+                plain_ms=cuda_ms(lambda: dk.keep_mask_reference(
+                    key, fold, keep, shape, impl=impl), iters=3, warmup=1),
+                bound_ms=bound, bound_by=by, library_ms=None,
+                threefry_ms=cuda_ms(lambda: dk.keep_mask(
+                    key[:2].contiguous(), fold, keep, shape)))
+            print(f"[rbg] Philox mask kernel at the {name} shape {shape}: "
+                  f"equal to its plain version bit for bit, whole and "
+                  f"with a row map, under rbg and unsafe_rbg; "
+                  f"{row['ms']:.3f} ms (bound {bound:.3f} ms by {by}, "
+                  f"{row['ms'] / bound:.2f}x; plain {row['plain_ms']:.2f} "
+                  f"ms; the threefry path {row['threefry_ms']:.3f} ms)",
+                  flush=True)
+        out[name] = row
+        del got, ref, part, ref_rows
+    return out
+
+
+def phase_rbg(torch, att, smi: str) -> dict:
+    """``prng_impl: rbg`` and ``unsafe_rbg`` on config 3 at [loop]'s cuts
+    (1024 lanes, ring 2048, T = ``LOOP_T``, bf16, pallas): the Philox
+    draws on the card against the CPU; the dropout-mask kernel's Philox
+    path against its plain version at the agent, mixer and rollout
+    shapes, whole and with a row map, timed; one classic iteration and
+    one fused K = ``RBG_K`` dispatch under rbg and one classic iteration
+    under unsafe_rbg with exact launches; the rollout under rbg against
+    threefry's in turns; then the dropout leg: config 3 with dropout at
+    [dropout]'s cuts, one classic iteration under rbg, its masks drawn by
+    the Philox path (the launches counted)."""
+    import gc
+    from t2omca_tpu_torch import prng
+    from t2omca_tpu_torch.flax_rng import Scope
+    from t2omca_tpu_torch.kernels import dropout as dk
+    from t2omca_tpu_torch.run import Experiment
+    cfgs = {impl: dataclasses.replace(_episode_cfg(loop_cfg(), LOOP_T),
+                                      prng_impl=impl)
+            for impl in ("threefry", "rbg", "unsafe_rbg")}
+    b, t = LOOP_LANES, LOOP_T
+    print(f"[rbg] config 3 at [loop]'s cuts ({b} lanes, ring {LOOP_RING}, "
+          f"T={t}, bf16, pallas, PER) under prng_impl rbg and unsafe_rbg: "
+          f"4-word keys, XLA's CPU Philox4x32-10 stream | {smi}", flush=True)
+    result = {}
+    n = sum(check_philox_cuda_equals_cpu(torch, impl, b)
+            for impl in ("rbg", "unsafe_rbg"))
+    print(f"[rbg] Philox bits, uniform and bernoulli on the card = the "
+          f"CPU's bit for bit: {n} draws (a seeded key and the carry keys "
+          f"{', '.join(f'({k[2]:#x}, {k[3]:#x})' for k in CARRY_KEYS)} in "
+          f"the counter words, one key and {b} lanes)", flush=True)
+    # ---- the mask kernel's Philox path at the path's shapes
+    bs = cfgs["rbg"].batch_size
+    shapes = {"agent": (bs * 64, 65, 256), "mixer": (bs, 131, 256),
+              "rollout": (DROPOUT_LANES * 64, 65, 256)}
+    keep = 1.0 - DROPOUT
+    by_impl = {}
+    for impl in ("unsafe_rbg", "rbg"):
+        key = prng.PRNGKey(SEED + 81, "cuda", impl)
+        fold = Scope(key, ("transformer", "block_0", "Dropout_0")).fold_data()
+        by_impl[impl] = philox_mask_rows(torch, impl, key, fold, keep,
+                                         shapes)
+    # the rbg rows carry the times; each shape's error is the larger of
+    # the two impls' (whole, row map and member legs)
+    kernel = by_impl["rbg"]
+    for name, row in kernel.items():
+        row["max_abs_err"] = max(row["max_abs_err"],
+                                 by_impl["unsafe_rbg"][name]["max_abs_err"])
+    result["mask_kernel"] = kernel
+    # ---- config 3 under rbg: a classic iteration, a fused dispatch
+    exps = {impl: Experiment.build(cfgs[impl]) for impl in ("rbg",
+                                                             "unsafe_rbg")}
+    totals = dict.fromkeys(loop_launches(cfgs["rbg"]), 0)
+    ts = exps["rbg"].init_state(SEED)
+    check(ts.runner.key.shape == (4,), "[rbg] the runner key is not 4 words")
+    ts, recs, rbg = run_loop(torch, att, exps["rbg"], ts, "rbg", 1)
+    cursor = rbg.pop("cursor")
+    for k in totals:
+        totals[k] += rbg["launches"][k]
+    sup = exps["rbg"].superstep_program(RBG_K)
+    mirror = {"key": cursor.key, "t_env": cursor.t_env,
+              "episode": cursor.episode, "filled": cursor.buffer_filled}
+    att.reset_launches()
+    t0 = time.perf_counter()
+    ts, stats, infos, gated = fused_dispatch(torch, sup, ts, mirror)
+    torch.cuda.synchronize()
+    fused_s = time.perf_counter() - t0
+    fused = dict(att.LAUNCHES)
+    want = {k: RBG_K * v for k, v in loop_launches(cfgs["rbg"]).items()}
+    check(all(gated) and fused == want,
+          f"[rbg] fused K={RBG_K}: gates {gated}, launches {fused} != "
+          f"{want}")
+    check(exps["rbg"].device.type != "cuda"
+          or set(sup.graphs) == {"rollout", "train"},
+          f"[rbg] graphs {sorted(sup.graphs)}")
+    check(bool(torch.isfinite(stats.episode_return).all())
+          and bool(torch.isfinite(infos["loss"]).all()),
+          "[rbg] the fused dispatch made non-finite values")
+    for k in totals:
+        totals[k] += fused[k]
+    print(f"[rbg] one fused K={RBG_K} dispatch (captured rollout and "
+          f"train graphs) in {fused_s:.2f} s with its captures: launches "
+          f"{fused} (exact), losses "
+          f"{', '.join(f'{float(x):.4g}' for x in infos['loss'])}",
+          flush=True)
+    sup.close()
+    del sup, stats, infos
+    gc.collect()
+    torch.cuda.empty_cache()
+    uts = exps["unsafe_rbg"].init_state(SEED)
+    uts, _, unsafe = run_loop(torch, att, exps["unsafe_rbg"], uts,
+                              "rbg unsafe", 1)
+    unsafe.pop("cursor")
+    for k in totals:
+        totals[k] += unsafe["launches"][k]
+    check(not torch.equal(uts.runner.key, ts.runner.key),
+          "[rbg] unsafe_rbg and rbg left one runner key")
+    del uts
+    # ---- the rollout under rbg against threefry, in turns
+    three = Experiment.build(cfgs["threefry"])
+    tts = three.init_state(SEED, learner_params=ts.learner.params)
+    agent = ts.learner.params["agent"]
+    roll = {"rbg": [], "threefry": []}
+    for i in range(RBG_ROLLOUTS):
+        for impl in (("rbg", "threefry") if i % 2 == 0
+                     else ("threefry", "rbg")):
+            exp, st = ((exps["rbg"], ts) if impl == "rbg"
+                       else (three, tts))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            exp.runner.run(agent, st.runner)
+            torch.cuda.synchronize()
+            roll[impl].append((time.perf_counter() - t0) * 1e3)
+    p50 = {k: statistics.median(v) for k, v in roll.items()}
+    print(f"[rbg] rollout ({b} lanes, T={t}) in turns: rbg "
+          f"{', '.join(f'{x:.1f}' for x in roll['rbg'])} ms, threefry "
+          f"{', '.join(f'{x:.1f}' for x in roll['threefry'])} ms; p50 rbg "
+          f"{p50['rbg']:.1f} ms against threefry {p50['threefry']:.1f} ms "
+          f"({p50['rbg'] / p50['threefry']:.3f}x)", flush=True)
+    result.update(rollout_ms=roll, rollout_p50_ms=p50)
+    del exps, three, ts, tts, agent
+    gc.collect()
+    torch.cuda.empty_cache()
+    # ---- the dropout leg: the Philox path on the learner's and the
+    # rollout's masks
+    dcfg = dataclasses.replace(_with(
+        _episode_cfg(loop_cfg(DROPOUT_LANES, DROPOUT_RING,
+                              entity_tables=False), DROPOUT_T),
+        model={"dropout": DROPOUT, "remat": True}), prng_impl="rbg")
+    dexp = Experiment.build(dcfg)
+    dts = dexp.init_state(SEED)
+    dk.reset_launches()                  # ---- the dropout path starts here
+    dts, _, drop = run_loop(torch, att, dexp, dts, "rbg dropout", 1,
+                            want=dropout_launches(dcfg))
+    philox = dk.LAUNCHES["dropout_mask_philox"]  # ---- and ends here
+    per_iter = dropout_mask_launches(dcfg)
+    check(philox == per_iter and dk.LAUNCHES["dropout_mask"] == 0,
+          f"[rbg] dropout iteration: {philox} Philox mask launches "
+          f"(threefry {dk.LAUNCHES['dropout_mask']}), want {per_iter}")
+    drop.pop("cursor")
+    print(f"[rbg] dropout leg (config 3 with dropout {DROPOUT}, remat, "
+          f"{DROPOUT_LANES} lanes, T={DROPOUT_T}, rbg): one iteration, "
+          f"rollout+insert {drop['rollout_p50_ms']:.1f} ms, trainer step "
+          f"{drop['train_p50_ms']:.1f} ms; {philox} Philox mask launches",
+          flush=True)
+    del dexp, dts
+    gc.collect()
+    torch.cuda.empty_cache()
+    result.update(launches=totals, drop_launches=drop["launches"],
+                  mask_launches=philox)
+    return result
+
+
+#: [sp]: config 5's mixer widths (configs/config5_dp8.yaml: 256 AGVs x 16
+#: MECs, mixer emb 256, 4 standard heads, depth 2; 256 state entities +
+#: 256 agents + 3 hyper tokens = 515), SP_ROWS rows, on 2 and 4
+#: placements that are streams of the one card
+SP_ROWS = 32
+SP_PLACEMENTS = (2, 4)
+#: q_tot against the dense forward: at f32 JAX's dry-run bound, 1e-3,
+#: or 8 float32 spacings at the output's scale where that is larger (the
+#: dry run's q_tot is small; here |q_tot| reaches ~2.5e3, where a spacing
+#: is 2.4e-4); at bf16 1e-2 of the output's scale (bf16's spacing at
+#: |q_tot| ~ 100 is 0.5, and the dense forward softmaxes in bf16 where
+#: the ring accumulates in f32)
+SP_BOUND = {"float32": 1e-3, "bfloat16": 1e-2}
+
+
+def sp_bound(torch, dt: str, y) -> float:
+    """``SP_BOUND`` at the scale of the dense q_tot ``y``."""
+    top = float(y.abs().max())
+    if dt == "float32":
+        return max(SP_BOUND[dt], 8 * float(torch.finfo(torch.float32).eps)
+                   * top)
+    return SP_BOUND[dt] * top
+
+
+def phase_sp(torch, smi: str) -> dict:
+    """Sequence parallelism (``parallel/ring_attention.py``,
+    ``parallel/sp_mixer.py``) at config 5's mixer widths: ``mixer_apply_sp``
+    over 2 and 4 placements (streams of the card) against the port's
+    dense mixer forward at f32 and bf16 (max error < 1e-3, the JAX dry
+    run's bound), ``ulysses_attention`` at 2 and 4 against dense softmax
+    attention, and the gradient through the ring: finite, the agent
+    gradient non-negative (monotonic mixing); the forward's ms at n = 1
+    (dense), 2 and 4 and the card's peak over it. The inputs are the dry
+    run's kind (``__graft_entry__.py``): normal agent Qs, hidden states,
+    state and obs, the hyper tokens at their initial zeros."""
+    import gc
+    from t2omca_tpu_torch.config import from_dict
+    from t2omca_tpu_torch.controllers.basic_mac import init_module_params
+    from t2omca_tpu_torch.envs.registry import make_env
+    from t2omca_tpu_torch.parallel import (mixer_apply_sp, sp_placements,
+                                           ulysses_attention)
+    from t2omca_tpu_torch.parallel.ring_attention import gather, scatter
+    base = {"env_args": {"agv_num": 256, "mec_num": 16,
+                         "num_channels": 16},
+            "model": {"emb": 256, "heads": 4, "depth": 2,
+                      "mixer_emb": 256, "mixer_heads": 4,
+                      "mixer_depth": 2, "standard_heads": True},
+            "kernels": {"attention": "xla"}}
+    info = make_env(from_dict(base).env_args, "cuda").get_env_info()
+    g = torch.Generator().manual_seed(SEED + 90)
+    result = {"ms": {}, "peak_gib": {}, "max_err": {}}
+    places = {n: sp_placements(n, "cuda", share_cards=True)
+              for n in SP_PLACEMENTS}
+    for dt in ("float32", "bfloat16"):
+        cfg = from_dict(dict(base, model=dict(base["model"], dtype=dt)))
+        lrn = build_learner(cfg, info)
+        mixer = lrn.mixer.to_empty(device="cuda")
+        mixer.load_state_dict(init_module_params(mixer, g, "cuda"))
+        a, e = info["n_agents"], cfg.model.mixer_emb
+        tokens = mixer.n_entities + a + 3
+        x = (torch.randn(SP_ROWS, 1, a, generator=g).cuda(),
+             torch.randn(SP_ROWS, a, e, generator=g).cuda(),
+             mixer.initial_hyper(SP_ROWS, device="cuda"),
+             torch.randn(SP_ROWS, lrn.state_dim, generator=g).cuda(),
+             torch.randn(SP_ROWS, a, lrn.obs_dim, generator=g).cuda())
+        with torch.no_grad():
+            y, h = mixer(*x)
+            torch.cuda.reset_peak_memory_stats()
+            base_gib = torch.cuda.memory_allocated() / 2 ** 30
+            ms = {1: cuda_ms(lambda: mixer(*x), iters=5, warmup=1)}
+            peak = {1: torch.cuda.max_memory_allocated() / 2 ** 30
+                    - base_gib}
+            bound = sp_bound(torch, dt, y)
+            for n in SP_PLACEMENTS:
+                ys, hs = mixer_apply_sp(mixer, *x, places[n])
+                torch.cuda.synchronize()
+                err = float((ys - y).abs().max())
+                check(err < bound and bool(torch.isfinite(ys).all())
+                      and bool(torch.isfinite(hs.float()).all()),
+                      f"[sp] {dt} at {n} placements: q_tot max error "
+                      f"{err:.3e} against the dense mixer (bound "
+                      f"{bound:.3e})")
+                result["max_err"][(dt, n)] = err
+                torch.cuda.reset_peak_memory_stats()
+                ms[n] = cuda_ms(lambda: mixer_apply_sp(mixer, *x,
+                                                       places[n]),
+                                iters=5, warmup=1)
+                peak[n] = torch.cuda.max_memory_allocated() / 2 ** 30 \
+                    - base_gib
+        result["ms"][dt], result["peak_gib"][dt] = ms, peak
+        print(f"[sp] {dt} mixer at config 5's widths ({tokens} tokens, "
+              f"{SP_ROWS} rows, |q_tot| up to {float(y.abs().max()):.4g}):"
+              f" mixer_apply_sp against the dense forward, q_tot max "
+              f"error " + ", ".join(
+                  f"{result['max_err'][(dt, n)]:.2e} at {n} placements"
+                  for n in SP_PLACEMENTS)
+              + "; a forward " + ", ".join(
+                  f"n={n} {ms[n]:.2f} ms" for n in ms)
+              + "; the card's peak over it (every placement on it) "
+              + ", ".join(f"n={n} {peak[n]:.3f} GiB" for n in peak),
+              flush=True)
+        if dt == "float32":
+            # the gradient through the ring and the hand-overs
+            qv = x[0].clone().requires_grad_()
+            ys, _ = mixer_apply_sp(mixer, qv, *x[1:], places[2])
+            gq, *gp = torch.autograd.grad(
+                ys.sum(), [qv] + list(mixer.parameters()),
+                allow_unused=True)
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(gq).all()) and bool((gq >= 0).all()),
+                  "[sp] the agent gradient through the ring is not finite "
+                  "and non-negative")
+            check(all(bool(torch.isfinite(p).all()) for p in gp
+                      if p is not None), "[sp] a param gradient is not "
+                                         "finite")
+            print("[sp] the gradient through the ring at 2 placements: "
+                  "finite, the agent gradient >= 0 (monotonic mixing), "
+                  "every param gradient finite", flush=True)
+        del lrn, mixer, x, y, h
+        gc.collect()
+        torch.cuda.empty_cache()
+    # ---- ulysses: 4 heads over 2 and 4 placements
+    q, k, v = (torch.randn(SP_ROWS, 515, 4, 64, generator=g).cuda()
+               for _ in range(3))
+    dense = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(
+        torch.einsum("bqhd,bkhd->bhqk", q, k), dim=-1), v)
+    for n in SP_PLACEMENTS:
+        cut = lambda t: scatter(list(t.tensor_split(n, dim=1)), places[n])
+        out = torch.cat(gather(ulysses_attention(cut(q), cut(k), cut(v),
+                                                 places[n]), places[n],
+                               q.device), dim=1)
+        torch.cuda.synchronize()
+        err = float((out - dense).abs().max())
+        check(err < 1e-3, f"[sp] ulysses at {n} placements: max error "
+                          f"{err:.3e}")
+        result["max_err"][("ulysses", n)] = err
+    print(f"[sp] ulysses_attention (4 heads, 515 tokens, f32) against "
+          f"dense softmax attention: max error " + ", ".join(
+              f"{result['max_err'][('ulysses', n)]:.2e} at {n} placements"
+              for n in SP_PLACEMENTS) + f" | {smi}", flush=True)
+    return result
 
 
 def phase_dp(torch, att, smi: str) -> dict:
@@ -6002,12 +6417,16 @@ def phase_dp_superstep(torch, att, smi: str, path: str = DPS_CONFIG,
 # ================================================================== [sebulba]
 
 SEBULBA_CONFIG = "configs/config3_sebulba.yaml"
-#: T cut from 150 to 50 (PR 17: the smoke's limit; the captures, the
-#: eager classic iterations and the rollouts scale with T)
-SEBULBA_OVERRIDES = ("kernels.attention=pallas", "env_args.episode_limit=50")
+#: episode_limit 150 -> 30 (the smoke's limit, PERF.md §4: the captures,
+#: the eager classic iterations and the rollouts scale with T)
+SEBULBA_OVERRIDES = ("kernels.attention=pallas", "env_args.episode_limit=30")
 SEBULBA_LOCKSTEP = 2                # iterations held against the classic loop
 #: the learner-set legs: 3 actor + this many learner streams on the card
 SEBULBA_LEARNERS = 2
+#: the learner-set step's episode length, at which the set's step equals
+#: the blocked step bit for bit (the rest of [sebulba] runs at 30; at 30
+#: the probe's own norm is one ulp off: scripts/torch_sebulba_set_bits.py)
+SEBULBA_SET_T = 50
 #: the lockstep check's actor set: one stream. The card's GEMMs give
 #: results that depend on their row count (cuBLAS picks another kernel
 #: for a 32-lane shard than for 96 lanes), so 3 shards act on other bits
@@ -6209,10 +6628,12 @@ def _sebulba_cli(torch, att, smi: str, path: str, tmp: str, spr: int,
             "audit": checked, "cli_s": wall}
 
 
-def _sebulba_blocked_step(torch, att, smi: str, path: str, spr: int,
-                          step: dict, quiet: tuple) -> dict:
-    """``[sebulba]``'s learner-set step: lockstep at 3 actor and
-    ``SEBULBA_LEARNERS`` learner placements (streams of the card), one
+def _sebulba_blocked_step(torch, att, smi: str, path: str,
+                          t: int = SEBULBA_SET_T,
+                          detail: bool = False) -> dict:
+    """``[sebulba]``'s learner-set step at episode length ``t``: lockstep
+    at 3 actor and ``SEBULBA_LEARNERS`` learner placements (streams of
+    the card), one
     rollout into the ring, then one learner step of the set (each
     placement's captured segments, the collectives between them) against
     the step the placements should take, computed at world 1 on one
@@ -6220,7 +6641,9 @@ def _sebulba_blocked_step(torch, att, smi: str, path: str, spr: int,
     the learner's dp code (``_blocked_step_probe``): bit for bit, or the
     largest difference against ``[dp]``'s bounds; each placement's
     launches exact (a dp rank's count); the values finite; each
-    placement's capture seconds."""
+    placement's capture seconds; the leaves that differ. ``detail``
+    adds the probe's ``block_grads`` and the params' ``leaf_sizes``
+    (name, numel) in the learner's leaf order."""
     import dataclasses
     from t2omca_tpu_torch import prng
     from t2omca_tpu_torch.config import (SebulbaConfig, load_config,
@@ -6230,9 +6653,15 @@ def _sebulba_blocked_step(torch, att, smi: str, path: str, spr: int,
     from t2omca_tpu_torch.train.superstep import clone_state
     from t2omca_tpu_torch.utils.checkpoint import flatten_state
     n = SEBULBA_LEARNERS
-    cfg = load_config(path, SEBULBA_OVERRIDES + quiet + (
+    cut = SEBULBA_OVERRIDES + (f"env_args.episode_limit={t}",)
+    spr = load_config(path, cut).batch_size_run * t
+    # [sebulba]'s quiet cadences, and lockstep at n learner placements
+    cfg = load_config(path, cut + (
+        f"test_interval={10 ** 9}", "save_model=false",
+        f"t_max={SEBULBA_LOCKSTEP * spr - 1}", f"log_interval={spr}",
         "sebulba.queue_slots=1", "sebulba.staleness=0",
         f"sebulba.learner_devices={n}"))
+    step = loop_launches(cfg)
     exp = Experiment.build(cfg)
     seb = seb_mod.make_sebulba(exp, share_cards=True)
     try:
@@ -6251,7 +6680,7 @@ def _sebulba_blocked_step(torch, att, smi: str, path: str, spr: int,
             cfg, sebulba=SebulbaConfig())))
         train_iter = ref.programs()[2]
         beta = torch.full((), ref.buffer.per_beta(spr), device=ref.device)
-        seen, restore = _blocked_step_probe(torch, n)
+        seen, restore = _blocked_step_probe(torch, n, detail)
         try:
             train_iter(ts0, key, spr, beta=beta)
             torch.cuda.synchronize()
@@ -6291,7 +6720,7 @@ def _sebulba_blocked_step(torch, att, smi: str, path: str, spr: int,
         finite = all(bool(torch.isfinite(v).all()) for v in info.values()
                      if v.is_floating_point())
         seats = seb.seat_launches
-        print(f"[sebulba] a learner set of {n} ({seb.describe()}), one step "
+        print(f"[sebulba] T={t}: a learner set of {n} ({seb.describe()}), one step "
               f"from the state after one rollout, against the blocked step "
               f"at world 1 (the same {n} row blocks of the sampled batch, "
               f"the gradients summed in placement order): "
@@ -6323,14 +6752,25 @@ def _sebulba_blocked_step(torch, att, smi: str, path: str, spr: int,
         check(off <= 0.01 and float(diffs.max()) <= 2 * cfg.lr,
               f"[sebulba] params: {100 * off:.3f}% above 1e-5, max "
               f"{float(diffs.max()):.3e}")
-        return {"bit_for_bit": len(exact) == len(want),
-                "leaves_equal": len(exact), "leaves": len(want),
-                "loss_rel": rel, "grad_norm_rel": rel_norm,
-                "mu_rel": rel_mu, "params_max_diff": float(diffs.max()),
-                "priorities_rel": pr_rel, "seat_launches": seats,
-                "segments": [getattr(x.train_graph, "count", 0)
-                             for x in seb.seats],
-                "step_ms": step_ms, "capture_s": capture_s}
+        out = {"bit_for_bit": len(exact) == len(want),
+               "leaves_equal": len(exact), "leaves": len(want),
+               "differ": [k for k in want if k not in set(exact)],
+               "loss_rel": rel, "grad_norm_rel": rel_norm,
+               "grad_norm": norm, "probe_grad_norm": seen["grad_norm"],
+               "mu_rel": rel_mu, "params_max_diff": float(diffs.max()),
+               "priorities_rel": pr_rel, "seat_launches": seats,
+               "segments": [getattr(x.train_graph, "count", 0)
+                            for x in seb.seats],
+               "step_ms": step_ms, "capture_s": capture_s}
+        if out["differ"]:
+            print(f"[sebulba] the learner set's leaves that differ from the "
+                  f"blocked step: {', '.join(out['differ'][:6])}"
+                  f"{' ...' if len(out['differ']) > 6 else ''}", flush=True)
+        if detail:
+            out.update(block_grads=seen["block_grads"], leaf_sizes=[
+                (f"{m}.{k}", p.numel()) for m, sub in ls.params.items()
+                for k, p in sub.items()])
+        return out
     finally:
         seb.close()
 
@@ -6338,7 +6778,8 @@ def _sebulba_blocked_step(torch, att, smi: str, path: str, spr: int,
 def phase_sebulba(torch, att, smi: str, path: str = SEBULBA_CONFIG,
                   one_card: bool = True) -> dict:
     """``configs/config3_sebulba.yaml`` at its widths (96 lanes, 64 AGVs,
-    emb 256, bf16, ring 2048, batch 32; T cut to 50) with
+    emb 256, bf16, ring 2048, batch 32; T cut to 30, the learner-set
+    step's to ``SEBULBA_SET_T``) with
     kernels.attention=pallas, its 3 + 1 split as CUDA streams on the one
     card (``--share-cards``):
 
@@ -6545,8 +6986,7 @@ def phase_sebulba(torch, att, smi: str, path: str = SEBULBA_CONFIG,
         # 5. a learner set of SEBULBA_LEARNERS placements: 3 actor + 2
         # learner streams on the card; one step of the set against the
         # blocked step, then the CLI leg as step 3's
-        blocked = _sebulba_blocked_step(torch, att, smi, path, spr, step,
-                                        quiet)
+        blocked = _sebulba_blocked_step(torch, att, smi, path)
         gc.collect()
         torch.cuda.empty_cache()
         cli_set = _sebulba_cli(torch, att, smi, path, tmp, spr, step,
@@ -7204,6 +7644,8 @@ def main() -> int:
     lap("superstep")
     del loop_exp, loop_ts
     torch.cuda.empty_cache()
+    rbg = phase_rbg(torch, att, smi)
+    lap("rbg")
     dense = phase_loop_dense(torch, att)
     lap("loop-dense")
     noisy = phase_loop_noisy(torch, att)
@@ -7242,6 +7684,8 @@ def main() -> int:
     lap("pop-sebulba")
     pop_reshape = phase_pop_reshape(torch, att, smi, population)
     lap("pop-reshape")
+    sp = phase_sp(torch, smi)
+    lap("sp")
     want6 = loop_launches(scenarios["cfg"])
     check(scenarios["want_step"] == want6,
           f"[population] counted by loop_launches ({want6}), but the CPU "
@@ -7259,7 +7703,10 @@ def main() -> int:
              "dp_superstep": {"launches": dps["launches"]},
              "sebulba": {"launches": sebulba["launches"]},
              "pop_dp": pop_dp, "pop_sebulba": pop_sebulba,
-             "pop_reshape": pop_reshape}
+             "pop_reshape": pop_reshape,
+             "rbg": {"launches": {k: rbg["launches"][k]
+                                  + rbg["drop_launches"][k]
+                                  for k in rbg["launches"]}}}
 
     def fwd_times(key):
         ms, plain, lib_ms, bound, by = times[key]
@@ -7357,6 +7804,21 @@ def main() -> int:
                                          "shape")},
         "dtype": "bool", "shapes": mask,
         "row_map": dropout["row_map"],
+    })
+    philox = rbg["mask_kernel"]
+    kernels.append({
+        "name": "dropout_mask_philox", "route": "cuda",
+        "source": csrc + "dropout_mask.cu",
+        "replaces": "t2omca_tpu/models/transformer.py:162 (flax "
+                    "nn.Dropout's bernoulli draw under prng_impl rbg / "
+                    "unsafe_rbg: XLA's rng_bit_generator, no pallas_call)",
+        "launches": rbg["mask_launches"],
+        "launches_by_path": {"rbg_dropout": rbg["mask_launches"]},
+        "max_abs_err": max(r["max_abs_err"] for r in philox.values()),
+        **{k: philox["agent"][k] for k in ("ms", "plain_ms", "bound_ms",
+                                           "bound_by", "library_ms",
+                                           "shape")},
+        "dtype": "bool", "shapes": philox,
     })
     tc_of = {"flash_fwd": ("flash_fwd_tc_kernel", "flash_fwd_dmma_kernel"),
              "flash_fwd_res": ("flash_fwd_tc_kernel",
@@ -7534,6 +7996,19 @@ def main() -> int:
           f"{pop_sebulba['util']['learner']['util_pct']}%; P=4 restored as "
           + " / ".join(f"{n} in {pop_reshape[n]:.2f} s" for n in POP_RESHAPE),
           flush=True)
+    print(f"[summary] rbg (config 3, {LOOP_LANES} lanes, T={LOOP_T}): "
+          f"rollout p50 {rbg['rollout_p50_ms']['rbg']:.1f} ms under rbg "
+          f"against {rbg['rollout_p50_ms']['threefry']:.1f} ms under "
+          f"threefry; the Philox mask kernel at the agent shape "
+          f"{philox['agent']['ms']:.3f} ms "
+          f"({philox['agent']['ms'] / philox['agent']['bound_ms']:.2f}x "
+          f"its bound, "
+          f"threefry's {philox['agent']['threefry_ms']:.3f} ms), "
+          f"{rbg['mask_launches']} launches in the dropout leg", flush=True)
+    print(f"[summary] sp (config 5's mixer, 515 tokens, {SP_ROWS} rows): "
+          + "; ".join(f"{dt} a forward " + ", ".join(
+              f"n={n} {ms:.2f} ms" for n, ms in sp["ms"][dt].items())
+              for dt in sp["ms"]), flush=True)
     print(f"[summary] total {time.perf_counter() - t_start:.1f} s; by phase: "
           + ", ".join(f"{k} {v:.1f} s" for k, v in phases.items()),
           flush=True)

@@ -40,17 +40,19 @@ def _gumbel_argmax(g: torch.Tensor, avail: torch.Tensor) -> torch.Tensor:
     return torch.where(avail > 0, g, float("-inf")).argmax(dim=-1)
 
 
-def exploration_draws(key: torch.Tensor, shape, rows=None
+def exploration_draws(key: torch.Tensor, shape, rows=None, impl=None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The epsilon-greedy selector's draws from ``key (..., 2)`` for q of
-    ``shape`` ``(..., n_actions)``: ``k_coin, k_rand = split(key)``, the
-    coins ``uniform(k_coin, shape[:-1])`` and the Gumbel noise
-    ``gumbel(k_rand, shape)``. Leading key dimensions (steps) lead the
-    results; ``rows`` keeps those rows of ``shape``'s first dimension (a
-    data-parallel rank's env lanes)."""
-    k_coin, k_rand = prng.split(key).unbind(-2)
-    return (prng.uniform(k_coin, tuple(shape[:-1]), rows=rows),
-            prng.gumbel(k_rand, tuple(shape), rows=rows))
+    """The epsilon-greedy selector's draws from ``key (..., width)`` for q
+    of ``shape`` ``(..., n_actions)``: ``k_coin, k_rand = split(key)``,
+    the coins ``uniform(k_coin, shape[:-1])`` and the Gumbel noise
+    ``gumbel(k_rand, shape)``. Leading key dimensions (steps: a scan in
+    JAX, not a vmap) lead the results; ``rows`` keeps those rows of
+    ``shape``'s first dimension (a data-parallel rank's env lanes);
+    ``impl``: the run's ``prng_impl``."""
+    scan = key.dim() - 1
+    k_coin, k_rand = prng.split(key, 2, impl, scan).unbind(-2)
+    return (prng.uniform(k_coin, tuple(shape[:-1]), rows=rows, scan=scan),
+            prng.gumbel(k_rand, tuple(shape), rows=rows, scan=scan))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,9 +67,9 @@ class EpsilonGreedySelector:
 
     def select(self, key: torch.Tensor, q: torch.Tensor,
                avail: torch.Tensor, t_env, test_mode: bool = False,
-               eps_scale=None, draws=None, eps=None
+               eps_scale=None, draws=None, eps=None, impl=None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """``key (2,)``; q, avail ``(..., n_actions)`` → (actions
+        """``key (width,)``; q, avail ``(..., n_actions)`` → (actions
         ``(...)``, epsilon). ``draws`` (``exploration_draws`` of ``key``)
         replaces drawing here. ``t_env`` is a host int, so epsilon stays
         on the host and the coin compares against it without a copy;
@@ -82,8 +84,8 @@ class EpsilonGreedySelector:
         greedy = masked_argmax(q, avail)
         if test_mode:
             return greedy, eps
-        coin, g = (exploration_draws(key, q.shape) if draws is None
-                   else draws)
+        coin, g = (exploration_draws(key, q.shape, impl=impl)
+                   if draws is None else draws)
         return torch.where(coin < thresh, _gumbel_argmax(g, avail),
                            greedy), eps
 
@@ -99,9 +101,9 @@ class NoisySelector:
 
     def select(self, key: torch.Tensor, q: torch.Tensor,
                avail: torch.Tensor, t_env, test_mode: bool = False,
-               eps_scale=None, draws=None, eps=None
+               eps_scale=None, draws=None, eps=None, impl=None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
-        del key, eps_scale, draws, eps
+        del key, eps_scale, draws, eps, impl
         return masked_argmax(q, avail), torch.zeros(())
 
 

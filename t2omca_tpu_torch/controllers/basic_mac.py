@@ -64,6 +64,8 @@ class BasicMAC:
     # acting-path compute dtype (model.act_dtype); None = the agent's
     act_dtype: Optional[torch.dtype] = None
     act_agent: Optional[TransformerAgent] = None
+    #: the run's ``prng_impl``: the keys' ``split``/``fold_in``
+    prng_impl: str = "threefry"
 
     @classmethod
     def build(cls, cfg: TrainConfig, env_info: dict,
@@ -102,7 +104,8 @@ class BasicMAC:
                    device=device, use_qslice=agent_qslice_eligible(cfg),
                    use_entity_tables=entity_tables_eligible(cfg),
                    use_orthogonal=cfg.model.use_orthogonal,
-                   act_dtype=act_dtype, act_agent=act_agent)
+                   act_dtype=act_dtype, act_agent=act_agent,
+                   prng_impl=cfg.prng_impl)
 
     # ------------------------------------------------------------------ state
 
@@ -147,8 +150,9 @@ class BasicMAC:
                   else self.agent)
         rngs = None
         if key is not None and not deterministic:
-            k_noise, k_drop = prng.split(key).unbind(-2)
-            rngs = {"noise": k_noise, "dropout": k_drop}
+            k_noise, k_drop = prng.split(key, 2, self.prng_impl).unbind(-2)
+            rngs = {"noise": k_noise, "dropout": k_drop,
+                    "impl": self.prng_impl}
             if rows is not None:
                 rngs["rows"] = rows
         return functional_call(module, params, (obs, hidden),
@@ -181,7 +185,7 @@ class BasicMAC:
             n_actions=a.n_actions, standard_heads=a.standard_heads,
             dtype=self._acting_dtype if acting else a.dtype,
             noise_key=self._noise_key(key, deterministic),
-            attn_impl=attn_impl or "xla")
+            attn_impl=attn_impl or "xla", prng_impl=self.prng_impl)
 
     def forward_entity(self, params, compact, hidden: torch.Tensor,
                        key: Optional[torch.Tensor] = None,
@@ -198,7 +202,8 @@ class BasicMAC:
             heads=a.heads, depth=a.depth, n_actions=a.n_actions,
             standard_heads=a.standard_heads,
             dtype=self._acting_dtype if acting else a.dtype,
-            noise_key=self._noise_key(key, deterministic))
+            noise_key=self._noise_key(key, deterministic),
+            prng_impl=self.prng_impl)
 
     def prepare_acting_params(self, params: Params, dtype=None):
         """Fold the query-slice products once (qslice MACs), and pre-cast
@@ -242,7 +247,7 @@ class BasicMAC:
         JAX); test mode and serving stay deterministic. ``rows``: a
         data-parallel rank's lanes of the global masks (``forward``)."""
         needs_noise = self.stochastic and not test_mode
-        k_noise, k_sel = (prng.split(key).unbind(0)
+        k_noise, k_sel = (prng.split(key, 2, self.prng_impl).unbind(0)
                           if needs_noise or draws is None else (None, None))
         if self.use_entity_tables and compact is not None:
             q, hidden = self.forward_entity(params, compact, hidden,
@@ -260,20 +265,23 @@ class BasicMAC:
                                      rows=rows)
         actions, eps = self.selector.select(k_sel, q, avail, t_env,
                                             test_mode=test_mode,
-                                            draws=draws, eps=eps)
+                                            draws=draws, eps=eps,
+                                            impl=self.prng_impl)
         return actions.to(torch.int32), hidden, eps
 
     def exploration_draws(self, key: torch.Tensor, batch: int, rows=None):
-        """The selector's draws for keys ``key (..., 2)`` (one a step) and
-        ``batch`` env lanes: ``k_noise, k_sel = split(key)``, then
-        ``exploration_draws(k_sel, (batch, A, n_actions))``, of the lanes
-        ``rows`` alone where given; ``None`` for selectors that draw
+        """The selector's draws for keys ``key (..., width)`` (one a
+        step) and ``batch`` env lanes: ``k_noise, k_sel = split(key)``,
+        then ``exploration_draws(k_sel, (batch, A, n_actions))``, of the
+        lanes ``rows`` alone where given; ``None`` for selectors that draw
         nothing."""
         if not isinstance(self.selector, EpsilonGreedySelector):
             return None
-        k_sel = prng.split(key).unbind(-2)[1]
+        k_sel = prng.split(key, 2, self.prng_impl,
+                           scan=key.dim() - 1).unbind(-2)[1]
         return exploration_draws(k_sel, (batch, self.n_agents,
-                                         self.n_actions), rows)
+                                         self.n_actions), rows,
+                                 self.prng_impl)
 
 
 def init_module_params(module: nn.Module, generator: torch.Generator,

@@ -1,8 +1,11 @@
 """Scenario distributions (port of ``t2omca_tpu/envs/graftworld.py``).
 
 A distribution samples one ``EnvParams`` instance per env lane from lane
-keys ``(B, 2)``: lane ``b`` draws what the JAX distribution's ``sample``
-draws under ``jax.vmap`` from key ``b``. Three kinds:
+keys ``(B, width)``: lane ``b`` draws what the JAX distribution's
+``sample`` draws under ``jax.vmap`` from key ``b`` (under an
+RngBitGenerator impl, JAX's batching rule: rows of one draw from the
+first lane's key, ``prng``); ``rows`` keeps some lanes (a data-parallel
+rank's). Three kinds:
 
 * :class:`FixedScenario`: one parameter point (the family's canonical
   preset plus overrides); ``min_agents > 0`` still draws each lane's
@@ -36,7 +39,7 @@ import numpy as np
 import torch
 
 from .. import prng
-from .mec_offload import EnvParams, MultiAgvOffloadingEnv
+from .mec_offload import EnvParams, MultiAgvOffloadingEnv, lane_count
 
 #: family order is the ``EnvParams.family`` id assignment
 FAMILY_NAMES: Tuple[str, ...] = ("baseline", "hetfleet", "interference",
@@ -93,9 +96,10 @@ def _base_params(env: MultiAgvOffloadingEnv, b: int, family: str,
 
 
 def _sample_n_active(keys: torch.Tensor, env: MultiAgvOffloadingEnv,
-                     min_agents: int) -> torch.Tensor:
+                     min_agents: int, rows=None) -> torch.Tensor:
     """Each lane's fleet size, uniform in ``[min_agents, agv_num]``."""
-    return prng.randint(keys, (), min_agents, env.n_agents + 1)
+    return prng.randint(keys, (), min_agents, env.n_agents + 1,
+                        env.prng_impl, rows)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -107,12 +111,14 @@ class FixedScenario:
     overrides: Tuple[Tuple[str, float], ...] = ()
     min_agents: int = 0
 
-    def sample(self, keys: torch.Tensor, env: MultiAgvOffloadingEnv
-               ) -> EnvParams:
-        p = _base_params(env, keys.shape[0], self.family, self.overrides)
+    def sample(self, keys: torch.Tensor, env: MultiAgvOffloadingEnv,
+               rows=None) -> EnvParams:
+        p = _base_params(env, lane_count(keys, rows), self.family,
+                         self.overrides)
         if self.min_agents:
             p = dataclasses.replace(p, n_active=_sample_n_active(
-                prng.fold_in(keys, 0), env, self.min_agents))
+                prng.fold_in(keys, 0, env.prng_impl), env, self.min_agents,
+                rows))
         return p
 
     def families(self) -> Tuple[str, ...]:
@@ -134,22 +140,26 @@ class UniformScenario:
     def effective_ranges(self) -> Tuple[Tuple[str, float, float], ...]:
         return self.ranges or FAMILY_RANGES[self.family]
 
-    def sample(self, keys: torch.Tensor, env: MultiAgvOffloadingEnv
-               ) -> EnvParams:
-        p = _base_params(env, keys.shape[0], self.family, self.overrides)
+    def sample(self, keys: torch.Tensor, env: MultiAgvOffloadingEnv,
+               rows=None) -> EnvParams:
+        impl = env.prng_impl
+        p = _base_params(env, lane_count(keys, rows), self.family,
+                         self.overrides)
         updates = {}
         # fold_in per field index: adding a range never reshuffles the
         # draws of the ranges before it
         for i, (name, lo, hi) in enumerate(self.effective_ranges()):
-            k = prng.fold_in(keys, i + 1)
+            k = prng.fold_in(keys, i + 1, impl)
             if name == "n_active":
-                updates[name] = prng.randint(k, (), int(lo), int(hi) + 1)
+                updates[name] = prng.randint(k, (), int(lo), int(hi) + 1,
+                                             impl, rows)
             else:
                 shape = tuple(getattr(p, name).shape[1:])
-                updates[name] = prng.uniform(k, shape, float(lo), float(hi))
+                updates[name] = prng.uniform(k, shape, float(lo), float(hi),
+                                             rows)
         if self.min_agents and "n_active" not in updates:
-            updates["n_active"] = _sample_n_active(prng.fold_in(keys, 0),
-                                                   env, self.min_agents)
+            updates["n_active"] = _sample_n_active(
+                prng.fold_in(keys, 0, impl), env, self.min_agents, rows)
         return dataclasses.replace(p, **updates)
 
     def families(self) -> Tuple[str, ...]:
@@ -173,14 +183,15 @@ class MixtureScenario:
     components: tuple = ()
     weights: Tuple[float, ...] = ()
 
-    def sample(self, keys: torch.Tensor, env: MultiAgvOffloadingEnv
-               ) -> EnvParams:
+    def sample(self, keys: torch.Tensor, env: MultiAgvOffloadingEnv,
+               rows=None) -> EnvParams:
         if not self.components:
             raise ValueError("MixtureScenario needs >= 1 component")
-        n = len(self.components)
-        k_pick, k_sample = prng.split(keys).unbind(-2)
-        idx = prng.choice(k_pick, n, mixture_probs(self.weights, n)).long()
-        cand = [c.sample(prng.fold_in(k_sample, i), env)
+        n, impl = len(self.components), env.prng_impl
+        k_pick, k_sample = prng.split(keys, 2, impl).unbind(-2)
+        idx = prng.choice(k_pick, n, mixture_probs(self.weights, n),
+                          rows).long()
+        cand = [c.sample(prng.fold_in(k_sample, i, impl), env, rows)
                 for i, c in enumerate(self.components)]
 
         def pick(*leaves):
@@ -233,13 +244,14 @@ def make_distribution(scn):
                      f"valid: fixed/uniform/mixture")
 
 
-def member_scenario_key(key: torch.Tensor, member: int) -> torch.Tensor:
+def member_scenario_key(key: torch.Tensor, member: int,
+                        impl: str = None) -> torch.Tensor:
     """The population member's scenario sampler key
     (``population.scenario_salt``): ``fold_in(key, member)``, a fold and
     never a split, as the runner's own scenario salt. Off by default:
     ``fold_in(key, 0)`` is not the identity, so member 0 would stop
     matching the solo run's scenario draws."""
-    return prng.fold_in(key, member)
+    return prng.fold_in(key, member, impl)
 
 
 def distribution_can_pad(dist, n_agents: int) -> bool:

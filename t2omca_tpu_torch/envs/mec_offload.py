@@ -147,6 +147,17 @@ class StepDraws:
                             for f in dataclasses.fields(self)})
 
 
+def lane_count(keys: torch.Tensor, rows=None) -> int:
+    """The lanes of lane keys ``(B, width)`` that ``rows`` (a slice or a
+    1-D index tensor of them, None for all) keeps."""
+    b = keys.shape[0]
+    if rows is None:
+        return b
+    if isinstance(rows, slice):
+        return len(range(*rows.indices(b)))
+    return rows.shape[0]
+
+
 @dataclasses.dataclass(frozen=True)
 class MultiAgvOffloadingEnv:
     """Static physics and topology. ``device``: where ``default_params``
@@ -155,6 +166,9 @@ class MultiAgvOffloadingEnv:
 
     cfg: EnvConfig
     device: DeviceLike = None
+    #: the run's ``prng_impl`` (``prng.IMPLS``): which ``split`` and
+    #: ``fold_in`` the lane keys take
+    prng_impl: str = "threefry"
 
     computation_cycles: float = 31250.0   # cycles/bit
     bandwidth: float = 5e6                # Hz
@@ -259,25 +273,33 @@ class MultiAgvOffloadingEnv:
         return torch.gather(self.mec_positions(params), 1,
                             idx.unsqueeze(-1).expand(-1, -1, 2))
 
-    def draw_step(self, key: torch.Tensor) -> StepDraws:
-        """The draws of ``reset``/``step`` from keys ``(..., 2)``, in the
-        JAX key order: ``k_mec, k_pos, k_gen = split(key, 3)``; the new
-        MEC from ``randint(k_mec)``; the position's radius and angle from
-        ``split(k_pos)`` (M13); the teleport gate from the side key
-        ``fold_in(key, 7)``; the job's Bernoulli coin and size from
-        ``split(k_gen)``. ``reset`` reads all but the teleport gate."""
-        k_mec, k_pos, k_gen = prng.split(key, 3).unbind(-2)
-        k_rad, k_theta = prng.split(k_pos).unbind(-2)
-        k_coin, k_data = prng.split(k_gen).unbind(-2)
+    def draw_step(self, key: torch.Tensor, scan: int = 0, rows=None
+                  ) -> StepDraws:
+        """The draws of ``reset``/``step`` from lane keys ``(..., B,
+        width)``, in the JAX key order: ``k_mec, k_pos, k_gen = split(key,
+        3)``; the new MEC from ``randint(k_mec)``; the position's radius
+        and angle from ``split(k_pos)`` (M13); the teleport gate from the
+        side key ``fold_in(key, 7)``; the job's Bernoulli coin and size
+        from ``split(k_gen)``. ``reset`` reads all but the teleport gate.
+        The lanes are JAX's ``vmap`` axis; ``scan`` leading dimensions
+        before it are steps (a rollout's, drawn ahead), and ``rows`` keeps
+        those lanes (a data-parallel rank's: ``prng``'s ``rows``)."""
+        impl = self.prng_impl
+        k_mec, k_pos, k_gen = prng.split(key, 3, impl, scan).unbind(-2)
+        k_rad, k_theta = prng.split(k_pos, 2, impl, scan).unbind(-2)
+        k_coin, k_data = prng.split(k_gen, 2, impl, scan).unbind(-2)
         a = self.n_agents
+        u = lambda k, lo=0.0, hi=1.0: prng.uniform(k, (a,), lo, hi, rows,
+                                                   scan)
         return StepDraws(
-            new_mec=prng.randint(k_mec, (a,), 0, self.n_mec),
-            radius_u=prng.uniform(k_rad, (a,)),
-            theta=prng.uniform(k_theta, (a,), maxval=2 * np.pi),
-            teleport_u=prng.uniform(prng.fold_in(key, 7), (a,)),
-            job_u=prng.uniform(k_coin, (a,)),
-            job_data=prng.uniform(k_data, (a,), self.cfg.data_size_min,
-                                  self.cfg.data_size_max))
+            new_mec=prng.randint(k_mec, (a,), 0, self.n_mec, impl, rows,
+                                 scan),
+            radius_u=u(k_rad),
+            theta=u(k_theta, hi=2 * np.pi),
+            teleport_u=u(prng.fold_in(key, 7, impl)),
+            job_u=u(k_coin),
+            job_data=u(k_data, self.cfg.data_size_min,
+                       self.cfg.data_size_max))
 
     def _place(self, draws: StepDraws, mec_index: torch.Tensor,
                params: EnvParams) -> torch.Tensor:
@@ -602,16 +624,17 @@ class MultiAgvOffloadingEnv:
     # ---- API
 
     def reset(self, key: torch.Tensor, norm: NormState = None,
-              params: EnvParams = None, obs_form: str = "dense"
+              params: EnvParams = None, obs_form: str = "dense",
+              rows=None
               ) -> Tuple[EnvState, object, torch.Tensor, torch.Tensor]:
-        """Keys ``(B, 2)`` → (state, obs, global_state, avail): fresh
-        positions, empty queues, one ``generate_job`` call; ``norm``
+        """Lane keys ``(B, width)`` → (state, obs, global_state, avail):
+        fresh positions, empty queues, one ``generate_job`` call; ``norm``
         carries each lane's normalizer across episodes (None = fresh);
-        ``obs`` in ``obs_form``."""
-        b, a, j = key.shape[0], self.n_agents, self.max_jobs
+        ``obs`` in ``obs_form``; ``rows``: the lanes kept (``draw_step``)."""
+        b, a, j = lane_count(key, rows), self.n_agents, self.max_jobs
         params = self.default_params(b) if params is None else params
         dev = key.device
-        draws = self.draw_step(key)
+        draws = self.draw_step(key, rows=rows)
         mec_index = self._pad_sentinel(draws.new_mec, params)
         zi = lambda: torch.zeros(b, a, dtype=torch.int32, device=dev)
         state = EnvState(

@@ -42,12 +42,13 @@ def resolve(key: str) -> Tuple[str, ScenarioConfig]:
     return canonical, REGISTRY[canonical]
 
 
-def make_env(cfg: EnvConfig, device: DeviceLike = None
-             ) -> MultiAgvOffloadingEnv:
+def make_env(cfg: EnvConfig, device: DeviceLike = None,
+             prng_impl: str = "threefry") -> MultiAgvOffloadingEnv:
     """The env of ``cfg.key``; ``device`` (``cuda`` unless named) is where
-    its dynamics put tensors — the static sizes need none."""
+    its dynamics put tensors — the static sizes need none; ``prng_impl``:
+    the run's (the lane keys' ``split`` and ``fold_in``)."""
     resolve(cfg.key)
-    return MultiAgvOffloadingEnv(cfg, device=device)
+    return MultiAgvOffloadingEnv(cfg, device=device, prng_impl=prng_impl)
 
 
 def scenario_config(cfg: EnvConfig) -> ScenarioConfig:

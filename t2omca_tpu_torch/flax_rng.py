@@ -5,7 +5,9 @@ through flax's named RNG streams: ``module.apply(..., rngs={"dropout":
 k})`` hands the root scope a key, every child scope appends its name to
 the key's static suffix, and ``make_rng(name)`` appends the scope's call
 counter (1 for a module's first call) and folds the suffix into the key
-(flax 0.12's ``LazyRng`` and ``_fold_in_static``):
+(flax 0.12's ``LazyRng`` and ``_fold_in_static``), under the run's
+PRNG impl (``prng``: ``unsafe_rbg``'s ``fold_in`` is its own, the scope
+carries the impl):
 
 * the SHA-1 of the suffix, strings as their UTF-8 bytes and ints as
   their big-endian bytes (``int.to_bytes((bit_length + 7) // 8)``),
@@ -17,7 +19,7 @@ counter (1 for a module's first call) and folds the suffix into the key
 Compact modules take automatic names (``Dropout_0``, ``Dropout_1`` in
 each ``block_<i>``); the rest are explicit (``transformer``,
 ``block_<i>``, ``q_basic``). The suffix is static, so the derived key is
-one threefry hash of the root key, whatever the depth of the path.
+one ``fold_in`` of the root key, whatever the depth of the path.
 
 Under data parallelism a rank computes some rows of a batch whose
 dropout masks are drawn over the global batch: a scope then carries the
@@ -79,18 +81,20 @@ class Rows:
 class Scope:
     """One named stream seen from a module: the root key handed to
     ``apply`` and the path of scope names below it; ``rows``: a
-    data-parallel rank's rows of the batch (the module docstring)."""
+    data-parallel rank's rows of the batch (the module docstring);
+    ``impl``: the run's ``prng_impl`` (None: threefry)."""
 
     key: torch.Tensor
     path: Tuple[str, ...] = ()
     rows: Optional[Rows] = None
+    impl: Optional[str] = None
 
     def child(self, name: str) -> "Scope":
-        return Scope(self.key, self.path + (name,), self.rows)
+        return dataclasses.replace(self, path=self.path + (name,))
 
     def make_rng(self, count: int = 1) -> torch.Tensor:
         """The key of the scope's ``count``-th ``make_rng`` call."""
-        return prng.fold_in(self.key, self.fold_data(count))
+        return prng.fold_in(self.key, self.fold_data(count), self.impl)
 
     def fold_data(self, count: int = 1) -> int:
         """The uint32 that ``make_rng(count)`` folds into ``key`` (the

@@ -354,17 +354,18 @@ class QMixLearner:
                                                       rows=drop_rows)
         else:
             fwd = self.mac.forward
+        impl = self.cfg.prng_impl
         xs = (list(zip(*compact_tm)) if compact_tm is not None
               else list(obs_tm))
         step_params = [agent_params] * len(xs)
         step_keys = [()] * len(xs)
         if key is not None and not self._agent_qslice:
-            step_keys = [(k,) for k in prng.split(key, len(xs))]
+            step_keys = [(k,) for k in prng.split(key, len(xs), impl)]
         elif key is not None:
             qb = agent_params["qb"]
             w, b = noisy_weights(qb["weight_mu"], qb["weight_sigma"],
                                  qb["bias_mu"], qb["bias_sigma"],
-                                 prng.split(key, len(xs)))
+                                 prng.split(key, len(xs), impl), impl)
             step_params = [dict(agent_params, qb={"weight": w[t],
                                                   "bias": b[t]})
                            for t in range(len(xs))]
@@ -396,7 +397,7 @@ class QMixLearner:
         if key is not None:
             def mix(p, *xs):
                 *xs, k = xs
-                rngs = {"dropout": k}
+                rngs = {"dropout": k, "impl": self.cfg.prng_impl}
                 if drop_rows is not None:
                     rngs["rows"] = drop_rows
                 return functional_call(self.mixer, p, tuple(xs),
@@ -412,7 +413,8 @@ class QMixLearner:
         if obs_tm is None:
             obs_tm = [None] * len(q_tm)
         step_keys = ([()] * len(q_tm) if key is None else
-                     [(k,) for k in prng.split(key, len(q_tm))])
+                     [(k,) for k in prng.split(key, len(q_tm),
+                                               self.cfg.prng_impl)])
         q_tots = []
         for qv, h, s, o, k in zip(q_tm, hid_tm, state_tm, obs_tm,
                                   step_keys):
@@ -466,7 +468,8 @@ class QMixLearner:
         # and its mixer stays on the deterministic path, as in JAX
         k_ag = k_tag = k_mx = k_tmx = None
         if key is not None:
-            k_ag, k_tag, k_mx, k_tmx = prng.split(key, 4).unbind(0)
+            k_ag, k_tag, k_mx, k_tmx = prng.split(
+                key, 4, cfg.prng_impl).unbind(0)
             if cfg.model.dropout == 0.0:
                 k_mx = k_tmx = None
         qs, hs = self._unroll_agent(params["agent"], obs, k_ag, compact_tm,

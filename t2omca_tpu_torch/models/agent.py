@@ -78,7 +78,9 @@ class TransformerAgent(nn.Module):
 def scope(rngs: Optional[Dict[str, torch.Tensor]], stream: str,
           name: str) -> Optional[Scope]:
     """The scope ``name`` of ``rngs[stream]`` below a module's root (with
-    the rank's ``rngs["rows"]`` where given), or None (deterministic)."""
+    the rank's ``rngs["rows"]`` and the run's ``rngs["impl"]`` where
+    given), or None (deterministic)."""
     if rngs is None:
         return None
-    return Scope(rngs[stream], rows=rngs.get("rows")).child(name)
+    return Scope(rngs[stream], rows=rngs.get("rows"),
+                 impl=rngs.get("impl")).child(name)

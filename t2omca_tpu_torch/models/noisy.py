@@ -26,20 +26,21 @@ from ..xla_float import fma, sqrt
 
 
 def _scaled_noise(key: torch.Tensor, n: int) -> torch.Tensor:
-    """``f(x) = sign(x)·sqrt(|x|)`` of ``n`` standard normals from ``key
-    (..., 2)`` → ``(..., n)``."""
-    x = prng.normal(key, (n,))
+    """``f(x) = sign(x)·sqrt(|x|)`` of ``n`` standard normals from each
+    key of ``key (..., width)`` → ``(..., n)``."""
+    x = prng.normal(key, (n,), scan=key.dim() - 1)
     return torch.sign(x) * sqrt(torch.abs(x))
 
 
 def noisy_weights(w_mu: torch.Tensor, w_sigma: torch.Tensor,
-                  b_mu, b_sigma, key: torch.Tensor):
+                  b_mu, b_sigma, key: torch.Tensor, impl=None):
     """One factored-Gaussian draw of the noisy affine: ``k_in, k_out =
     split(key)``, ``eps_in`` over the ``in`` features and ``eps_out`` over
-    the ``out`` features. ``w (out, in)``; keys ``(..., 2)`` give a draw
-    for each key, ``(..., out, in)``. ``b_mu=None`` for bias-less layers.
+    the ``out`` features. ``w (out, in)``; keys ``(..., width)`` give a
+    draw for each key (a scan over steps in JAX, not a vmap), ``(..., out,
+    in)`` (``impl``: the run's ``prng_impl``). ``b_mu=None`` for bias-less layers.
     XLA contracts ``sigma · outer + mu`` into one FMA; so does this."""
-    k_in, k_out = prng.split(key).unbind(-2)
+    k_in, k_out = prng.split(key, 2, impl, key.dim() - 1).unbind(-2)
     eps_in = _scaled_noise(k_in, w_mu.shape[-1])
     eps_out = _scaled_noise(k_out, w_mu.shape[-2])
     outer = eps_out.unsqueeze(-1) * eps_in.unsqueeze(-2)
@@ -70,5 +71,5 @@ class NoisyLinear(nn.Module):
         else:
             w, b = noisy_weights(self.weight_mu, self.weight_sigma,
                                  self.bias_mu, self.bias_sigma,
-                                 rng.make_rng())
+                                 rng.make_rng(), rng.impl)
         return F.linear(x, w.to(x.dtype), b.to(x.dtype))

@@ -73,7 +73,8 @@ def dropout(x: torch.Tensor, rate: float, scope: Optional[Scope]
         # a data-parallel rank's rows of the mask over the global batch
         rows, total = scope.rows.of(shape[0])
         shape = (total,) + shape[1:]
-    mask = keep_mask(scope.key, scope.fold_data(), keep, shape, rows)
+    mask = keep_mask(scope.key, scope.fold_data(), keep, shape, rows,
+                     scope.impl)
     if x.dtype == torch.float32:
         kept = x * recip(keep)
     else:

@@ -186,7 +186,8 @@ def transformer_rows(tf_folded: dict, k0: torch.Tensor, x0: torch.Tensor,
 
 
 def _q_head(qb: Dict[str, torch.Tensor], h_new: torch.Tensor,
-            noise_key: Optional[torch.Tensor] = None) -> torch.Tensor:
+            noise_key: Optional[torch.Tensor] = None,
+            prng_impl: Optional[str] = None) -> torch.Tensor:
     """Q head on ``(S, E)`` f32 rows: dense ``q_basic`` (``weight``,
     ``bias``) or the noisy layer. ``noise_key=None`` takes the noisy
     layer's mu path; a ``(2,)`` key draws ONE factored-Gaussian sample of
@@ -196,7 +197,7 @@ def _q_head(qb: Dict[str, torch.Tensor], h_new: torch.Tensor,
     w, b = qb["weight_mu"].float(), qb["bias_mu"].float()
     if noise_key is not None:
         w, b = noisy_weights(w, qb["weight_sigma"].float(), b,
-                             qb["bias_sigma"].float(), noise_key)
+                             qb["bias_sigma"].float(), noise_key, prng_impl)
     return h_new @ w.t() + b
 
 
@@ -225,11 +226,12 @@ def agent_forward_qslice(params: dict, inputs: torch.Tensor,
                          n_actions: int, standard_heads: bool = False,
                          dtype=torch.float32,
                          noise_key: Optional[torch.Tensor] = None,
-                         attn_impl: str = "xla"
+                         attn_impl: str = "xla",
+                         prng_impl: Optional[str] = None
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Drop-in for ``TransformerAgent.forward``: inputs ``(B, A, obs)``,
-    hidden ``(B, A, emb)`` → (q, hidden'), both f32. ``noise_key`` as in
-    ``_q_head``."""
+    hidden ``(B, A, emb)`` → (q, hidden'), both f32. ``noise_key`` (and
+    the run's ``prng_impl``) as in ``_q_head``."""
     f = fold_agent_params(params, emb=emb, heads=heads, depth=depth,
                           standard_heads=standard_heads, dtype=dtype)
     b, a, _ = inputs.shape
@@ -244,7 +246,7 @@ def agent_forward_qslice(params: dict, inputs: torch.Tensor,
                            heads=heads, depth=depth, dtype=dtype,
                            attn_impl=attn_impl)                # (S, 1, E)
     h_new = out[:, 0, :]
-    q = _q_head(f["qb"], h_new, noise_key)
+    q = _q_head(f["qb"], h_new, noise_key, prng_impl)
     return q.reshape(b, a, n_actions), h_new.reshape(b, a, emb)
 
 
@@ -262,7 +264,8 @@ def agent_forward_qslice_entity(params: dict, rows: torch.Tensor,
                                 heads: int, depth: int, n_actions: int,
                                 standard_heads: bool = False,
                                 dtype=torch.float32,
-                                noise_key: Optional[torch.Tensor] = None
+                                noise_key: Optional[torch.Tensor] = None,
+                                prng_impl: Optional[str] = None
                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``agent_forward_qslice`` on the factored entity observation
     (``MultiAgvOffloadingEnv.compact_obs``): ``rows (B, A, 8)``,
@@ -326,7 +329,7 @@ def agent_forward_qslice_entity(params: dict, rows: torch.Tensor,
         x0 = _block_tail(bp, attended, x0.reshape(s, emb),
                          dtype).reshape(b, a, emb)
     h_new = x0.float().reshape(s, emb)
-    q = _q_head(f["qb"], h_new, noise_key)
+    q = _q_head(f["qb"], h_new, noise_key, prng_impl)
     return q.reshape(b, a, n_actions), h_new.reshape(b, a, emb)
 
 

@@ -114,6 +114,7 @@ from torch.profiler import record_function
 
 from ..components.episode_buffer import (BufferState, TimeMajorEpisodes,
                                          obs_map)
+from .. import prng
 from ..kernels import attention, dropout
 from ..train.program import TrainState, build_train_iter
 from ..train.superstep import (_WARM, Segments, _copy_into, capture_graph,
@@ -386,7 +387,8 @@ class LearnerSeat:
         self.learner, self.buffer = learner, buffer
         self.train_iter = build_train_iter(buffer, learner, exp.cfg)
         dev = place.device
-        self.key = torch.zeros(2, dtype=torch.int64, device=dev)
+        self.key = torch.zeros(prng.IMPLS[exp.cfg.prng_impl],
+                               dtype=torch.int64, device=dev)
         self.beta = torch.zeros((), device=dev)
         self.spec = None
         self.ls: Optional[LearnerSideState] = None
@@ -510,7 +512,7 @@ class Sebulba:
             return dataclasses.replace(exp.runner, comm=shard)
         from ..controllers.basic_mac import MAC_REGISTRY
         from ..envs.registry import make_env
-        env = make_env(self.cfg.env_args, place.device)
+        env = make_env(self.cfg.env_args, place.device, self.cfg.prng_impl)
         mac = MAC_REGISTRY[self.cfg.mac].build(self.cfg, env.get_env_info(),
                                                place.device)
         return type(exp.runner)(env, mac, self.cfg, comm=shard)

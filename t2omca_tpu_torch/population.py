@@ -141,7 +141,8 @@ def member_keys(cfg, device=None) -> List[torch.Tensor]:
     mirrors the train gate once (the counters evolve identically across
     members) and splits each member's stream as the classic loop splits
     its one, so member 0's stream is the solo run's."""
-    return [prng.PRNGKey(s + 1, device) for s in member_seeds(cfg)]
+    return [prng.PRNGKey(s + 1, device, cfg.prng_impl)
+            for s in member_seeds(cfg)]
 
 
 def member_ranking(ema) -> Optional[List[int]]:
@@ -214,7 +215,8 @@ def pbt_step(cfg, ts: List[object], spec: PopulationSpec,
         # the copy took the donor's rollout key verbatim: re-salt it, or
         # the loser replays its donor's trajectories
         rkey = held[int(m)].runner.key
-        rkey.copy_(prng.fold_in(rkey, int(t_env) + int(m) + 1))
+        rkey.copy_(prng.fold_in(rkey, int(t_env) + int(m) + 1,
+                                cfg.prng_impl))
     rng = np.random.default_rng((int(cfg.seed) << 17) ^ (int(t_env) + 1))
     lr = spec.lr_scale.numpy().astype(np.float32).copy()
     eps = spec.eps_scale.numpy().astype(np.float32).copy()

@@ -241,10 +241,7 @@ class Experiment:
         no card is present and none was named). ``comm``: this rank's
         collectives under data parallelism (``parallel/mesh.py``)."""
         device = resolve_device(device)
-        if cfg.prng_impl != "threefry":
-            raise _not_ported(f"prng_impl '{cfg.prng_impl}'", "item 14, "
-                              "the PRNG (the port has threefry2x32)")
-        env = make_env(cfg.env_args, device)
+        env = make_env(cfg.env_args, device, cfg.prng_impl)
         env_info = env.get_env_info()
         mac = MAC_REGISTRY[cfg.mac].build(cfg, env_info, device)
         learner = LEARNER_REGISTRY[cfg.learner].build(cfg, mac, env_info,
@@ -293,7 +290,8 @@ class Experiment:
         from flax by ``convert.learner_params_from_flax``) or from a
         ``torch.Generator`` seeded with ``seed``."""
         _k_learner, k_runner = prng.split(
-            prng.PRNGKey(seed, self.device)).unbind(0)
+            prng.PRNGKey(seed, self.device, self.cfg.prng_impl),
+            2, self.cfg.prng_impl).unbind(0)
         ls = (self.learner.init_state(params=learner_params)
               if learner_params is not None else
               self.learner.init_state(torch.Generator().manual_seed(seed)))
@@ -362,9 +360,15 @@ class Experiment:
         runner = self.runner
 
         def pop_test(pts):
+            # under an RngBitGenerator impl every member draws its rows of
+            # member 0's draws (JAX's vmap; prng.seat)
+            seated = len(pts) > 1 and self.cfg.prng_impl != "threefry"
+            leads = [prng.seat(pts[0].runner.key, m) if seated else None
+                     for m in range(len(pts))]
             with record_function("rollout"):
                 outs = [runner.run_raw(t.learner.params["agent"], t.runner,
-                                       test_mode=True) for t in pts]
+                                       test_mode=True, lead=lead)
+                        for t, lead in zip(pts, leads)]
             first = outs[0][2]
             stats = type(first)(**{
                 f.name: torch.stack([torch.as_tensor(getattr(o[2], f.name),
@@ -408,7 +412,8 @@ def run_classic(exp: Experiment, ts: TrainState, n_iterations: int,
     its host time; otherwise nothing in the loop waits on the device."""
     cfg = exp.cfg
     if cursor is None:
-        cursor = LoopCursor(key=prng.PRNGKey(cfg.seed + 1, exp.device))
+        cursor = LoopCursor(key=prng.PRNGKey(cfg.seed + 1, exp.device,
+                                             cfg.prng_impl))
     rollout, insert, train_iter = exp.programs()
     steps_per_rollout = cfg.batch_size_run * cfg.env_args.episode_limit
     capacity = cfg.replay.buffer_size
@@ -436,7 +441,7 @@ def run_classic(exp: Experiment, ts: TrainState, n_iterations: int,
         info, train_s = None, None
         if (c.buffer_filled >= cfg.batch_size
                 and c.episode >= cfg.accumulated_episodes):
-            key2, k_sample = prng.split(c.key).unbind(0)
+            key2, k_sample = prng.split(c.key, 2, cfg.prng_impl).unbind(0)
             t0 = time.perf_counter()
             ts, info = train_iter(ts, k_sample, c.t_env)
             train_s = lap(t0)
@@ -701,6 +706,16 @@ def run(cfg: TrainConfig, logger: Optional[Logger] = None,
     cfg = sanity_check(cfg)
     train = not (cfg.evaluate or cfg.save_replay)
     P = pop.population_size(cfg)
+    if (P > 1 and cfg.prng_impl != "threefry" and train
+            and (cfg.dp_devices or sebulba_eligible(cfg))):
+        # JAX vmaps the members, and rng_bit_generator's batching rule
+        # draws every member's numbers from member 0's keys: one process
+        # seats its members on member 0's (prng.seat), but a rank or a
+        # placement without member 0 has no member 0 to draw from
+        raise _not_ported(f"prng_impl '{cfg.prng_impl}' with a population "
+                          f"of {P} over ranks or Sebulba placements",
+                          "item 16, JAX's rng_bit_generator vmap rule "
+                          "across members")
     comm = placements = None
     if cfg.dp_devices and train:
         device, comm = _join_ranks(cfg, device)
@@ -862,7 +877,7 @@ def run_sequential(exp: Experiment, logger: Logger, results_dir: str,
         log.info(f"fused superstep: {K} iterations per dispatch")
     # one driver key chain, or one a member (each split as the solo one)
     key = ([pop.member_keys(cfg, device)[m] for m in ids] if P
-           else prng.PRNGKey(cfg.seed + 1, device))
+           else prng.PRNGKey(cfg.seed + 1, device, cfg.prng_impl))
 
     def _ckpt_state():
         """What checkpoints and watchdog stamps hold: the state, or a
@@ -886,7 +901,8 @@ def run_sequential(exp: Experiment, logger: Logger, results_dir: str,
         restored = elastic.resume_state(
             dirname, _ckpt_state(), verify=False,
             topology=dict({"loop": "classic"}, **dp_topology),
-            place=None if dp is None else dp.place)
+            place=None if dp is None else dp.place,
+            prng_impl=cfg.prng_impl)
         if P:
             ts = [_set_t_env(t, step) for t in restored.ts]
             spec = restored.spec
@@ -1008,7 +1024,8 @@ def run_sequential(exp: Experiment, logger: Logger, results_dir: str,
         nonlocal last_test_t, last_log_t, last_runner_log_t, last_save_t
         nonlocal nonfinite_streak, train_acc, spec
         restored = load_checkpoint(dirname, _ckpt_state(), verify=False,
-                                   place=None if dp is None else dp.place)
+                                   place=None if dp is None else dp.place,
+                                   prng_impl=cfg.prng_impl)
         if P:
             ts = [_set_t_env(t, step) for t in restored.ts]
             spec = restored.spec
@@ -1227,13 +1244,15 @@ def run_sequential(exp: Experiment, logger: Logger, results_dir: str,
                         row = []
                         for m in range(len(key2)):
                             if g:
-                                key2[m], k_s = prng.split(key2[m]).unbind(0)
+                                key2[m], k_s = prng.split(
+                                    key2[m], 2, cfg.prng_impl).unbind(0)
                                 row.append(k_s)
                             else:
                                 row.append(torch.zeros_like(key2[m]))
                         key_rows.append(torch.stack(row))
                     elif g:
-                        key2, k_sample = prng.split(key2).unbind(0)
+                        key2, k_sample = prng.split(
+                            key2, 2, cfg.prng_impl).unbind(0)
                         key_rows.append(k_sample)
                     else:
                         key_rows.append(torch.zeros_like(key2))
@@ -1296,7 +1315,8 @@ def run_sequential(exp: Experiment, logger: Logger, results_dir: str,
                        if exp.host_buffer
                        else buffer_filled >= cfg.batch_size)
                 if can and episode >= cfg.accumulated_episodes:
-                    key2, k_sample = prng.split(key).unbind(0)
+                    key2, k_sample = prng.split(
+                        key, 2, cfg.prng_impl).unbind(0)
 
                     def _train_once(ts=ts, k_sample=k_sample):
                         ts, info = train_iter(ts, k_sample, t_env)
@@ -1399,8 +1419,8 @@ def run_sequential(exp: Experiment, logger: Logger, results_dir: str,
                     >= 1.0):
                 er = exp.episode_runner
                 if er_rs is None:
-                    er_rs = er.init_state(prng.PRNGKey(cfg.seed + 3,
-                                                       device))
+                    er_rs = er.init_state(prng.PRNGKey(cfg.seed + 3, device,
+                                                       cfg.prng_impl))
                 er_rs, _, _, traj = er.run(ts.learner.params["agent"],
                                            er_rs, test_mode=True,
                                            capture_trajectory=True)
@@ -1973,7 +1993,7 @@ def run_sebulba(exp: Experiment, logger: Logger, results_dir: str,
 
     # ---- state init / resume --------------------------------------------
     key = (pop.member_keys(cfg, device) if P
-           else prng.PRNGKey(cfg.seed + 1, device))
+           else prng.PRNGKey(cfg.seed + 1, device, cfg.prng_impl))
 
     def _at(state, step):
         at = lambda t: dataclasses.replace(  # noqa: E731
@@ -1990,7 +2010,7 @@ def run_sebulba(exp: Experiment, logger: Logger, results_dir: str,
         dirname, step = found_
         restored = elastic.resume_state(
             dirname, seb.join(), verify=False,
-            topology={"loop": "sebulba"})
+            topology={"loop": "sebulba"}, prng_impl=cfg.prng_impl)
         seb.place(_at(restored, step))
         log.info(f"resumed from {dirname} at t_env={step}")
         return step
@@ -2092,11 +2112,13 @@ def run_sebulba(exp: Experiment, logger: Logger, results_dir: str,
                         and episode >= cfg.accumulated_episodes):
                     if P:
                         # each member's stream split as the solo one
-                        pairs = [prng.split(k).unbind(0) for k in key]
+                        pairs = [prng.split(k, 2, cfg.prng_impl).unbind(0)
+                                 for k in key]
                         key2 = [k for k, _ in pairs]
                         k_sample = torch.stack([k for _, k in pairs])
                     else:
-                        key2, k_sample = prng.split(key).unbind(0)
+                        key2, k_sample = prng.split(
+                            key, 2, cfg.prng_impl).unbind(0)
 
                     def _train_once(k_sample=k_sample, t=t_env):
                         info = learner_step(k_sample, t)
@@ -2405,7 +2427,8 @@ def evaluate_sequential(exp: Experiment, logger: Logger, results_dir: str,
                          f"runner state starts fresh")
 
     er = exp.episode_runner
-    rs = er.init_state(prng.PRNGKey(cfg.seed + 2, exp.device))
+    rs = er.init_state(prng.PRNGKey(cfg.seed + 2, exp.device,
+                                    cfg.prng_impl))
     params = ts.learner.params["agent"]
 
     trajs = []

@@ -37,10 +37,12 @@ correctly rounded product that JAX's device multiply gives, and
 into the scenario sampler key (``envs/graftworld.member_scenario_key``).
 Under data parallelism (``comm``, a ``parallel.mesh.RankComm``) the
 runner steps its rank's lanes ``rank, rank + N, ...`` of the
-``batch_size_run`` global lanes: every per-lane key is its row of the
-global split, every draw over the lane axis its rows of the global draw
-(``prng``'s ``rows``), so a lane acts and steps as it does in a
-one-rank run; ``t_env`` and the epsilons advance by the global lane
+``batch_size_run`` global lanes: the env and the scenario sampler take
+the global split of lane keys and the rank's ``rows`` of it, and every
+draw over the lane axis is its rows of the global draw (``prng``'s
+``rows``; under an RngBitGenerator impl the global draw comes from the
+first lane's key, JAX's vmap rule), so a lane acts and steps as it does
+in a one-rank run; ``t_env`` and the epsilons advance by the global lane
 count, and the stats are gathered into the global lane order before
 anyone divides them: at the end of the rollout, or with ``gather=False``
 by the caller (``gather_stats``; the fused superstep gathers a
@@ -132,10 +134,12 @@ class ParallelRunner:
         return slice(self.comm.rank, self.cfg.batch_size_run,
                      self.comm.world)
 
-    def _lane_keys(self, key: torch.Tensor) -> torch.Tensor:
-        """``split(key, batch_size_run)``, the rank's rows of it."""
-        keys = prng.split(key, self.cfg.batch_size_run)
-        return keys if self.comm is None else keys[..., self.lanes, :]
+    def _lane_keys(self, key: torch.Tensor, scan: int = 0) -> torch.Tensor:
+        """``split(key, batch_size_run)``: the global lanes' keys (a rank
+        keeps its ``lanes`` of each draw over them). ``scan``: as
+        ``prng.split``'s."""
+        return prng.split(key, self.cfg.batch_size_run, self.cfg.prng_impl,
+                          scan)
 
     @property
     def compact_store(self) -> bool:
@@ -162,20 +166,24 @@ class ParallelRunner:
         """One ``EnvParams`` per lane from the salted side key; ``member``
         (a population member's index, under ``population.scenario_salt``)
         folds into it too."""
-        k = prng.fold_in(key, _SCENARIO_SALT)
+        impl = self.cfg.prng_impl
+        k = prng.fold_in(key, _SCENARIO_SALT, impl)
         if member is not None:
-            k = member_scenario_key(k, member)
-        return self.scenario.sample(self._lane_keys(k), self.env)
+            k = member_scenario_key(k, member, impl)
+        return self.scenario.sample(self._lane_keys(k), self.env,
+                                    self.lanes)
 
     def init_state(self, key: torch.Tensor) -> RunnerState:
         """Initial env states with fresh norms; ``env_args.seed`` folds
         into the key chain (Q8)."""
-        key = prng.fold_in(key, self.cfg.env_args.seed)
-        key, k_reset = prng.split(key).unbind(-2)
+        impl = self.cfg.prng_impl
+        key = prng.fold_in(key, self.cfg.env_args.seed, impl)
+        key, k_reset = prng.split(key, 2, impl).unbind(-2)
         env_params = self._sample_scenarios(k_reset)
         states = self.env.reset(self._lane_keys(k_reset),
                                 None, env_params, obs_form="compact"
-                                if self.compact_store else "dense")[0]
+                                if self.compact_store else "dense",
+                                rows=self.lanes)[0]
         return RunnerState(
             env_states=states, key=key, t_env=0,
             rscale=RewardScaleState.create(self.cfg.gamma,
@@ -212,25 +220,37 @@ class ParallelRunner:
 
     def run_raw(self, params, rs: RunnerState, test_mode: bool = False,
                 capture: bool = False, eps: torch.Tensor = None,
-                eps_scale=None, member=None, gather: bool = True):
+                eps_scale=None, member=None, gather: bool = True,
+                lead: torch.Tensor = None):
         """``run`` before the episode-batch assembly: → (runner state',
         ``TimeMajorEpisodes``, stats[, viz]). ``eps`` (``(T,)`` f32 on the
         device, ``epsilons(rs.t_env, eps_scale)``'s values) replaces the
         host epsilon of each training step; without it, ``eps_scale``
         scales the host epsilons. ``member``: the scenario salt of a
         population member (module docstring). ``gather=False`` leaves a
-        data-parallel rank's stats on its own lanes."""
+        data-parallel rank's stats on its own lanes. ``lead`` (a
+        population member's key under an RngBitGenerator impl,
+        ``prng.seat`` of member 0's runner key): every draw comes from
+        member 0's chain, the member's rows of it (JAX vmaps the members),
+        while the runner key the member carries is its own (``member``
+        is then member 0's salt)."""
         env, b, t_len = self.env, self.batch_size, self.env.cfg.episode_limit
         if eps is None and eps_scale is not None and not test_mode:
             eps = self.epsilons(rs.t_env, eps_scale).to(rs.key.device)
         eps_steps = eps
-        key, k_reset, k_scan = prng.split(rs.key, 3).unbind(-2)
+        impl = self.cfg.prng_impl
+        key, k_reset, k_scan = prng.split(rs.key, 3, impl).unbind(-2)
+        draw_key = rs.key
+        if lead is not None:
+            _, k_reset, k_scan = prng.split(lead, 3, impl).unbind(-2)
+            key = prng.member_split(rs.key, lead, 3, impl)[0]
+            draw_key = lead
         params = self.mac.prepare_acting_params(params)
-        env_params = self._sample_scenarios(rs.key, member)
+        env_params = self._sample_scenarios(draw_key, member)
         form = self.obs_form
         env_states, obs, gstate, avail = env.reset(
             self._lane_keys(k_reset), rs.env_states.norm, env_params,
-            obs_form=form)
+            obs_form=form, rows=self.lanes)
         hidden = self.mac.init_hidden(b)
         # a rank's lanes of the global dropout masks
         drop_rows = None
@@ -279,13 +299,16 @@ class ParallelRunner:
                 "info": []} if capture else None)
         t_env = rs.t_env
         # every draw of the episode at once: the keys of step t are
-        # split(k_scan, T)[t] -> k_act, k_env as in the JAX scan, and no
-        # draw depends on the env's state
-        k_act, k_env = prng.split(prng.split(k_scan, t_len)).unbind(-2)
+        # split(k_scan, T)[t] -> k_act, k_env as in the JAX scan (the
+        # steps are a scan axis, not a vmap one), and no draw depends on
+        # the env's state
+        k_act, k_env = prng.split(prng.split(k_scan, t_len, impl), 2, impl,
+                                  scan=1).unbind(-2)
         sel = (None if test_mode else
                self.mac.exploration_draws(k_act, self.cfg.batch_size_run,
                                           self.lanes))
-        env_draws = env.draw_step(self._lane_keys(k_env))    # (T, B, A)
+        env_draws = env.draw_step(self._lane_keys(k_env, scan=1), scan=1,
+                                  rows=self.lanes)           # (T, B, A)
         for t in range(t_len):
             actions, hidden, eps = self.mac.select_actions(
                 params, dense, avail, hidden, k_act[t], t_env,

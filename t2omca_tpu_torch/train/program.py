@@ -45,7 +45,7 @@ def build_train_iter(buffer, learner, cfg):
 
     def train_iter(ts: TrainState, key: torch.Tensor, t_env,
                    beta: Optional[torch.Tensor] = None, spec=None):
-        k_sample, k_learn = prng.split(key).unbind(-2)
+        k_sample, k_learn = prng.split(key, 2, cfg.prng_impl).unbind(-2)
         batch, idx, weights = buffer.sample(ts.buffer, k_sample,
                                             cfg.batch_size, t_env,
                                             beta=beta)

@@ -111,6 +111,7 @@ from typing import Dict, List, Optional, Sequence
 import torch
 from torch.profiler import record_function
 
+from .. import prng
 from ..kernels import attention, dropout
 from ..obs import sight
 from ..utils.checkpoint import flatten_state, map_tensors
@@ -384,7 +385,7 @@ def capture_segments(fn, pool, comm, stream=None) -> Segments:
 class SuperstepProgram:
     """``superstep(ts, keys, t_env0, gated) -> (ts', stats, infos)``: K
     iterations from ``ts`` (see the module docstring). ``keys`` is the
-    ``(K, 2)`` stack of train keys (rows of skipped sub-iterations are
+    ``(K, width)`` stack of train keys (rows of skipped sub-iterations are
     not read), ``t_env0`` the driver's ``t_env`` before the dispatch
     (sub-iteration ``i`` trains at ``t_env0 + (i+1)·B·T``), ``gated`` the
     K gates of the host mirror. → the bound state, the ``(K, B)``
@@ -402,12 +403,17 @@ class SuperstepProgram:
 
     ``member`` (a population member's index) turns on the spec seams
     (``set_spec``, the module docstring); ``stream`` (a CUDA stream) is the
-    stream it captures on, else torch's default capture stream."""
+    stream it captures on, else torch's default capture stream. ``seat``
+    (the member's index under an RngBitGenerator impl, ``prng.seat``):
+    every draw is the member's rows of member 0's, as JAX's vmap of the
+    members draws: the program keeps member 0's runner key (``lead``,
+    filled by the population at each dispatch and advanced with each
+    rollout) and takes member 0's train keys."""
 
     timing = False
 
     def __init__(self, exp, k: int, member: Optional[int] = None,
-                 stream=None):
+                 stream=None, seat: Optional[int] = None):
         cfg = exp.cfg
         if cfg.replay.buffer_cpu_only:
             raise ValueError(
@@ -422,7 +428,12 @@ class SuperstepProgram:
         self._per = hasattr(exp.buffer, "per_beta")
         dev, t_len = self.device, cfg.env_args.episode_limit
         self._eps = torch.zeros(t_len, device=dev)
-        self._key = torch.zeros(2, dtype=torch.int64, device=dev)
+        self._key = torch.zeros(prng.IMPLS[cfg.prng_impl],
+                                dtype=torch.int64, device=dev)
+        self.seat, self.lead = seat, None
+        if seat is not None:
+            self._key = prng.seat(self._key, seat)
+            self.lead = self._key.clone()
         self._beta = torch.zeros((), device=dev)
         self.member, self.stream = member, stream
         self._spec = None
@@ -435,7 +446,8 @@ class SuperstepProgram:
                                      device=dev))
             self._eps_scale = 1.0
             if cfg.population.scenario_salt:
-                self._salt = member
+                # a seated member draws with member 0's salt
+                self._salt = member if seat is None else 0
         self.state: Optional[TrainState] = None
         self.graphs: Dict[str, object] = {}
         self.outputs: Dict[str, object] = {}
@@ -455,7 +467,11 @@ class SuperstepProgram:
         exp = self.exp
         rs, tm, stats = exp.runner.run_raw(ts.learner.params["agent"],
                                            ts.runner, eps=self._eps,
-                                           member=self._salt, gather=False)
+                                           member=self._salt, gather=False,
+                                           lead=self.lead)
+        if self.lead is not None:
+            self.lead.copy_(prng.split(self.lead, 3,
+                                       exp.cfg.prng_impl)[0])
         buf = exp.buffer.insert_time_major(
             ts.buffer, tm,
             alpha=None if self._spec is None else self._spec.per_alpha)
@@ -597,7 +613,7 @@ class SuperstepProgram:
             stats.append(map_tensors(out, torch.clone))
             ts.runner.t_env += spr
             if gated[i]:
-                self._key.copy_(keys[i])
+                self._key[:keys.shape[-1]].copy_(keys[i])
                 if self._per:
                     self._beta.fill_(exp.buffer.per_beta(t_env0
                                                          + (i + 1) * spr))
@@ -654,10 +670,18 @@ class PopulationProgram:
         self.exp, self.k, self.device = exp, k, exp.device
         self.graphed = self.device.type == "cuda"
         self.ids = list(range(p) if members is None else members)
+        # under an RngBitGenerator impl JAX's vmap draws every member's
+        # numbers from member 0's keys (prng.seat)
+        self.seated = p > 1 and exp.cfg.prng_impl != "threefry"
+        if self.seated and self.ids != list(range(p)):
+            raise ValueError("a population under an RngBitGenerator impl "
+                             "runs every member in one program (member 0's "
+                             "keys draw for all)")
         self.members = [
             SuperstepProgram(exp, k, member=None if neutral else m,
                              stream=(torch.cuda.Stream(self.device)
-                                     if self.graphed else None))
+                                     if self.graphed else None),
+                             seat=m if self.seated else None)
             for m in self.ids]
 
     @property
@@ -698,6 +722,11 @@ class PopulationProgram:
                              f"{tuple(keys.shape)}")
         caller = (torch.cuda.current_stream(self.device) if self.graphed
                   else None)
+        if self.seated:
+            # member 0's runner key as every member finds it, before any
+            # member's rollout moves it (on the caller's stream)
+            for prog in self.members:
+                prog.lead[:4].copy_(pts[0].runner.key)
         outs = []
         for j, (prog, ts) in enumerate(zip(self.members, pts)):
             ctx = (torch.cuda.stream(prog.stream) if self.graphed
@@ -707,9 +736,12 @@ class PopulationProgram:
                     prog.stream.wait_stream(caller)
                     keys.record_stream(prog.stream)
                 if spec is not None and prog.member is not None:
-                    prog.set_spec(*spec.scalars(prog.member))
-                ts, stats, infos = prog._dispatch(ts, keys[j], t_env0,
-                                                  gated)
+                    lr, eps, alpha, salt = spec.scalars(prog.member)
+                    if self.seated:
+                        salt = spec.scalars(0)[3]
+                    prog.set_spec(lr, eps, alpha, salt)
+                ts, stats, infos = prog._dispatch(
+                    ts, keys[0 if self.seated else j], t_env0, gated)
                 if self.graphed:
                     for t in (list(flatten_state(stats)[0].values())
                               + list(infos.values())):

@@ -735,10 +735,15 @@ def _restore_leaves(template: Any, tensors: Dict[str, torch.Tensor],
                                             tensors[prefix + k].dtype)]
     if bad:
         k, st, sd, rt, rd = bad[0]
+        keys = [b for b in bad if b[0].endswith("key")]
+        why = (f"; a key of {keys[0][3][-1]} words was stored and "
+               f"{keys[0][1][-1]} are configured: the checkpoint's "
+               f"prng_impl is not this run's (threefry keys have 2 words, "
+               f"rbg and unsafe_rbg keys 4)" if keys else "")
         raise ValueError(
             f"checkpoint {dirname} was written under a different config: "
             f"{len(bad)} {what} leaves mismatch the template (first: {k} "
-            f"stored {rt} {rd} vs configured {st} {sd}). Use "
+            f"stored {rt} {rd} vs configured {st} {sd}{why}). Use "
             f"load_learner_state for a model-only restore")
 
     def leaf(path, x):
@@ -762,11 +767,14 @@ def _member_ids(target: Any) -> List[int]:
 
 
 def _lift_population(target: Any, tensors: Dict[str, torch.Tensor],
-                     host: Dict[str, Any], dirname: str, place=None) -> Any:
+                     host: Dict[str, Any], dirname: str, place=None,
+                     prng_impl: Optional[str] = None) -> Any:
     """A single-member checkpoint restored into the population template
     ``target`` (the module docstring): every member from the one state,
     each with tensors of its own, members ``m >= 1`` with their rollout
-    key re-salted by ``fold_in(key, m)``; the spec stays the template's."""
+    key re-salted by ``fold_in(key, m)`` under ``prng_impl`` (which a
+    4-word key requires; None: threefry); the spec stays the
+    template's."""
     members = []
     for m, template in zip(_member_ids(target), _members(target)):
         st = _restore_leaves(template, tensors, host, dirname,
@@ -775,7 +783,7 @@ def _lift_population(target: Any, tensors: Dict[str, torch.Tensor],
             st = map_tensors(st, torch.clone)
             runner = getattr(st, "runner", None)
             if runner is not None and hasattr(runner, "key"):
-                runner.key = prng.fold_in(runner.key, m)
+                runner.key = prng.fold_in(runner.key, m, prng_impl)
         members.append(st)
     return dataclasses.replace(target, ts=members)
 
@@ -829,19 +837,21 @@ def _take_members(tensors: Dict[str, torch.Tensor], host: Dict[str, Any],
 
 
 def _resalt_member_keys(tensors: Dict[str, torch.Tensor],
-                        members: List[int]) -> None:
+                        members: List[int],
+                        prng_impl: Optional[str] = None) -> None:
     """Re-salt the listed members' rollout keys (``ts.<m>.runner.key``)
     with ``fold_in(key, m)`` (JAX's ``_resalt_member_keys``): a member
     replicated from another must not draw its trajectories."""
     for m in members:
         k = f"ts.{m}.runner.key"
         if k in tensors:
-            tensors[k] = prng.fold_in(tensors[k], m)
+            tensors[k] = prng.fold_in(tensors[k], m, prng_impl)
 
 
 def _reshape_population(tensors: Dict[str, torch.Tensor],
                         host: Dict[str, Any], p_dst: int,
-                        member_ranking: Optional[List[int]] = None
+                        member_ranking: Optional[List[int]] = None,
+                        prng_impl: Optional[str] = None
                         ) -> Tuple[Dict[str, torch.Tensor], Dict[str, Any]]:
     """A stored population resized to ``p_dst`` members (JAX's
     ``_reshape_population``): a shrink keeps ``member_ranking[:p_dst]``
@@ -868,7 +878,7 @@ def _reshape_population(tensors: Dict[str, torch.Tensor],
         idx = list(range(p_src)) + [m % p_src for m in range(p_src, p_dst)]
         salted = list(range(p_src, p_dst))
     tensors, host = _take_members(tensors, host, idx)
-    _resalt_member_keys(tensors, salted)
+    _resalt_member_keys(tensors, salted, prng_impl)
     logger.info("_reshape_population: %s P=%d -> P=%d (members %s%s)",
                 "shrank" if p_dst < p_src else "grew", p_src, p_dst, idx,
                 f", re-salted {salted}" if salted else "")
@@ -889,7 +899,7 @@ def _extract_member(tensors: Dict[str, torch.Tensor], host: Dict[str, Any],
 
 
 def _load(dirname: str, target: Any, meta: dict, verify: bool, place,
-          elastic: bool) -> Any:
+          elastic: bool, prng_impl: Optional[str] = None) -> Any:
     """The restore core: ``state.pt`` into ``target``, reshaped first when
     ``elastic`` (a shrink or an extract by the ``member_ranking`` stamped
     into ``meta.json``)."""
@@ -911,9 +921,10 @@ def _load(dirname: str, target: Any, meta: dict, verify: bool, place,
             tensors, host = _extract_member(tensors, host, member_ranking)
         elif want_p is not None and saved_p is not None:
             tensors, host = _reshape_population(tensors, host, want_p,
-                                                member_ranking)
+                                                member_ranking, prng_impl)
     if members is not None and _stored_population(tensors) is None:
-        restored = _lift_population(target, tensors, host, dirname, place)
+        restored = _lift_population(target, tensors, host, dirname, place,
+                                    prng_impl)
     elif members is not None:
         restored = _restore_population(target, tensors, host, dirname,
                                        place)
@@ -925,7 +936,7 @@ def _load(dirname: str, target: Any, meta: dict, verify: bool, place,
 
 
 def load_checkpoint(dirname: str, target: Any, verify: bool = True,
-                    place=None) -> Any:
+                    place=None, prng_impl: Optional[str] = None) -> Any:
     """Restore into a template of the same structure (``target``: a
     ``TrainState`` of the configured shapes, or a ``population.PopState``
     of them; its tensors' devices are where the restored ones land). A
@@ -940,17 +951,21 @@ def load_checkpoint(dirname: str, target: Any, verify: bool = True,
     rank's part of each leaf (``DataParallel.place``); the file is then
     mapped on the host, so a rank reads only the pages of its own rows
     and of the replicated leaves, not the whole global ring (a rank's
-    population members are read the same way)."""
+    population members are read the same way). ``prng_impl``: the run's,
+    for the rollout keys a lift or a grow re-salts."""
     meta = read_meta(dirname)
     _check_obs_layout(meta, target, dirname)
     saved_p = (meta.get("topology") or {}).get("population")
     if saved_p is not None and saved_p != _population(target):
-        return restore_elastic(dirname, target, verify=verify, meta=meta)
-    return _load(dirname, target, meta, verify, place, elastic=False)
+        return restore_elastic(dirname, target, verify=verify, meta=meta,
+                               prng_impl=prng_impl)
+    return _load(dirname, target, meta, verify, place, elastic=False,
+                 prng_impl=prng_impl)
 
 
 def restore_elastic(dirname: str, target: Any, verify: bool = True,
-                    meta: Optional[dict] = None) -> Any:
+                    meta: Optional[dict] = None,
+                    prng_impl: Optional[str] = None) -> Any:
     """Restore any checkpoint into the current run's population shape
     (JAX's ``restore_elastic``): a population of another P is reshaped
     (:func:`_reshape_population`), a population into a template without
@@ -965,7 +980,8 @@ def restore_elastic(dirname: str, target: Any, verify: bool = True,
     resilience.fire("checkpoint.elastic", dirname=dirname,
                     format=meta.get("format"))
     try:
-        return _load(dirname, target, meta, verify, None, elastic=True)
+        return _load(dirname, target, meta, verify, None, elastic=True,
+                     prng_impl=prng_impl)
     except ValueError as e:
         raise ValueError(
             f"checkpoint {dirname} does not match the configured "

@@ -50,7 +50,8 @@ def _needs_elastic(saved: Optional[dict], current: dict) -> bool:
 
 
 def resume_state(dirname: str, template: Any, verify: bool = True,
-                 topology: Optional[dict] = None, place=None) -> Any:
+                 topology: Optional[dict] = None, place=None,
+                 prng_impl: Optional[str] = None) -> Any:
     """Restore ``dirname`` into the current topology: ``template`` is this
     run's (or this rank's) state, ``topology`` the driver's stamp facts,
     ``place`` a data-parallel rank's part of each leaf. A stamped
@@ -58,7 +59,8 @@ def resume_state(dirname: str, template: Any, verify: bool = True,
     shrink keeps the stamped ``member_ranking``'s best); a change of device,
     process or loop shape is logged and handled by placement; a
     checkpoint without a stamp that fails the rigid path structurally is
-    retried once through the elastic path."""
+    retried once through the elastic path. ``prng_impl``: the run's,
+    for the rollout keys a lift or a grow re-salts."""
     saved = (_ckpt.read_meta(dirname) or {}).get("topology")
     current = _ckpt._topology_stamp(template, topology)
     diffs = topology_mismatch(saved, current)
@@ -66,14 +68,15 @@ def resume_state(dirname: str, template: Any, verify: bool = True,
         logger.warning("resume_state: topology changed since %s was "
                        "written (%s) — routing through restore_elastic",
                        dirname, "; ".join(diffs))
-        return _ckpt.restore_elastic(dirname, template, verify=verify)
+        return _ckpt.restore_elastic(dirname, template, verify=verify,
+                                     prng_impl=prng_impl)
     if diffs:
         logger.warning("resume_state: placement-only topology change for "
                        "%s (%s) — each leaf is placed onto the current "
                        "run", dirname, "; ".join(diffs))
     try:
         return _ckpt.load_checkpoint(dirname, template, verify=verify,
-                                     place=place)
+                                     place=place, prng_impl=prng_impl)
     except ValueError as e:
         if saved is not None:
             raise             # stamped and the same shape: a real config
@@ -81,4 +84,5 @@ def resume_state(dirname: str, template: Any, verify: bool = True,
         logger.warning("resume_state: rigid restore of stampless "
                        "checkpoint %s failed structurally (%s) — retrying "
                        "through restore_elastic once", dirname, e)
-        return _ckpt.restore_elastic(dirname, template, verify=verify)
+        return _ckpt.restore_elastic(dirname, template, verify=verify,
+                                     prng_impl=prng_impl)

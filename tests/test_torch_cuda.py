@@ -404,6 +404,125 @@ def test_dropout_mask_kernel_matches_plain(cuda_device, shape, keep):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("impl", ["rbg", "unsafe_rbg"])
+def test_philox_on_cuda_equals_cpu_bit_for_bit(cuda_device, impl):
+    """The rbg impls' draws (XLA's CPU Philox stream, int64 products that
+    wrap) on the card equal the CPU's, the 128-bit carry keys too."""
+    from t2omca_tpu_torch import prng
+    keys = [prng.PRNGKey(3, "cpu", impl),
+            torch.tensor([0xDEADBEEF, 7, 0xFFFFFFFF, 0xFFFFFFFF]),
+            torch.tensor([1, 2, 0xFFFFFFFE, 0xFFFFFFFF])]
+    for key in keys:
+        kc = key.to(cuda_device)
+        for f in (lambda k: prng.split(k, 150, impl),
+                  lambda k: prng.fold_in(k, 0x5CE7, impl),
+                  lambda k: prng.random_bits(k, (64, 9)),
+                  lambda k: prng.random_bits(prng.split(k, 6, impl), (5,)),
+                  lambda k: prng.uniform(k, (64,), 4000.0, 12000.0),
+                  lambda k: prng.bernoulli(k, 0.5, (64,)),
+                  lambda k: prng.randint(k, (64,), 0, 8, impl)):
+            assert torch.equal(f(kc).cpu(), f(key))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl", ["rbg", "unsafe_rbg"])
+@pytest.mark.parametrize("shape,per", [((2048, 65, 256), 64),
+                                       ((32, 131, 256), 1),
+                                       ((8192, 65, 256), 64),
+                                       ((6, 5, 7), 3), ((1,), 1)])
+def test_dropout_mask_philox_path_matches_plain(cuda_device, impl, shape,
+                                                per):
+    """The kernel's Philox path (4-word keys) against its plain version
+    bit for bit, with and without a rank's row map (lanes ``1, 3, ...``,
+    each lane's rows together: rows of 35 elements start inside a
+    block), carry keys included, counted under ``dropout_mask_philox``, a
+    population member's key (``prng.seat``) giving its rows of member 0's
+    draw, and captured into a graph whose replay reads the static key."""
+    from t2omca_tpu_torch import prng
+    from t2omca_tpu_torch.flax_rng import Rows
+    from t2omca_tpu_torch.kernels import dropout as dk
+    keys = [prng.split(prng.PRNGKey(7, cuda_device, impl), 2, impl)[1],
+            torch.tensor([5, 6, 0xFFFFFFFF, 0xFFFFFFFF],
+                         device=cuda_device)]
+    dk.reset_launches()
+    for key in keys:
+        for fold in (0, 0x9E3779B9, 2 ** 32 - 1):
+            got = dk.keep_mask(key, fold, 0.9, shape, impl=impl)
+            assert got.shape == shape
+            assert torch.equal(got, dk.keep_mask_reference(
+                key, fold, 0.9, shape, impl=impl))
+    assert dk.LAUNCHES["dropout_mask_philox"] == 6
+    assert dk.LAUNCHES["dropout_mask"] == 0
+    key, fold = keys[0], 0x9E3779B9
+    if shape[0] >= 2 * per:
+        whole = dk.keep_mask(key, fold, 0.9, shape, impl=impl)
+        lanes = shape[0] // per
+        rows, _ = Rows(torch.arange(1, lanes, 2, device=cuda_device),
+                       lanes).of(shape[0] // 2)
+        got = dk.keep_mask(key, fold, 0.9, shape, rows, impl)
+        assert torch.equal(got, whole[rows])
+        assert torch.equal(got, dk.keep_mask_reference(key, fold, 0.9,
+                                                       shape, rows, impl))
+    # a population member's key: its rows of member 0's draw over 2
+    doubled = dk.keep_mask(key, fold, 0.9, (2 * shape[0],) + shape[1:],
+                           impl=impl)
+    assert torch.equal(dk.keep_mask(prng.seat(key, 1), fold, 0.9, shape,
+                                    impl=impl), doubled[shape[0]:])
+    assert torch.equal(dk.keep_mask_reference(prng.seat(key, 1), fold, 0.9,
+                                              shape, impl=impl),
+                       doubled[shape[0]:])
+    static = key.clone()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = dk.keep_mask(static, fold, 0.9, shape, impl=impl)
+    static.copy_(keys[1])
+    g.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, dk.keep_mask_reference(keys[1], fold, 0.9,
+                                                   shape, impl=impl))
+
+
+@pytest.mark.cuda
+def test_sp_mixer_on_two_streams_matches_the_dense_mixer(cuda_device):
+    """``mixer_apply_sp`` with 2 placements as streams of the card
+    against the dense mixer forward (a token count the placements do not
+    divide, so one block ends in padding), and ``ring_attention``'s
+    gradient through the streams against the dense one's."""
+    from t2omca_tpu_torch.models.mixer import TransformerMixer
+    from t2omca_tpu_torch.parallel import (mixer_apply_sp, ring_attention,
+                                           sp_placements)
+    from t2omca_tpu_torch.parallel.ring_attention import gather, scatter
+    g = torch.Generator().manual_seed(0)
+    m = TransformerMixer(6, 6, 8, 32, 2, 2, zero_init_gate=True)
+    with torch.no_grad():
+        for p in m.parameters():
+            p.copy_(torch.randn(p.shape, generator=g) * 0.3)
+    m = m.to(cuda_device)
+    x = [torch.randn(s, generator=g).to(cuda_device)
+         for s in ((4, 1, 6), (4, 6, 32), (4, 3, 32), (4, 48), (4, 6, 8))]
+    places = sp_placements(2, cuda_device, share_cards=True)
+    assert all(p.stream is not None for p in places)
+    with torch.no_grad():
+        y, h = m(*x)
+        ys, hs = mixer_apply_sp(m, *x, places)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(ys, y, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(hs, h, atol=1e-4, rtol=1e-4)
+    q, k, v = (torch.randn(2, 3, 30, 16, generator=g).to(cuda_device)
+               for _ in range(3))
+    q.requires_grad_()
+    cut = lambda t: scatter(list(t.tensor_split(2, dim=2)), places)
+    out = ring_attention(cut(q), cut(k), cut(v), places)
+    out = torch.cat(gather(out, places, cuda_device), dim=2)
+    (gq,) = torch.autograd.grad(out.sum(), q)
+    ref = torch.softmax(q @ k.transpose(-1, -2), -1) @ v
+    (gr,) = torch.autograd.grad(ref.sum(), q)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(gq, gr, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("layout,shape,per", [
     ("block", (2048, 65, 256), 64), ("block", (32, 131, 256), 1),
     ("lanes", (8192, 65, 256), 64), ("lanes", (6, 5, 7), 3)])

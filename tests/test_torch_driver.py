@@ -382,10 +382,86 @@ def test_profile_dir_writes_a_trace(tmp_path):
         assert json.load(f)["traceEvents"]
 
 
+def _overrides(d, prefix=""):
+    """A config dict as the CLIs' ``key=value`` overrides."""
+    out = []
+    for k, v in d.items():
+        if isinstance(v, dict):
+            out += _overrides(v, f"{prefix}{k}.")
+        else:
+            out.append(f"{prefix}{k}={v}")
+    return out
+
+
+def _checkpoints(root, load):
+    """``{t_env: {leaf: numpy}}`` of the run's checkpoints under ``root``,
+    without what the params decide: the learner's leaves, PER's
+    priorities, and what the greedy test rollouts touch (the env states
+    and the normalizer they carry, and the obs statistics stored with
+    it)."""
+    out = {}
+    for d in glob.glob(os.path.join(str(root), "models", "*", "*")):
+        out[int(os.path.basename(d))] = {
+            k: v for k, v in load(d).items()
+            if not k.startswith(("learner.", "runner.env_states."))
+            and "priorit" not in k
+            and not k.startswith(("buffer.storage.obs.mean",
+                                  "buffer.storage.obs.std"))}
+    return out
+
+
+def _jax_checkpoint(d):
+    from flax import serialization
+    with open(os.path.join(d, "state.msgpack"), "rb") as f:
+        tree = serialization.msgpack_restore(f.read())
+
+    def walk(x, pre):
+        if isinstance(x, dict):
+            for k, v in x.items():
+                yield from walk(v, f"{pre}{k}.")
+        else:
+            yield pre[:-1], np.asarray(x)
+    return dict(walk(tree, ""))
+
+
+def _port_checkpoint(d):
+    sd = torch.load(os.path.join(d, "state.pt"), weights_only=False)
+    return {k: v.numpy() for k, v in sd.items()
+            if isinstance(v, torch.Tensor)}
+
+
 def test_driver_raises_for_what_is_not_ported(tmp_path):
-    # the rbg PRNG is not ported (ROADMAP item 14)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        _run_port(tmp_path / "x", prng_impl="rbg")
+    # the rbg PRNG is ported (ROADMAP item 14): a tiny run under
+    # prng_impl=rbg through both CLIs. Epsilon held at 1 makes every
+    # training action a random one, so the rollouts, their returns and
+    # what the checkpoints hold of them do not depend on the two
+    # packages' different initial params: they are equal bit for bit
+    from t2omca_tpu.__main__ import main as jax_main
+    kw = dict(prng_impl="rbg", epsilon_finish=1.0, t_max=48,
+              save_model_interval=12)
+    try:
+        assert jax_main(["train", *_overrides(
+            tiny(tmp_path / "jax", **kw))]) == 0
+    finally:
+        jax.config.update("jax_default_prng_impl", "threefry2x32")
+        jax.clear_caches()
+    assert cli.main(["train", "--device", "cpu", *_overrides(
+        tiny(tmp_path / "port", **kw))]) == 0
+    rj, rt = rows_of(tmp_path / "jax"), rows_of(tmp_path / "port")
+    assert set(rt) == set(rj)
+    returns = [k for k in rj if k[0] == "return_mean"]
+    assert len(returns) >= 3
+    for k in returns:
+        assert rt[k] == rj[k], (k, rt[k], rj[k])
+    cj = _checkpoints(tmp_path / "jax", _jax_checkpoint)
+    ct = _checkpoints(tmp_path / "port", _port_checkpoint)
+    assert set(ct) == set(cj) and len(cj) >= 3
+    for t in cj:
+        # the port keeps t_env on the host (meta.json), not a tensor
+        assert set(cj[t]) - set(ct[t]) == {"runner.t_env"}, t
+        assert ct[t]["runner.key"].shape == (4,)
+        for k, v in ct[t].items():
+            np.testing.assert_array_equal(v, cj[t][k], err_msg=f"{t} {k}")
     # obs.program_trace is ported: the classic loop's window of two
     # iterations attributes its programs' host ranges (the CPU) into
     # device_times.json and device_ms_<program> rows

@@ -27,7 +27,10 @@ float32 lowerings of the same loss (the port's plain flash-attention
 path against its einsum path, like the port against JAX) put gradient
 elements ~5e-4 apart relative, which flips the sign of Adam's first
 step, ``-lr·g/(|g| + eps)``, for the few elements whose gradient is
-that close to 0."""
+that close to 0. Where the step itself is that unstable,
+``jax_loop(witness=True)`` takes JAX's step again from params scaled by
+1 ± 1e-7, and the norm and the params share are held at the larger of
+these bounds and twice the spread JAX's own step shows."""
 
 import jax
 import jax.numpy as jnp
@@ -61,8 +64,43 @@ D = {"batch_size_run": 4, "batch_size": 4, "epsilon_anneal_time": 100,
      "replay": {"buffer_size": 8}}
 
 
-def jax_loop(exp, ts, n):
-    """``run_sequential``'s classic iteration, without its cadences."""
+#: the params scalings JAX's own train step is taken again from, with
+#: ``jax_loop(witness=True)``: a perturbation the size of one float32
+#: rounding, to see how far the step itself moves under one
+WITNESS_SCALES = (1 + 1e-7, 1 - 1e-7)
+#: how far past that spread the port's step may be
+WITNESS_MARGIN = 2
+
+
+def step_spread(train_iter, ts, key, t_env, info, after):
+    """JAX's own train step from ``ts`` with its params scaled by each of
+    ``WITNESS_SCALES``, against the unscaled step (its ``info`` and its
+    learner params ``after``) → the largest relative change of the
+    pre-clip gradient norm and the largest share of agent or mixer
+    params that end more than 1e-5 from the unscaled step's."""
+    norm = float(info["grad_norm"])
+    want = learner_params_from_flax(jax.tree.map(np.asarray, after), "cpu")
+    out = {"grad_norm": 0.0, "params": 0.0}
+    for s in WITNESS_SCALES:
+        scaled = jax.tree.map(lambda x: x * np.float32(s), ts.learner.params)
+        new, winfo = train_iter(ts.replace(learner=ts.learner.replace(
+            params=scaled)), key, jnp.asarray(t_env))
+        out["grad_norm"] = max(out["grad_norm"],
+                               abs(float(winfo["grad_norm"]) - norm) / norm)
+        got = learner_params_from_flax(
+            jax.tree.map(np.asarray, new.learner.params), "cpu")
+        for m in ("agent", "mixer"):
+            diff = torch.cat([(v - want[m][k]).abs().flatten()
+                              for k, v in got[m].items()])
+            out["params"] = max(out["params"],
+                                float((diff > 1e-5).float().mean()))
+    return out
+
+
+def jax_loop(exp, ts, n, witness: bool = False):
+    """``run_sequential``'s classic iteration, without its cadences; with
+    ``witness``, each trained iteration's record also holds
+    ``step_spread`` of its step (``"spread"``)."""
     cfg = exp.cfg
     rollout, insert, train_iter = exp.jitted_programs()
     key = jax.random.PRNGKey(cfg.seed + 1)
@@ -82,15 +120,19 @@ def jax_loop(exp, ts, n):
             rec["idx"] = exp.buffer.sample(
                 ts.buffer, jax.random.split(k_sample)[0], cfg.batch_size,
                 t_env)[1]
+            before = ts
             ts, info = train_iter(ts, k_sample, jnp.asarray(t_env))
             rec["info"] = info
+            if witness:
+                rec["spread"] = step_spread(train_iter, before, k_sample,
+                                            t_env, info, ts.learner.params)
             key = key2
         rec["ts"] = ts
         out.append(rec)
     return out
 
 
-def params_close(port_tree, jax_tree, adam_bound, what):
+def params_close(port_tree, jax_tree, adam_bound, what, frac=0.01):
     want = learner_params_from_flax(jax.tree.map(np.asarray, jax_tree),
                                     device="cpu")
     for m in ("agent", "mixer"):
@@ -98,7 +140,7 @@ def params_close(port_tree, jax_tree, adam_bound, what):
         diff = torch.cat([(v - want[m][k]).abs().flatten()
                           for k, v in port_tree[m].items()])
         off = float((diff > 1e-5).float().mean())
-        assert off <= 0.01, (what, m, off)
+        assert off <= frac, (what, m, off)
         assert float(diff.max()) <= adam_bound, (what, m)
 
 
@@ -115,7 +157,16 @@ def runs():
 
 
 def test_loop_matches_jax_for_three_iterations(runs, monkeypatch):
-    texp, ts, jts, jrecs = runs
+    check_loop_against_jax(*runs, monkeypatch)
+
+
+def check_loop_against_jax(texp, ts, jts, jrecs, monkeypatch):
+    """``run_classic`` one iteration at a time from ``ts`` against JAX's
+    records ``jrecs`` of ``jax_loop`` from ``jts`` (the module
+    docstring's checks). Where a record holds JAX's own ``"spread"``
+    (``jax_loop(witness=True)``), the gradient norm's rtol and the share
+    of params past 1e-5 are the larger of the module docstring's and
+    ``WITNESS_MARGIN`` times that spread."""
     sampled = []
     sample = PrioritizedReplayBuffer.sample
 
@@ -137,8 +188,12 @@ def test_loop_matches_jax_for_three_iterations(runs, monkeypatch):
         assert trec.info is not None, what
         np.testing.assert_array_equal(sampled[-1].numpy(),
                                       np.asarray(rec["idx"]), err_msg=what)
+        spread = rec.get("spread", {"grad_norm": 0.0, "params": 0.0})
+        norm_rtol = max(1e-4, WITNESS_MARGIN * spread["grad_norm"])
+        frac = max(0.01, WITNESS_MARGIN * spread["params"])
         for k, v in rec["info"].items():
-            tol = dict(rtol=1e-4, atol=1e-6) if k == "grad_norm" else INFO
+            tol = (dict(rtol=norm_rtol, atol=1e-6) if k == "grad_norm"
+                   else INFO)
             np.testing.assert_allclose(trec.info[k].numpy(), np.asarray(v),
                                        err_msg=f"{what} {k}", **tol)
         jbuf = rec["ts"].buffer
@@ -151,7 +206,7 @@ def test_loop_matches_jax_for_three_iterations(runs, monkeypatch):
             ts.buffer.storage.actions.numpy(),
             np.asarray(jbuf.storage.actions), err_msg=what)
         params_close(ts.learner.params, rec["ts"].learner.params,
-                     2 * texp.cfg.lr, what)
+                     2 * texp.cfg.lr, what, frac)
         assert int(ts.learner.train_steps) == \
             int(rec["ts"].learner.train_steps) == it + 1
         np.testing.assert_array_equal(
@@ -159,9 +214,10 @@ def test_loop_matches_jax_for_three_iterations(runs, monkeypatch):
             ts.buffer.storage.actions[(it * 4 + np.arange(4)) % 8].numpy())
     assert cursor.t_env == ts.runner.t_env == ITERATIONS * 4 * 20
     # the driver key advanced once per trained iteration
-    key = prng.PRNGKey(D.get("seed", 0) + 1, "cpu")
+    impl = texp.cfg.prng_impl
+    key = prng.PRNGKey(texp.cfg.seed + 1, "cpu", impl)
     for _ in range(ITERATIONS):
-        key = prng.split(key)[0]
+        key = prng.split(key, 2, impl)[0]
     assert torch.equal(cursor.key, key)
 
 

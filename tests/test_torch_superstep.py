@@ -187,7 +187,8 @@ def _fused(exp, ts, k, n_dispatches, key=None):
     info rows, gates, key)."""
     cfg = exp.cfg
     sup = exp.superstep_program(k)
-    key = prng.PRNGKey(cfg.seed + 1, exp.device) if key is None else key
+    key = (prng.PRNGKey(cfg.seed + 1, exp.device, cfg.prng_impl)
+           if key is None else key)
     spr = cfg.batch_size_run * cfg.env_args.episode_limit
     t_env, episode, filled = 0, 0, 0
     stats, kept, rows_all, gates = [], [], [], []
@@ -200,7 +201,8 @@ def _fused(exp, ts, k, n_dispatches, key=None):
                  and episode >= cfg.accumulated_episodes)
             gated.append(g)
             if g:
-                key, k_sample = prng.split(key).unbind(0)
+                key, k_sample = prng.split(key, 2,
+                                           cfg.prng_impl).unbind(0)
                 rows.append(k_sample)
             else:
                 rows.append(torch.zeros_like(key))
